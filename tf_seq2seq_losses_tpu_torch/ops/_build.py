@@ -1,0 +1,144 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+Each ``.cu`` source compiles with ``nvcc`` into its own shared library with
+a plain C interface under ``build/torch_kernels/`` at the repository root,
+keyed on a hash of the sources and flags, and is loaded with ``ctypes``.
+All sources compile in parallel at first use.  No fast-math flag: the
+log-space kernels need precise ``expf``/``log1pf``.  ``-fmad=false`` keeps
+each multiply and add rounded on its own, as in the plain PyTorch
+versions, so a kernel and its plain version round the same operations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_SOURCES = ("classic_fwd", "classic_bwd", "classic_log")
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "classic_fwd": {
+        "ctc_classic_fwd": [_P] * 6 + [_I] * 5 + [_P] * 6,
+        "ctc_classic_fwd_smem_bytes": [_I, _I],
+    },
+    "classic_bwd": {
+        "ctc_classic_bwd_streamed": [_P] * 10 + [_I] * 4 + [_P] * 5,
+        "ctc_classic_bwd_smem_bytes": [_I, _I],
+    },
+    "classic_log": {
+        "ctc_classic_log_fwd": [_P] * 6 + [_I] * 4 + [_P] * 5,
+        "ctc_classic_log_bwd": [_P] * 10 + [_I] * 3 + [_P] * 4,
+        "ctc_classic_log_fwd_smem_bytes": [_I],
+        "ctc_classic_log_bwd_smem_bytes": [_I],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("the CUDA toolkit (nvcc) was not found; set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in sorted(_CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_size_t if fn.endswith("_smem_bytes") else ctypes.c_int
+    return lib
+
+
+def build_all() -> dict:
+    """Compile (when not cached) and load every kernel library.
+
+    Returns ``{source name: ctypes.CDLL}``.  Raises ``RuntimeError`` with
+    the compiler's output when a build fails.
+    """
+    with _lock:
+        if _libs:
+            return _libs
+        digest = _digest()
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        targets = {n: _BUILD_DIR / f"{n}-{digest}.so" for n in _SOURCES}
+        procs = {}
+        try:
+            for name, out in targets.items():
+                if out.exists():
+                    continue
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+                procs[name] = (
+                    subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+                    ),
+                    tmp,
+                )
+            errors = []
+            for name, (proc, tmp) in procs.items():
+                out_text, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"{name}.cu:\n{out_text.decode(errors='replace')}")
+                else:
+                    os.replace(tmp, targets[name])
+            if errors:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        finally:
+            for proc, tmp in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if tmp.exists():
+                    tmp.unlink()
+        for name, path in targets.items():
+            _libs[name] = _bind(name, path)
+        return _libs
+
+
+def lib(name: str) -> ctypes.CDLL:
+    return build_all()[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
+
+
+def check_smem(nbytes: int, what: str, device) -> None:
+    """Raise a clear error when a kernel's shared memory exceeds the card's."""
+    import torch
+
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if nbytes > limit:
+        raise ValueError(
+            f"{what}: the label is too long for one CTA per sample "
+            f"({nbytes} bytes of shared memory needed, the card offers {limit}); "
+            "shorten the labels"
+        )

@@ -1,0 +1,223 @@
+"""Classic (Graves) CTC topology in pure log-space PyTorch.
+
+Counterpart of ``tf_seq2seq_losses_tpu/ops/classic.py``.  The per-sample
+lattice is ``[Lp1 prefix positions] x [2 states]``: state 0 is "closed"
+(the last emission was a blank), state 1 is "open".  Appending a blank
+closes a state; repeating the last token keeps an open state open; any
+other label token moves diagonally to the open state of the next position.
+
+This path is the CPU default, the guard's last resort and the port's own
+oracle for the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tf_seq2seq_losses_tpu_torch.ops.core import (
+    CtcContext,
+    expected_token_lp,
+    select_from_act,
+    take_token_logprobas,
+)
+from tf_seq2seq_losses_tpu_torch.utils.numerics import (
+    apply_logarithmic_mask,
+    logsumexp as _lse,
+    reduce_logsumexp as _reduce_lse,
+)
+
+NEG_INF = float("-inf")
+
+
+class ClassicTerms(NamedTuple):
+    blank_lp: torch.Tensor  # [B, T] any -> closed
+    prev_tok_masked: torch.Tensor  # [B, T, Lp1] open -> open, blank excluded
+    prev_tok_plain: torch.Tensor  # [B, T, Lp1] preceding-label token log-prob
+    diag_closed: torch.Tensor  # [B, T, Lp1] closed -> open diagonal
+    diag_open: torch.Tensor  # [B, T, Lp1] open -> open diagonal, repeats masked
+
+
+def terms(ctx: CtcContext) -> ClassicTerms:
+    prev_tok_plain = take_token_logprobas(ctx.logproba, ctx.preceded_label)
+    not_blank = ctx.preceded_label != ctx.blank_index
+    prev_tok_masked = apply_logarithmic_mask(prev_tok_plain, not_blank[:, None, :])
+    repetition_ok = ctx.label != torch.roll(ctx.label, shifts=1, dims=1)
+    diag_closed = expected_token_lp(ctx)
+    diag_open = apply_logarithmic_mask(diag_closed, repetition_ok[:, None, :])
+    return ClassicTerms(
+        blank_lp=ctx.blank_lp,
+        prev_tok_masked=prev_tok_masked,
+        prev_tok_plain=prev_tok_plain,
+        diag_closed=diag_closed,
+        diag_open=diag_open,
+    )
+
+
+def _alpha_init(ctx: CtcContext) -> torch.Tensor:
+    batch = ctx.logproba.shape[0]
+    lp1 = ctx.label.shape[1]
+    init = torch.full((batch, lp1, 2), NEG_INF, device=ctx.logproba.device)
+    init[:, 0, 0] = 0.0
+    return init
+
+
+def _alpha_step(blank, prev_masked, d_closed, d_open, carry):
+    a_closed = carry[..., 0]
+    a_open = carry[..., 1]
+    horiz_closed = _lse(a_closed, a_open) + blank[..., None]
+    horiz_open = a_open + prev_masked
+    diag = _lse(a_closed + d_closed, a_open + d_open)
+    # the wrap lane is safe: position Lp1-1 is always masked to -inf
+    diag = torch.roll(diag, shifts=1, dims=-1)
+    return torch.stack([horiz_closed, _lse(horiz_open, diag)], dim=-1)
+
+
+def alpha(ctx: CtcContext, t: ClassicTerms = None) -> torch.Tensor:
+    """Forward lattice log-probabilities [B, T+1, Lp1, 2]."""
+    if t is None:
+        t = terms(ctx)
+    carry = _alpha_init(ctx)
+    out = [carry]
+    for k in range(ctx.logproba.shape[1]):
+        carry = _alpha_step(
+            t.blank_lp[:, k],
+            t.prev_tok_masked[:, k],
+            t.diag_closed[:, k],
+            t.diag_open[:, k],
+            carry,
+        )
+        out.append(carry)
+    return torch.stack(out, dim=1)
+
+
+def _beta_last(ctx: CtcContext) -> torch.Tensor:
+    lp1 = ctx.label.shape[1]
+    hot = torch.arange(lp1, device=ctx.label.device)[None, :] == ctx.label_length[:, None]
+    onehot = torch.where(
+        hot,
+        torch.zeros((), device=ctx.logproba.device),
+        torch.full((), NEG_INF, device=ctx.logproba.device),
+    )
+    return torch.stack([onehot, onehot], dim=-1)
+
+
+def _beta_step(blank, prev_masked, d_closed, d_open, carry):
+    b_closed = carry[..., 0]
+    b_open = carry[..., 1]
+    horiz_closed = blank[:, None] + b_closed
+    horiz_open = _lse(horiz_closed, prev_masked + b_open)
+    b_open_next = torch.roll(b_open, shifts=-1, dims=1)
+    new_closed = _lse(horiz_closed, d_closed + b_open_next)
+    new_open = _lse(horiz_open, d_open + b_open_next)
+    return torch.stack([new_closed, new_open], dim=-1)
+
+
+def beta(ctx: CtcContext) -> torch.Tensor:
+    """Backward lattice log-probabilities [B, T+1, Lp1, 2]."""
+    t = terms(ctx)
+    carry = _beta_last(ctx)
+    out = [carry]
+    for k in range(ctx.logproba.shape[1] - 1, -1, -1):
+        carry = _beta_step(
+            t.blank_lp[:, k],
+            t.prev_tok_masked[:, k],
+            t.diag_closed[:, k],
+            t.diag_open[:, k],
+            carry,
+        )
+        out.append(carry)
+    return torch.stack(out[::-1], dim=1)
+
+
+def loss(ctx: CtcContext, alpha_tensor: torch.Tensor) -> torch.Tensor:
+    """``-logsumexp_s alpha[:, T]`` picked at label_length."""
+    params = _reduce_lse(alpha_tensor[:, -1], dim=-1)
+    picked = torch.gather(params, 1, ctx.label_length[:, None])[:, 0]
+    return -picked
+
+
+def gamma(ctx: CtcContext) -> torch.Tensor:
+    """Pairwise lattice transition log-probs
+    [B, T+1, Lp1, 2, T+1, Lp1, 2]: identity at ``t1 == t2``, -inf for
+    ``t1 > t2``.  O(T^2 L^2) memory: the Hessian's small-shape path."""
+    t = terms(ctx)
+    batch, num_t, _ = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    tp1 = num_t + 1
+    device = ctx.logproba.device
+    eye = torch.where(
+        torch.eye(lp1 * 2, dtype=torch.bool, device=device),
+        torch.zeros((), device=device),
+        torch.full((), NEG_INF, device=device),
+    ).reshape(1, 1, lp1, 2, lp1, 2)
+    diagonal_gamma = eye.expand(batch, tp1, lp1, 2, lp1, 2)
+    starts = torch.arange(tp1, device=device)
+
+    carry = diagonal_gamma
+    out = [carry]
+    for i in range(num_t):
+        g_closed = carry[..., 0]
+        g_open = carry[..., 1]
+        bl = t.blank_lp[:, i][:, None, None, None, None]
+        horiz_closed = _lse(g_closed, g_open) + bl
+        horiz_open = g_open + t.prev_tok_masked[:, i][:, None, None, None, :]
+        diag = _lse(
+            g_closed + t.diag_closed[:, i][:, None, None, None, :],
+            g_open + t.diag_open[:, i][:, None, None, None, :],
+        )
+        diag = torch.roll(diag, shifts=1, dims=4)
+        new = torch.stack([horiz_closed, _lse(horiz_open, diag)], dim=-1)
+        started = (starts <= i)[None, :, None, None, None, None]
+        carry = torch.where(started, new, diagonal_gamma)
+        out.append(carry)
+    full = torch.stack(out, dim=0)  # [t2, B, t1, l1, s1, l2, s2]
+    full = full.permute(1, 2, 3, 4, 0, 5, 6)
+    upper = (starts[:, None] <= starts[None, :])[None, :, None, None, :, None, None]
+    return apply_logarithmic_mask(full, upper)
+
+
+def combine(ctx: CtcContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Contract transition log-probs over the lattice into token bins.
+
+    ``a``: [B, *DIMS_A, T, Lp1, 2];  ``b``: [B, T, Lp1, 2, *DIMS_B];
+    returns [B, *DIMS_A, T, V, *DIMS_B].  The blank column is the
+    horizontal blank term; the others are the logaddexp of the repeated-
+    token horizontal term (scattered by the preceding label) and the
+    diagonal term (scattered by the label).
+    """
+    t = terms(ctx)
+    batch, num_t, num_tokens = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    dims_a = tuple(a.shape[1:-3])
+    dims_b = tuple(b.shape[4:])
+    a_dim = int(np.prod(dims_a, dtype=np.int64)) if dims_a else 1
+    d_dim = int(np.prod(dims_b, dtype=np.int64)) if dims_b else 1
+    a = a.reshape(batch, a_dim, num_t, lp1, 2)
+    b = b.reshape(batch, num_t, lp1, 2, d_dim)
+    b = torch.movedim(b, -1, 1)  # [B, D, T, Lp1, 2]
+
+    a_any = _lse(a[..., 0], a[..., 1])  # [B, A, T, Lp1]
+    b_closed = b[..., 0]
+    b_open = b[..., 1]
+
+    ab = a_any[:, :, None] + b_closed[:, None]  # [B, A, D, T, Lp1]
+    blank_term = ctx.blank_lp[:, None, None] + _reduce_lse(ab, dim=-1)
+
+    act_h = a[..., 1][:, :, None] + t.prev_tok_plain[:, None, None] + b_open[:, None]
+    diag = _lse(a[..., 0] + t.diag_closed[:, None], a[..., 1] + t.diag_open[:, None])
+    b_open_next = torch.roll(b_open, shifts=-1, dims=-1)
+    act_d = diag[:, :, None] + b_open_next[:, None]
+
+    def scatter(act, label):
+        flat = act.reshape(batch, a_dim * d_dim, num_t, lp1)
+        out = select_from_act(flat, label, num_tokens)
+        return out.reshape(batch, a_dim, d_dim, num_t, num_tokens)
+
+    non_blank = _lse(scatter(act_h, ctx.preceded_label), scatter(act_d, ctx.label))
+    token_is_blank = torch.arange(num_tokens, device=a.device) == ctx.blank_index
+    out = torch.where(token_is_blank, blank_term[..., None], non_blank)
+    out = torch.movedim(out, 2, -1)  # [B, A, T, V, D]
+    return out.reshape(batch, *dims_a, num_t, num_tokens, *dims_b)

@@ -1,0 +1,314 @@
+"""Exact log-space classic CTC kernels: the saturation guard's repair path.
+
+Counterpart of the classic part of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
+
+* ``classic_log_fwd`` (csrc/classic_log.cu) is the log-space alpha scan in
+  modes ``"final"`` (loss) and ``"resid"`` (streams ``x`` and ``a1``);
+* ``classic_log_bwd`` (csrc/classic_log.cu) is the log-space beta scan
+  over those residuals, emitting the probability-space combined act.
+
+Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
+kernels; CPU tensors run the plain versions.  Single-chunk geometry only:
+beyond ``config.chunk_time`` the repair takes the pure path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
+from tf_seq2seq_losses_tpu_torch.ops import core as core_mod
+from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
+from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
+    act_scatter,
+    check_tensor,
+    geometry,
+    kernel_lengths,
+    lane_masks,
+    shift_lanes,
+)
+from tf_seq2seq_losses_tpu_torch.utils.config import get_config
+from tf_seq2seq_losses_tpu_torch.utils.numerics import apply_logarithmic_mask
+
+NEG_INF = float("-inf")
+
+
+def _lae(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """-inf-safe logaddexp, the same formula as csrc/blockfloat.cuh."""
+    m = torch.maximum(x, y)
+    out = m + torch.log1p(torch.exp(torch.minimum(x, y) - m))
+    return torch.where(m == NEG_INF, m, out)
+
+
+def _log_gather_level(ctx: CtcContext, tpad: int, lpad: int):
+    """``(blank_l [B, tpad], dc_l, pt_l [B, tpad, lpad])`` log-space inputs.
+
+    Padded steps are no-ops (blank 0, transitions -inf); padded lanes are
+    -inf (dead lattice positions)."""
+    batch, num_t, _ = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    device = ctx.logproba.device
+    dc_raw = take_token_logprobas(ctx.logproba, ctx.label)
+    dc_raw = apply_logarithmic_mask(dc_raw, ctx.label_length_mask[:, None, :])
+    pt_raw = take_token_logprobas(ctx.logproba, ctx.preceded_label)
+    dc_l = torch.full((batch, tpad, lpad), NEG_INF, device=device)
+    dc_l[:, :num_t, :lp1] = dc_raw
+    pt_l = torch.full((batch, tpad, lpad), NEG_INF, device=device)
+    pt_l[:, :num_t, :lp1] = pt_raw
+    blank_l = torch.zeros((batch, tpad), dtype=torch.float32, device=device)
+    blank_l[:, :num_t] = ctx.blank_lp
+    return blank_l, dc_l, pt_l
+
+
+def fits_log_fallback(ctx: CtcContext) -> bool:
+    """The log kernels run single-chunk: window-padded T within chunk_time."""
+    num_t = ctx.logproba.shape[1]
+    tpad, _, _ = geometry(ctx)
+    return num_t > 0 and tpad <= get_config().chunk_time
+
+
+# ---------------------------------------------------------------------------
+# kernel B4: log-space alpha scan
+# ---------------------------------------------------------------------------
+
+
+def classic_log_fwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
+    """Plain version of ``classic_log_fwd``."""
+    batch, tpad, lpad = dc_l.shape
+    device = dc_l.device
+    lane = torch.arange(lpad, device=device)
+    a0 = torch.where(lane == 0, 0.0, NEG_INF).expand(batch, lpad).clone()
+    a1 = torch.full((batch, lpad), NEG_INF, device=device)
+    nb_l = torch.where(nb > 0, 0.0, NEG_INF)
+    rep_b = rep > 0
+    resid = mode == "resid"
+    if resid:
+        sx = torch.full((batch, tpad, lpad), NEG_INF, device=device)
+        sa1 = torch.full((batch, tpad, lpad), NEG_INF, device=device)
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for t in range(max_len):
+        run = t < lens_c
+        s = _lae(a0, a1)
+        x = torch.where(rep_b, s, a0)
+        if resid:
+            sx[:, t] = x
+            sa1[:, t] = a1
+        arr = shift_lanes(dc_l[:, t] + x, 1, NEG_INF)
+        n0 = s + blank_l[:, t, None]
+        n1 = _lae(a1 + (pt_l[:, t] + nb_l), arr)
+        a0 = torch.where(run, n0, a0)
+        a1 = torch.where(run, n1, a1)
+    if resid:
+        return sx, sa1, a0, a1
+    return a0, a1
+
+
+def classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
+    """Log-space alpha scan.  ``mode="final"``: ``(f0, f1)``;
+    ``mode="resid"``: ``(sx, sa1 [B, Tp, L], f0, f1)``."""
+    if mode not in ("final", "resid"):
+        raise ValueError(f"unknown classic_log_fwd mode {mode!r}")
+    if dc_l.device.type == "cpu":
+        return classic_log_fwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, mode)
+    if dc_l.device.type != "cuda":
+        raise ValueError(f"classic_log_fwd runs on CUDA or CPU tensors, got {dc_l.device}")
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    batch, tpad, lpad = dc_l.shape
+    dev = dc_l.device
+    f32 = torch.float32
+    check_tensor(blank_l, (batch, tpad), f32, "blank_l", dev)
+    check_tensor(dc_l, (batch, tpad, lpad), f32, "dc_l", dev)
+    check_tensor(pt_l, (batch, tpad, lpad), f32, "pt_l", dev)
+    check_tensor(nb, (batch, lpad), f32, "nb", dev)
+    check_tensor(rep, (batch, lpad), f32, "rep", dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    lib = _build.lib("classic_log")
+    _build.check_smem(lib.ctc_classic_log_fwd_smem_bytes(lpad), "classic_log_fwd", dev)
+    resid = mode == "resid"
+    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
+    f1 = torch.empty_like(f0)
+    sx = sa1 = None
+    if resid:
+        sx = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
+        sa1 = torch.empty_like(sx)
+    with torch.cuda.device(dev):
+        err = lib.ctc_classic_log_fwd(
+            blank_l.data_ptr(), dc_l.data_ptr(), pt_l.data_ptr(),
+            nb.data_ptr(), rep.data_ptr(), lens.data_ptr(),
+            batch, tpad, lpad, int(resid),
+            sx.data_ptr() if resid else None, sa1.data_ptr() if resid else None,
+            f0.data_ptr(), f1.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "classic_log_fwd")
+    classic_log_fwd.launches += 1
+    classic_log_fwd.mode_launches[mode] += 1
+    if resid:
+        return sx, sa1, f0, f1
+    return f0, f1
+
+
+classic_log_fwd.launches = 0
+classic_log_fwd.mode_launches = {"final": 0, "resid": 0}
+
+
+# ---------------------------------------------------------------------------
+# kernel B5: log-space beta scan emitting the combined act
+# ---------------------------------------------------------------------------
+
+
+def classic_log_bwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx,
+                          sa1):
+    """Plain version of ``classic_log_bwd``."""
+    batch, tpad, lpad = dc_l.shape
+    device = dc_l.device
+    lane = torch.arange(lpad, device=device)
+    b0 = torch.where(
+        lane[None, :] == lab_len.to(torch.int64)[:, None], 0.0, NEG_INF
+    )
+    b1 = b0.clone()
+    nb_l = torch.where(nb > 0, 0.0, NEG_INF)
+    rep_b = rep > 0
+    lo = loss[:, None]
+    pc = torch.zeros((batch, tpad, lpad), dtype=torch.float32, device=device)
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for t in range(max_len - 1, -1, -1):
+        run = t < lens_c
+        arr = shift_lanes(b1, -1, NEG_INF)
+        dc = dc_l[:, t]
+        pt = pt_l[:, t]
+        pd = torch.exp(lo + (dc + sx[:, t]) + arr)
+        ph = torch.exp(lo + sa1[:, t] + pt + b1)
+        pc[:, t] = torch.where(run, pd + shift_lanes(ph, -1, 0.0), torch.zeros_like(pd))
+        hc = blank_l[:, t, None] + b0
+        n0 = _lae(hc, dc + arr)
+        n1 = _lae(torch.where(rep_b, n0, hc), (pt + nb_l) + b1)
+        b0 = torch.where(run, n0, b0)
+        b1 = torch.where(run, n1, b1)
+    return pc, b0, b1
+
+
+def classic_log_bwd(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
+    """Log-space beta scan: ``(pc [B, Tp, L], beta0_closed, beta0_open)``;
+    ``loss`` [B] is the finite-masked loss that normalises the acts."""
+    if dc_l.device.type == "cpu":
+        return classic_log_bwd_plain(
+            blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1
+        )
+    if dc_l.device.type != "cuda":
+        raise ValueError(f"classic_log_bwd runs on CUDA or CPU tensors, got {dc_l.device}")
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    batch, tpad, lpad = dc_l.shape
+    dev = dc_l.device
+    f32 = torch.float32
+    check_tensor(blank_l, (batch, tpad), f32, "blank_l", dev)
+    for name, t in (("dc_l", dc_l), ("pt_l", pt_l), ("sx", sx), ("sa1", sa1)):
+        check_tensor(t, (batch, tpad, lpad), f32, name, dev)
+    check_tensor(nb, (batch, lpad), f32, "nb", dev)
+    check_tensor(rep, (batch, lpad), f32, "rep", dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
+    check_tensor(loss, (batch,), f32, "loss", dev)
+    lib = _build.lib("classic_log")
+    _build.check_smem(lib.ctc_classic_log_bwd_smem_bytes(lpad), "classic_log_bwd", dev)
+    pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
+    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
+    f1 = torch.empty_like(f0)
+    with torch.cuda.device(dev):
+        err = lib.ctc_classic_log_bwd(
+            blank_l.data_ptr(), dc_l.data_ptr(), pt_l.data_ptr(),
+            nb.data_ptr(), rep.data_ptr(), lens.data_ptr(),
+            lab_len.data_ptr(), loss.data_ptr(), sx.data_ptr(), sa1.data_ptr(),
+            batch, tpad, lpad,
+            pc.data_ptr(), f0.data_ptr(), f1.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "classic_log_bwd")
+    classic_log_bwd.launches += 1
+    return pc, f0, f1
+
+
+classic_log_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# entry points of the kernel path
+# ---------------------------------------------------------------------------
+
+
+def _log_inputs(ctx: CtcContext):
+    tpad, lpad, _ = geometry(ctx)
+    blank_l, dc_l, pt_l = _log_gather_level(ctx, tpad, lpad)
+    lm, nb, rep = lane_masks(ctx, lpad)
+    lens, lab_len = kernel_lengths(ctx)
+    return blank_l, dc_l, pt_l, lm, nb, rep, lens, lab_len
+
+
+def _pick_log_loss(f0, f1, label_length):
+    total = _lae(f0, f1)
+    return -torch.gather(total, 1, label_length.to(torch.int64)[:, None])[:, 0]
+
+
+def classic_loss_exact(ctx: CtcContext) -> torch.Tensor:
+    """Exact classic loss through the log-space kernel B4 (mode final)."""
+    batch, num_t, _ = ctx.logproba.shape
+    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
+        return classic_mod.loss(ctx, classic_mod.alpha(ctx))
+    blank_l, dc_l, pt_l, _lm, nb, rep, lens, lab_len = _log_inputs(ctx)
+    f0, f1 = classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, "final")
+    return _pick_log_loss(f0, f1, lab_len)
+
+
+def assemble_with_blank_identity(ctx: CtcContext, non_blank, fast_loss):
+    """Log-space gradient with the blank column from the posterior identity
+    ``sum_v -grad[b, t, v] = 1`` (clamped at 0: exactly -inf, zero
+    gradient, under rounding)."""
+    num_tokens = ctx.logproba.shape[2]
+    loss_col = torch.where(
+        torch.isfinite(fast_loss), fast_loss, torch.zeros_like(fast_loss)
+    )[:, None, None]
+    token_is_blank = (
+        torch.arange(num_tokens, device=non_blank.device) == ctx.blank_index
+    )
+    neg_grad = torch.where(
+        token_is_blank, torch.zeros_like(non_blank), torch.exp(loss_col + non_blank)
+    )
+    s = torch.sum(neg_grad, dim=2, keepdim=True)
+    bl = torch.log(torch.clamp(1.0 - s, min=0.0)) - loss_col
+    return torch.where(token_is_blank, bl, non_blank)
+
+
+def classic_loss_and_gradient_log_exact(ctx: CtcContext):
+    """``(exact loss, exact log(-grad))`` through the log-space kernels B4
+    (mode resid) and B5: one alpha scan yields both, so a repair of the
+    gradient needs no separate loss launch."""
+    batch, num_t, _ = ctx.logproba.shape
+    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
+        from tf_seq2seq_losses_tpu_torch.ops.topology import ClassicTopology
+
+        loss = classic_mod.loss(ctx, classic_mod.alpha(ctx))
+        return loss, core_mod.gradient_log(ClassicTopology, ctx, loss)
+    blank_l, dc_l, pt_l, lm, nb, rep, lens, lab_len = _log_inputs(ctx)
+    sx, sa1, f0, f1 = classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, "resid")
+    loss = _pick_log_loss(f0, f1, lab_len)
+    safe_loss = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
+    pc, _b0, _b1 = classic_log_bwd(
+        blank_l, dc_l, pt_l, nb, rep, lens, lab_len, safe_loss, sx, sa1
+    )
+    non_blank = torch.log(act_scatter(ctx, pc, lm)) - safe_loss[:, None, None]
+    combined = assemble_with_blank_identity(ctx, non_blank, loss)
+    out = loss[:, None, None] + combined
+    out = torch.where(
+        torch.isposinf(loss)[:, None, None], torch.full_like(out, NEG_INF), out
+    )
+    return loss, apply_logarithmic_mask(out, ctx.logit_length_mask[:, :, None])
+
+
+def classic_gradient_log_exact(ctx: CtcContext) -> torch.Tensor:
+    """Exact ``log(-grad)`` through the log-space kernels B4 (mode resid)
+    and B5; same semantics as ``core.gradient_log`` on the pure path."""
+    return classic_loss_and_gradient_log_exact(ctx)[1]

@@ -1,0 +1,165 @@
+"""Kernel configuration of the PyTorch port.
+
+Only the knobs that the port honours are fields here, at the JAX package's
+defaults.  Knobs whose code path is not ported yet are accepted by
+:func:`config_from_reference` at their default value only, and raise
+``NotImplementedError`` naming their ROADMAP item otherwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from contextlib import contextmanager
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """Knobs of the classic CTC kernel path.
+
+    ``use_kernels``: None = auto (the CUDA kernels for CUDA tensors, the
+    pure log-space path for CPU tensors); True forces the kernel path
+    (on a CPU tensor it runs the kernels' plain PyTorch versions); False
+    forces the pure path.
+    ``window``: frozen-frame window length of the block-float scans; the
+    set of rows that flush depends on it.
+    ``chunk_time``: the longest (window-padded) time axis the single-chunk
+    kernel path serves.
+    ``guard``: recompute feasible rows whose fast loss flushed to +inf.
+    ``repair_bucket2``: rows per exact repair round of the guard.
+    ``log_fallback``: repair through the log-space kernels (else through
+    the pure path).
+    """
+
+    use_kernels: Optional[bool] = None
+    window: int = 8
+    chunk_time: int = 512
+    guard: bool = True
+    repair_bucket2: int = 32
+    log_fallback: bool = True
+
+    def __post_init__(self):
+        if self.use_kernels not in (None, True, False):
+            raise ValueError(
+                f"use_kernels must be None, True or False, got {self.use_kernels!r}"
+            )
+        for name in ("guard", "log_fallback"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(
+                    f"{name} must be a bool, got {getattr(self, name)!r}"
+                )
+        for name, lo in (("window", 1), ("chunk_time", 1), ("repair_bucket2", 1)):
+            val = getattr(self, name)
+            if isinstance(val, bool) or not isinstance(val, int) or val < lo:
+                raise ValueError(f"{name} must be an int >= {lo}, got {val!r}")
+
+    def kernels_enabled(self, device: torch.device) -> bool:
+        if self.use_kernels is not None:
+            return self.use_kernels
+        return device.type == "cuda"
+
+
+# Knobs of the JAX KernelConfig whose code paths the port does not have yet:
+# field -> (the default this port implements, ROADMAP item).
+_UNPORTED = {
+    "stream_residuals": (True, "B10 (residual-free scheme)"),
+    "half_stream": (False, "B13 (half-stream scheme)"),
+    "fused_epilogue": (False, "B12 (fused d_logits epilogue)"),
+    "guard_struct": ("while", "A7 (cond-lattice guard structure)"),
+}
+
+# TPU-only geometry and lowering knobs, dropped by config_from_reference.
+_DROPPED = (
+    "use_pallas",
+    "interpret",
+    "unroll",
+    "block_batch",
+    "block_time",
+    "vmem_budget_mb",
+    "vmem_limit_mb",
+    "sort_by_length",
+    "fold_pt",
+    "guard_tier1",
+    "guard_mode",
+    "repair_bucket",
+)
+
+_ENUMS = {"guard_struct": ("cond", "while"), "guard_mode": ("grad", "post", "pre")}
+
+
+def _check_unported(fields: dict) -> None:
+    for name, allowed in _ENUMS.items():
+        if name in fields and fields[name] not in allowed:
+            raise ValueError(
+                f"unknown {name} {fields[name]!r}; expected one of {list(allowed)}"
+            )
+    for name, (default, item) in _UNPORTED.items():
+        if name in fields and fields[name] != default:
+            raise NotImplementedError(
+                f"{name}={fields[name]!r} is not ported yet (ROADMAP {item}); "
+                f"the port implements {name}={default!r}"
+            )
+
+
+def config_from_reference(fields: dict) -> KernelConfig:
+    """The port's config for ``dataclasses.asdict()`` of a JAX ``KernelConfig``.
+
+    The loss has no learned parameters; its behaviour is fixed by this
+    config, so carrying it across is what reproduces the reference run.
+
+    Mapped: ``window``, ``chunk_time``, ``guard``, ``repair_bucket2`` and
+    ``log_fallback``; ``use_pallas`` is dropped, since the port picks its
+    path from the tensor's device (see ``KernelConfig.use_kernels``).
+
+    Dropped (TPU geometry and lowering, same values either way):
+    ``interpret``, ``unroll``, ``block_batch``, ``block_time``,
+    ``vmem_budget_mb``, ``vmem_limit_mb``, ``sort_by_length``, ``fold_pt``
+    (the CUDA kernels always take the folded transition stream),
+    ``guard_tier1``, ``guard_mode`` and ``repair_bucket`` (the port's guard
+    always repairs every flushed row in rounds of ``repair_bucket2``).
+
+    Raises ``NotImplementedError`` for an unported knob off its default
+    (``stream_residuals=False``, ``half_stream=True``,
+    ``fused_epilogue=True``, ``guard_struct="cond"``) and ``ValueError``
+    for an unknown field or enum value.
+    """
+    known = set(_UNPORTED) | set(_DROPPED) | {
+        f.name for f in dataclasses.fields(KernelConfig) if f.name != "use_kernels"
+    }
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown KernelConfig fields {unknown}")
+    _check_unported(fields)
+    kw = {
+        name: fields[name]
+        for name in ("window", "chunk_time", "guard", "repair_bucket2", "log_fallback")
+        if name in fields
+    }
+    return KernelConfig(**kw)
+
+
+_CONFIG = KernelConfig()
+
+
+def get_config() -> KernelConfig:
+    return _CONFIG
+
+
+@contextmanager
+def config_override(**kwargs):
+    """Temporarily override config fields (tests and measurements).
+
+    Unported knobs of the JAX config may be named too: at their default
+    they are accepted and ignored, otherwise they raise.
+    """
+    global _CONFIG
+    _check_unported(kwargs)
+    own = {k: v for k, v in kwargs.items() if k not in _UNPORTED}
+    old = _CONFIG
+    _CONFIG = dataclasses.replace(old, **own)
+    try:
+        yield _CONFIG
+    finally:
+        _CONFIG = old
