@@ -94,8 +94,10 @@ def test_topology_names():
     labels, logits, ll, gl = _args()
     with pytest.raises(ValueError, match="unknown topology 'x'"):
         api.ctc_loss(labels, logits, ll, gl, 0, topology="x")
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.ctc_loss(labels, logits, ll, gl, 0, topology="simplified")
+    logits = torch.randn(1, 3, 4, generator=torch.Generator().manual_seed(1))
+    simplified = api.ctc_loss(labels, logits, ll, gl, 0, topology="simplified")
+    assert torch.equal(simplified, api.simplified_ctc_loss(labels, logits, ll, gl, 0))
+    assert not torch.equal(simplified, api.classic_ctc_loss(labels, logits, ll, gl, 0))
 
 
 def test_blank_index_int_or_tensor():
@@ -110,6 +112,26 @@ def test_numpy_inputs_are_accepted():
     labels, logits, ll, gl = _args()
     a = api.classic_ctc_loss(labels.numpy(), logits, ll.numpy(), gl.numpy(), 0)
     assert torch.equal(a, api.classic_ctc_loss(labels, logits, ll, gl, 0))
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda lab, x, ll, gl: api.classic_ctc_loss(lab, x, ll, gl, 0),
+        lambda lab, x, ll, gl: api.ctc_loss_from_logproba(lab, x, ll, gl, 0),
+        lambda lab, x, ll, gl: api.ctc_loss_gradient(lab, x, ll, gl, 0, "simplified"),
+        lambda lab, x, ll, gl: api.SimplifiedCtcLossData(lab, x, ll, gl, 0),
+    ],
+    ids=["classic_ctc_loss", "ctc_loss_from_logproba", "ctc_loss_gradient",
+         "SimplifiedCtcLossData"],
+)
+def test_numpy_logits_go_to_the_card_or_raise(call, monkeypatch):
+    # values that are not a tensor go to the current CUDA device, as the JAX
+    # package puts them on its accelerator; never silently on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    labels, logits, ll, gl = _args()
+    with pytest.raises(ValueError, match="pass a CPU tensor"):
+        call(labels, logits.numpy(), ll, gl)
 
 
 def test_config_from_reference_maps_the_jax_defaults():

@@ -158,7 +158,7 @@ def test_subnormal_mantissa_in_dead_frame_is_zeroed():
     m0 = torch.tensor([[1.0, 0.0, 0.0, 1e-40, 0.0, 0.0]])
     m1 = torch.zeros_like(m0)
     e = torch.zeros_like(m0, dtype=torch.int32)
-    r0, r1, f, _ = cl._open_window(m0, m1, e, 2, True)
+    (r0, r1), f, _ = cl._open_window((m0, m1), e, 2, True)
     assert r0[0, 3] == 0 and r1[0, 3] == 0
     assert r0[0, 0] == 1.0 and f[0, 3] == -(1 << 30)
 

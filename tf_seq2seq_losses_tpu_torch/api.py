@@ -1,10 +1,13 @@
-"""Public API of the PyTorch port: the classic CTC loss and its analytic
-derivatives.
+"""Public API of the PyTorch port: the classic and simplified CTC losses and
+their analytic derivatives.
 
 Signatures follow ``tf_seq2seq_losses_tpu/api.py`` (the ``tf.nn.ctc_loss``
 argument order with batch-major tensors).  Every function computes on the
 device of ``logits``/``logprobas``: the CUDA kernels for CUDA tensors, the
-pure log-space path for CPU tensors (see ``utils/config.py``).
+pure log-space path for CPU tensors (see ``utils/config.py``).  Logits that
+are not a tensor (a numpy array, a list) go to the current CUDA device, as
+the JAX package puts them on its accelerator; without a CUDA device they
+raise ``ValueError``: pass a CPU tensor to compute on the CPU.
 """
 
 from __future__ import annotations
@@ -12,7 +15,6 @@ from __future__ import annotations
 from functools import cached_property
 from typing import Union
 
-import numpy as np
 import torch
 
 from tf_seq2seq_losses_tpu_torch.ops import core as _core
@@ -22,27 +24,17 @@ from tf_seq2seq_losses_tpu_torch.ops.autodiff import (
     Loss,
     LossFromLogits,
 )
-from tf_seq2seq_losses_tpu_torch.ops.topology import CLASSIC
+from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES, Topology
 
 IntLike = Union[int, torch.Tensor]
-_TOPOLOGIES = ("classic", "simplified")
 
 
-def _check_topology(topology: str) -> None:
-    if topology not in _TOPOLOGIES:
+def _check_topology(topology: str) -> Topology:
+    if topology not in TOPOLOGIES:
         raise ValueError(
-            f"unknown topology {topology!r}; expected one of {sorted(_TOPOLOGIES)}"
+            f"unknown topology {topology!r}; expected one of {sorted(TOPOLOGIES)}"
         )
-    if topology == "simplified":
-        raise NotImplementedError(
-            "the simplified topology is not ported yet (ROADMAP A10)"
-        )
-
-
-def _tensor(x) -> torch.Tensor:
-    """Values as a tensor; labels, lengths and blank may be tensors, arrays
-    or ints, and ``make_context`` moves them to the values' device."""
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return TOPOLOGIES[topology]
 
 
 def ctc_loss_from_logproba(
@@ -52,9 +44,9 @@ def ctc_loss_from_logproba(
     """CTC loss treating log-probabilities as free parameters; the first
     derivative is the analytic gradient, the second the analytic Hessian,
     a third raises."""
-    _check_topology(topology)
-    return Loss.apply(_tensor(logprobas), labels, label_length, logit_length,
-                      blank_index)
+    topo = _check_topology(topology)
+    return Loss.apply(_core.values_tensor(logprobas), labels, label_length,
+                      logit_length, blank_index, topo)
 
 
 def ctc_loss(
@@ -63,14 +55,14 @@ def ctc_loss(
 ) -> torch.Tensor:
     """CTC loss from logits [B, T, V]; reduced-precision logits compute in
     float32 (the gradient comes back in the input dtype)."""
-    _check_topology(topology)
-    logits = _tensor(logits)
+    topo = _check_topology(topology)
+    logits = _core.values_tensor(logits)
     if logits.ndim != 3:
         raise ValueError(
             f"logits must be rank 3 [batch, time, vocab], got shape {tuple(logits.shape)}"
         )
     return LossFromLogits.apply(logits.to(torch.float32), labels, label_length,
-                                logit_length, blank_index)
+                                logit_length, blank_index, topo)
 
 
 def classic_ctc_loss(
@@ -81,14 +73,24 @@ def classic_ctc_loss(
     return ctc_loss(labels, logits, label_length, logit_length, blank_index, "classic")
 
 
+def simplified_ctc_loss(
+    labels, logits, label_length, logit_length, blank_index: IntLike = 0
+) -> torch.Tensor:
+    """Simplified CTC loss: blanks removed, no repeated-token merge
+    (``a_bb_ccc_c -> abbccccc``).  Infeasible samples (label longer than
+    logits) get ``+inf`` loss and a zero gradient."""
+    return ctc_loss(labels, logits, label_length, logit_length, blank_index,
+                    "simplified")
+
+
 def ctc_loss_gradient(
     labels, logprobas, label_length, logit_length, blank_index: IntLike,
     topology: str = "classic",
 ) -> torch.Tensor:
     """Analytic loss gradient w.r.t. ``logprobas``."""
-    _check_topology(topology)
-    return Gradient.apply(_tensor(logprobas), labels, label_length, logit_length,
-                          blank_index, None)
+    topo = _check_topology(topology)
+    return Gradient.apply(_core.values_tensor(logprobas), labels, label_length,
+                          logit_length, blank_index, topo, None)
 
 
 def ctc_loss_hessian(
@@ -97,24 +99,24 @@ def ctc_loss_hessian(
 ) -> torch.Tensor:
     """Analytic Hessian [B, T, V, T, V] w.r.t. ``logprobas`` (small shapes:
     O(T^2 L^2) memory)."""
-    _check_topology(topology)
-    return Hessian.apply(_tensor(logprobas), labels, label_length, logit_length,
-                         blank_index)
+    topo = _check_topology(topology)
+    return Hessian.apply(_core.values_tensor(logprobas), labels, label_length,
+                         logit_length, blank_index, topo)
 
 
 class BaseCtcLossData:
     """Eager, cached view over the functional core for one input batch:
     ``.alpha``, ``.beta``, ``.gamma``, ``.loss``, ``.gradient``,
-    ``.hessian`` and ``.logarithmic_logproba_gradient`` (pure path)."""
+    ``.hessian`` and ``.logarithmic_logproba_gradient`` (pure path).  The
+    topology is the subclass's ``_topology_name``."""
 
     _topology_name = "classic"
 
     def __init__(self, labels, logprobas, label_length, logit_length,
                  blank_index: IntLike = 0):
-        _check_topology(self._topology_name)
-        self._topology = CLASSIC
+        self._topology = _check_topology(self._topology_name)
         self._ctx = _core.make_context(
-            labels, _tensor(logprobas), label_length, logit_length, blank_index
+            labels, logprobas, label_length, logit_length, blank_index
         )
 
     @cached_property
@@ -150,3 +152,9 @@ class ClassicCtcLossData(BaseCtcLossData):
     """Classic topology data object."""
 
     _topology_name = "classic"
+
+
+class SimplifiedCtcLossData(BaseCtcLossData):
+    """Simplified topology data object."""
+
+    _topology_name = "simplified"

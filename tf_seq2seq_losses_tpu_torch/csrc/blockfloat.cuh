@@ -1,5 +1,6 @@
-// Block-float primitives and the shared-memory plan of the classic lattice
-// kernels (classic_fwd.cu, classic_bwd.cu, classic_log.cu).
+// Block-float primitives shared by the lattice kernels (classic_fwd.cu,
+// classic_bwd.cu, classic_log.cu, simplified_fwd.cu, simplified_bwd.cu,
+// simplified_log.cu).
 //
 // Counterparts of the in-kernel helpers of
 // tf_seq2seq_losses_tpu/ops/pallas_lattice.py (_expfield, _pow2, _true_exp,
@@ -42,10 +43,15 @@ __device__ __forceinline__ float flush_subnormal(float x) {
   return expfield(x) == 0 ? 0.0f : x;
 }
 
-// True exponent of a lane: e + floor(log2 max(m0, m1)); -2^30 if dead.
-__device__ __forceinline__ int true_exp(float m0, float m1, int e) {
-  int ef = expfield(fmaxf(m0, m1));
+// True exponent of a lane: e + floor(log2 m); -2^30 if dead.
+__device__ __forceinline__ int true_exp(float m, int e) {
+  int ef = expfield(m);
   return ef == 0 ? -kEBig : e + (ef - 127);
+}
+
+// The same for a two-state carry: the larger of its mantissas.
+__device__ __forceinline__ int true_exp(float m0, float m1, int e) {
+  return true_exp(fmaxf(m0, m1), e);
 }
 
 // Act scale 2^(fa + fb - ebi) as two power-of-two factors (|s| <= 252).

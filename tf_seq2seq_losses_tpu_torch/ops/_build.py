@@ -20,7 +20,10 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("classic_fwd", "classic_bwd", "classic_log")
+_SOURCES = (
+    "classic_fwd", "classic_bwd", "classic_log",
+    "simplified_fwd", "simplified_bwd", "simplified_log",
+)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -42,6 +45,20 @@ _SIGNATURES = {
         "ctc_classic_log_bwd": [_P] * 10 + [_I] * 3 + [_P] * 4,
         "ctc_classic_log_fwd_smem_bytes": [_I],
         "ctc_classic_log_bwd_smem_bytes": [_I],
+    },
+    "simplified_fwd": {
+        "ctc_simplified_fwd": [_P] * 3 + [_I] * 5 + [_P] * 5,
+        "ctc_simplified_fwd_smem_bytes": [_I, _I],
+    },
+    "simplified_bwd": {
+        "ctc_simplified_bwd_streamed": [_P] * 7 + [_I] * 4 + [_P] * 4,
+        "ctc_simplified_bwd_smem_bytes": [_I, _I],
+    },
+    "simplified_log": {
+        "ctc_simplified_log_fwd": [_P] * 3 + [_I] * 4 + [_P] * 3,
+        "ctc_simplified_log_bwd": [_P] * 6 + [_I] * 3 + [_P] * 3,
+        "ctc_simplified_log_fwd_smem_bytes": [_I],
+        "ctc_simplified_log_bwd_smem_bytes": [_I],
     },
 }
 

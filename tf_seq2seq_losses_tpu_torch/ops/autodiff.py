@@ -2,7 +2,9 @@
 Hessian -> error.
 
 Counterpart of ``tf_seq2seq_losses_tpu/ops/autodiff.py::build_chain`` as
-nested ``torch.autograd.Function``s:
+nested ``torch.autograd.Function``s.  Where the JAX package builds one
+chain per topology, each Function here takes the topology object
+(``ops/topology.py``) as a non-differentiable argument:
 
 * level 0, :class:`LossFromLogits`: logits -> loss; its backward is the
   analytic log-softmax cotangent ``d_loss * (grad + softmax * mask)``;
@@ -25,14 +27,11 @@ from __future__ import annotations
 import torch
 
 from tf_seq2seq_losses_tpu_torch.ops import core
-from tf_seq2seq_losses_tpu_torch.ops.topology import (
-    CLASSIC,
-    compose_dlogits,
-    kernels_enabled,
-)
+from tf_seq2seq_losses_tpu_torch.ops.topology import compose_dlogits, kernels_enabled
 from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
 
-_NO_GRAD = (None, None, None, None)
+# gradient slots of labels, label_length, logit_length, blank and topology
+_NO_GRAD = (None, None, None, None, None)
 
 
 def _context(logprobas, labels, label_length, logit_length, blank):
@@ -41,9 +40,9 @@ def _context(logprobas, labels, label_length, logit_length, blank):
 
 class Hessian(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logprobas, labels, label_length, logit_length, blank):
+    def forward(ctx, logprobas, labels, label_length, logit_length, blank, topology):
         c = _context(logprobas, labels, label_length, logit_length, blank)
-        return core.hessian(CLASSIC, c, CLASSIC.loss(c, CLASSIC.alpha(c)))
+        return core.hessian(topology, c, topology.pure_loss(c))
 
     @staticmethod
     def backward(ctx, d_hessian):
@@ -57,11 +56,12 @@ class Gradient(torch.autograd.Function):
     the training forward's residuals (kernel path)."""
 
     @staticmethod
-    def forward(ctx, logprobas, labels, label_length, logit_length, blank, pack):
+    def forward(ctx, logprobas, labels, label_length, logit_length, blank, topology,
+                pack):
         c = _context(logprobas, labels, label_length, logit_length, blank)
         ctx.save_for_backward(logprobas)
-        ctx.args = (labels, label_length, logit_length, blank)
-        return CLASSIC.gradient_fast(c, pack)
+        ctx.args = (labels, label_length, logit_length, blank, topology)
+        return topology.gradient_fast(c, pack)
 
     @staticmethod
     def backward(ctx, d_gradient):
@@ -75,14 +75,14 @@ class Loss(torch.autograd.Function):
     """Loss from log-probabilities treated as free parameters."""
 
     @staticmethod
-    def forward(ctx, logprobas, labels, label_length, logit_length, blank):
+    def forward(ctx, logprobas, labels, label_length, logit_length, blank, topology):
         c = _context(logprobas, labels, label_length, logit_length, blank)
-        ctx.args = (labels, label_length, logit_length, blank)
+        ctx.args = (labels, label_length, logit_length, blank, topology)
         if ctx.needs_input_grad[0]:
-            loss, ctx.pack = CLASSIC.loss_and_pack_fast(c)
+            loss, ctx.pack = topology.loss_and_pack_fast(c)
             ctx.save_for_backward(logprobas)
         else:
-            loss = CLASSIC.loss_fast(c)
+            loss = topology.loss_fast(c)
         return loss
 
     @staticmethod
@@ -99,27 +99,26 @@ class LossFromLogits(torch.autograd.Function):
     ``mask = (t < logit_length) & isfinite(loss)``."""
 
     @staticmethod
-    def forward(ctx, logits, labels, label_length, logit_length, blank):
+    def forward(ctx, logits, labels, label_length, logit_length, blank, topology):
         logprobas = logit_to_logproba(logits, dim=2)
         c = _context(logprobas, labels, label_length, logit_length, blank)
-        ctx.args = (labels, label_length, logit_length, blank)
+        ctx.args = (labels, label_length, logit_length, blank, topology)
         if ctx.needs_input_grad[0]:
-            loss, ctx.pack = CLASSIC.loss_and_pack_fast(c)
+            loss, ctx.pack = topology.loss_and_pack_fast(c)
             ctx.save_for_backward(logits, loss)
         else:
-            loss = CLASSIC.loss_fast(c)
+            loss = topology.loss_fast(c)
         return loss
 
     @staticmethod
     def backward(ctx, d_loss):
         logits, loss = ctx.saved_tensors
         logprobas = logit_to_logproba(logits, dim=2)
-        if not torch.is_grad_enabled():
-            c = _context(logprobas, *ctx.args)
-            if kernels_enabled(c):
-                # the main path: kernel gradient, guarded at the d_logits level
-                return (CLASSIC.dlogits_fast(c, d_loss, ctx.pack),) + _NO_GRAD
+        *lengths, topology = ctx.args
+        c = _context(logprobas, *lengths)
+        if not torch.is_grad_enabled() and kernels_enabled(c):
+            # the main path: kernel gradient, guarded at the d_logits level
+            return (topology.dlogits_fast(c, d_loss, ctx.pack),) + _NO_GRAD
         # differentiable composition (double backward, or the pure path)
         grad = Gradient.apply(logprobas, *ctx.args, ctx.pack)
-        c = _context(logprobas, *ctx.args)
         return (compose_dlogits(c, grad, loss, d_loss),) + _NO_GRAD

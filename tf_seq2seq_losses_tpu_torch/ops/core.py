@@ -43,6 +43,23 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=device)
 
 
+def values_tensor(x) -> torch.Tensor:
+    """Logits or log-probabilities as a tensor.  A tensor is used on its own
+    device (a CPU tensor is the caller's request for the CPU); any other
+    array goes to the current CUDA device, as the JAX package puts it on
+    its default device, the accelerator."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if not torch.cuda.is_available():
+        raise ValueError(
+            "logits/logprobas that are not a torch.Tensor are placed on the "
+            "current CUDA device, and no CUDA device is available; pass a CPU "
+            "tensor (torch.as_tensor(x)) to compute on the CPU"
+        )
+    device = torch.device("cuda", torch.cuda.current_device())
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
 def make_context(
     labels,
     logprobas: torch.Tensor,
@@ -50,9 +67,9 @@ def make_context(
     logit_length,
     blank_index: Union[int, torch.Tensor],
 ) -> CtcContext:
-    """Canonicalise inputs onto ``logprobas``' device."""
-    if not isinstance(logprobas, torch.Tensor):
-        logprobas = torch.as_tensor(np.asarray(logprobas))
+    """Canonicalise inputs onto ``logprobas``' device (see
+    :func:`values_tensor` for a ``logprobas`` that is not a tensor)."""
+    logprobas = values_tensor(logprobas)
     device = logprobas.device
     labels = _as_tensor(labels, device)
     label_length = _as_tensor(label_length, device)

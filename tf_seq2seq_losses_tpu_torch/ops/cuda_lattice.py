@@ -11,6 +11,10 @@ classic topology on the single-chunk geometry (window-padded T within
 * ``classic_bwd_streamed`` (csrc/classic_bwd.cu) is the beta scan over the
   residuals, emitting the combined, loss-normalised act ``pc``.
 
+The simplified topology's kernels (B6, B7) live in ``cuda_simplified.py``,
+which shares this module's geometry, block-float primitives, act scatter and
+gradient assembly.
+
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version (same window schedule, same subnormal rule) for CPU tensors, the
 port's analogue of Pallas ``interpret=True``.
@@ -156,8 +160,9 @@ def _flush_subnormal(x: torch.Tensor) -> torch.Tensor:
     return torch.where(_expfield(x) == 0, torch.zeros_like(x), x)
 
 
-def _true_exp(m0, m1, e):
-    ef = _expfield(torch.maximum(m0, m1))
+def _true_exp(mants, e):
+    m = mants[0] if len(mants) == 1 else torch.maximum(*mants)
+    ef = _expfield(m)
     return torch.where(ef == 0, torch.full_like(e, -_EBIG), e + (ef - 127))
 
 
@@ -170,12 +175,12 @@ def shift_lanes(x: torch.Tensor, n: int, fill) -> torch.Tensor:
     return torch.cat([x[:, -n:], pad], dim=1)
 
 
-def _open_window(m0, m1, e, k_win: int, forward: bool):
+def _open_window(mants, e, k_win: int, forward: bool):
     """Frame over the source lanes ``l-K..l`` (forward) or ``l..l+K``
-    (backward); returns rescaled mantissas, the frame and ``s_arr``."""
-    m0 = _flush_subnormal(m0)
-    m1 = _flush_subnormal(m1)
-    et = _true_exp(m0, m1, e)
+    (backward) for a carry of one mantissa array (simplified) or two
+    (classic); returns the rescaled mantissas, the frame and ``s_arr``."""
+    mants = [_flush_subnormal(m) for m in mants]
+    et = _true_exp(mants, e)
     f = et
     sign = 1 if forward else -1
     for j in range(1, k_win + 1):
@@ -184,7 +189,7 @@ def _open_window(m0, m1, e, k_win: int, forward: bool):
         f = torch.maximum(f, shift_lanes(et, sign * j, -_EBIG))
     r = _pow2(e - f)
     s_arr = _pow2(shift_lanes(f, sign, -_EBIG) - f)
-    return m0 * r, m1 * r, f, s_arr
+    return [m * r for m in mants], f, s_arr
 
 
 def _act_factor(fa, fb, ebi):
@@ -218,7 +223,7 @@ def classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str):
     for w in range(-(-max_len // k_win)):
         t0 = w * k_win
         act = t0 < lens_c
-        m0, m1, f, s_arr = _open_window(a0, a1, e, k_win, True)
+        (m0, m1), f, s_arr = _open_window((a0, a1), e, k_win, True)
         a0 = torch.where(act, m0, a0)
         a1 = torch.where(act, m1, a1)
         e = torch.where(act, f, e)
@@ -330,7 +335,7 @@ def classic_bwd_streamed_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa,
     for w in range(-(-max_len // k_win) - 1, -1, -1):
         t0 = w * k_win
         act = t0 < lens_c
-        m0, m1, f, s_arr = _open_window(b0, b1, e, k_win, False)
+        (m0, m1), f, s_arr = _open_window((b0, b1), e, k_win, False)
         b0 = torch.where(act, m0, b0)
         b1 = torch.where(act, m1, b1)
         e = torch.where(act, f, e)
@@ -417,9 +422,11 @@ classic_bwd_streamed.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _pick_loss(f0, f1, fe, label_length):
+def pick_loss(mant, fe, label_length):
+    """The block-float final carry ``mant * 2^fe`` as a loss, picked at
+    label_length (the classic carry passes ``f0 + f1``)."""
     idx = label_length.to(torch.int64)[:, None]
-    picked = torch.gather(f0 + f1, 1, idx)[:, 0]
+    picked = torch.gather(mant, 1, idx)[:, 0]
     picked_e = torch.gather(fe, 1, idx)[:, 0]
     return -(torch.log(picked) + picked_e.to(torch.float32) * LN2)
 
@@ -449,7 +456,7 @@ def classic_loss_fast(ctx: CtcContext) -> torch.Tensor:
         return classic_mod.loss(ctx, classic_mod.alpha(ctx))
     blank, dcu, lm, nb, rep, lens, lab_len, k_win = kernel_inputs(ctx)
     f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "final")
-    return _pick_loss(f0, f1, fe, lab_len)
+    return pick_loss(f0 + f1, fe, lab_len)
 
 
 def classic_loss_and_pack(ctx: CtcContext):
@@ -464,7 +471,7 @@ def classic_loss_and_pack(ctx: CtcContext):
     inputs = kernel_inputs(ctx)
     blank, dcu, lm, nb, rep, lens, lab_len, k_win = inputs
     sa, saf, f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "resid")
-    loss = _pick_loss(f0, f1, fe, lab_len)
+    loss = pick_loss(f0 + f1, fe, lab_len)
     return loss, (inputs, sa, saf, loss)
 
 
@@ -504,7 +511,14 @@ def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     pc, f0, _f1, fe = classic_bwd_streamed(
         blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf, k_win
     )
-    beta0, beta0_e = f0[:, 0], fe[:, 0].to(torch.float32)
+    return gradient_from_beta_carry(ctx, pc, lm, ebi, f0[:, 0], fe[:, 0])
+
+
+def gradient_from_beta_carry(ctx: CtcContext, acts, lm, ebi, beta0, beta0_e):
+    """``(grad [B, T, V], fast loss [B])`` from a beta scan's acts and the
+    mantissa and exponent of its final carry at lane 0.  The fast loss is
+    the guard's flush signal."""
+    beta0_e = beta0_e.to(torch.float32)
     fast_loss = -(torch.log(beta0) + beta0_e * LN2)
     # The acts were scaled by 2^-ebi; the posterior scale is
     # exp(fast_loss + ebi ln2) = 2^(ebi - e) / m for the beta carry m * 2^e.
@@ -513,4 +527,4 @@ def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     scale = torch.where(
         torch.isfinite(fast_loss), torch.exp2(ebi - beta0_e) / beta0, torch.exp2(ebi)
     )
-    return grad_direct_assemble(ctx, act_scatter(ctx, pc, lm), fast_loss, scale), fast_loss
+    return grad_direct_assemble(ctx, act_scatter(ctx, acts, lm), fast_loss, scale), fast_loss

@@ -1,11 +1,14 @@
-"""Exact log-space classic CTC kernels: the saturation guard's repair path.
+"""Exact log-space CTC kernels: the saturation guard's repair path.
 
-Counterpart of the classic part of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
+Counterpart of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
 
 * ``classic_log_fwd`` (csrc/classic_log.cu) is the log-space alpha scan in
   modes ``"final"`` (loss) and ``"resid"`` (streams ``x`` and ``a1``);
 * ``classic_log_bwd`` (csrc/classic_log.cu) is the log-space beta scan
-  over those residuals, emitting the probability-space combined act.
+  over those residuals, emitting the probability-space combined act;
+* ``simplified_log_fwd`` and ``simplified_log_bwd`` (csrc/simplified_log.cu)
+  are the single-state pair of the simplified topology; its act is
+  ``pd = exp(loss + a + dg + b[l + 1])``.
 
 Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
 kernels; CPU tensors run the plain versions.  Single-chunk geometry only:
@@ -18,6 +21,7 @@ import torch
 
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
 from tf_seq2seq_losses_tpu_torch.ops import core as core_mod
+from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     act_scatter,
@@ -282,33 +286,240 @@ def assemble_with_blank_identity(ctx: CtcContext, non_blank, fast_loss):
     return torch.where(token_is_blank, bl, non_blank)
 
 
+def _pure_loss_and_gradient_log(pure, ctx: CtcContext):
+    """``(loss, log(-grad))`` on the pure path of the topology module
+    ``pure`` (``ops/classic.py`` or ``ops/simplified.py``)."""
+    loss = pure.loss(ctx, pure.alpha(ctx))
+    return loss, core_mod.gradient_log(pure, ctx, loss)
+
+
+def _safe_loss(loss: torch.Tensor) -> torch.Tensor:
+    """The loss that normalises the acts: 0 for non-finite losses."""
+    return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
+
+
 def classic_loss_and_gradient_log_exact(ctx: CtcContext):
     """``(exact loss, exact log(-grad))`` through the log-space kernels B4
     (mode resid) and B5: one alpha scan yields both, so a repair of the
     gradient needs no separate loss launch."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
-        from tf_seq2seq_losses_tpu_torch.ops.topology import ClassicTopology
-
-        loss = classic_mod.loss(ctx, classic_mod.alpha(ctx))
-        return loss, core_mod.gradient_log(ClassicTopology, ctx, loss)
+        return _pure_loss_and_gradient_log(classic_mod, ctx)
     blank_l, dc_l, pt_l, lm, nb, rep, lens, lab_len = _log_inputs(ctx)
     sx, sa1, f0, f1 = classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, "resid")
     loss = _pick_log_loss(f0, f1, lab_len)
-    safe_loss = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
     pc, _b0, _b1 = classic_log_bwd(
-        blank_l, dc_l, pt_l, nb, rep, lens, lab_len, safe_loss, sx, sa1
+        blank_l, dc_l, pt_l, nb, rep, lens, lab_len, _safe_loss(loss), sx, sa1
     )
+    return loss, _gradient_log_from_acts(ctx, pc, lm, loss)
+
+
+def _gradient_log_from_acts(ctx: CtcContext, pc, lm, loss):
+    """Exact ``log(-grad)`` from a log-space beta scan's acts ``pc``, which
+    were normalised by the finite-masked ``loss``."""
+    safe_loss = _safe_loss(loss)
     non_blank = torch.log(act_scatter(ctx, pc, lm)) - safe_loss[:, None, None]
     combined = assemble_with_blank_identity(ctx, non_blank, loss)
     out = loss[:, None, None] + combined
     out = torch.where(
         torch.isposinf(loss)[:, None, None], torch.full_like(out, NEG_INF), out
     )
-    return loss, apply_logarithmic_mask(out, ctx.logit_length_mask[:, :, None])
+    return apply_logarithmic_mask(out, ctx.logit_length_mask[:, :, None])
 
 
 def classic_gradient_log_exact(ctx: CtcContext) -> torch.Tensor:
     """Exact ``log(-grad)`` through the log-space kernels B4 (mode resid)
     and B5; same semantics as ``core.gradient_log`` on the pure path."""
     return classic_loss_and_gradient_log_exact(ctx)[1]
+
+
+# ---------------------------------------------------------------------------
+# simplified topology: kernels B8 and B9
+# ---------------------------------------------------------------------------
+
+
+def _simplified_log_gather_level(ctx: CtcContext, tpad: int, lpad: int):
+    """``(blank_l [B, tpad], dg_l [B, tpad, lpad])`` log-space inputs: the
+    diagonal transition ``log p[label[l]]``, -inf past label_length, on
+    padded lanes and on padded steps (whose blank is 0, a no-op)."""
+    batch, num_t, _ = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    device = ctx.logproba.device
+    dg_raw = take_token_logprobas(ctx.logproba, ctx.label)
+    dg_l = torch.full((batch, tpad, lpad), NEG_INF, device=device)
+    dg_l[:, :num_t, :lp1] = apply_logarithmic_mask(
+        dg_raw, ctx.label_length_mask[:, None, :]
+    )
+    blank_l = torch.zeros((batch, tpad), dtype=torch.float32, device=device)
+    blank_l[:, :num_t] = ctx.blank_lp
+    return blank_l, dg_l
+
+
+def simplified_log_fwd_plain(blank_l, dg_l, lens, mode: str):
+    """Plain version of ``simplified_log_fwd``."""
+    batch, tpad, lpad = dg_l.shape
+    device = dg_l.device
+    lane = torch.arange(lpad, device=device)
+    a = torch.where(lane == 0, 0.0, NEG_INF).expand(batch, lpad).clone()
+    resid = mode == "resid"
+    if resid:
+        sa = torch.full((batch, tpad, lpad), NEG_INF, device=device)
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for t in range(max_len):
+        if resid:
+            sa[:, t] = a
+        arr = shift_lanes(a + dg_l[:, t], 1, NEG_INF)
+        a = torch.where(t < lens_c, _lae(a + blank_l[:, t, None], arr), a)
+    if resid:
+        return sa, a
+    return a
+
+
+def simplified_log_fwd(blank_l, dg_l, lens, mode: str):
+    """Log-space single-state alpha scan.  ``mode="final"``: ``f [B, L]``;
+    ``mode="resid"``: ``(sa [B, Tp, L], f)``."""
+    if mode not in ("final", "resid"):
+        raise ValueError(f"unknown simplified_log_fwd mode {mode!r}")
+    if dg_l.device.type == "cpu":
+        return simplified_log_fwd_plain(blank_l, dg_l, lens, mode)
+    if dg_l.device.type != "cuda":
+        raise ValueError(
+            f"simplified_log_fwd runs on CUDA or CPU tensors, got {dg_l.device}"
+        )
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    batch, tpad, lpad = dg_l.shape
+    dev = dg_l.device
+    f32 = torch.float32
+    check_tensor(blank_l, (batch, tpad), f32, "blank_l", dev)
+    check_tensor(dg_l, (batch, tpad, lpad), f32, "dg_l", dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    lib = _build.lib("simplified_log")
+    _build.check_smem(
+        lib.ctc_simplified_log_fwd_smem_bytes(lpad), "simplified_log_fwd", dev
+    )
+    resid = mode == "resid"
+    f = torch.empty((batch, lpad), dtype=f32, device=dev)
+    sa = torch.empty((batch, tpad, lpad), dtype=f32, device=dev) if resid else None
+    with torch.cuda.device(dev):
+        err = lib.ctc_simplified_log_fwd(
+            blank_l.data_ptr(), dg_l.data_ptr(), lens.data_ptr(),
+            batch, tpad, lpad, int(resid),
+            sa.data_ptr() if resid else None, f.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "simplified_log_fwd")
+    simplified_log_fwd.launches += 1
+    simplified_log_fwd.mode_launches[mode] += 1
+    if resid:
+        return sa, f
+    return f
+
+
+simplified_log_fwd.launches = 0
+simplified_log_fwd.mode_launches = {"final": 0, "resid": 0}
+
+
+def simplified_log_bwd_plain(blank_l, dg_l, lens, lab_len, loss, sa):
+    """Plain version of ``simplified_log_bwd``."""
+    batch, tpad, lpad = dg_l.shape
+    device = dg_l.device
+    lane = torch.arange(lpad, device=device)
+    b = torch.where(lane[None, :] == lab_len.to(torch.int64)[:, None], 0.0, NEG_INF)
+    lo = loss[:, None]
+    pd = torch.zeros((batch, tpad, lpad), dtype=torch.float32, device=device)
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for t in range(max_len - 1, -1, -1):
+        run = t < lens_c
+        arr = shift_lanes(b, -1, NEG_INF)
+        dg = dg_l[:, t]
+        p = torch.exp(lo + sa[:, t] + dg + arr)
+        pd[:, t] = torch.where(run, p, torch.zeros_like(p))
+        b = torch.where(run, _lae(blank_l[:, t, None] + b, dg + arr), b)
+    return pd, b
+
+
+def simplified_log_bwd(blank_l, dg_l, lens, lab_len, loss, sa):
+    """Log-space single-state beta scan: ``(pd [B, Tp, L], beta0)``, with
+    ``pd = exp(loss + a + dg + b[l + 1])``; ``loss`` [B] is the
+    finite-masked loss that normalises the acts."""
+    if dg_l.device.type == "cpu":
+        return simplified_log_bwd_plain(blank_l, dg_l, lens, lab_len, loss, sa)
+    if dg_l.device.type != "cuda":
+        raise ValueError(
+            f"simplified_log_bwd runs on CUDA or CPU tensors, got {dg_l.device}"
+        )
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    batch, tpad, lpad = dg_l.shape
+    dev = dg_l.device
+    f32 = torch.float32
+    check_tensor(blank_l, (batch, tpad), f32, "blank_l", dev)
+    check_tensor(dg_l, (batch, tpad, lpad), f32, "dg_l", dev)
+    check_tensor(sa, (batch, tpad, lpad), f32, "sa", dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
+    check_tensor(loss, (batch,), f32, "loss", dev)
+    lib = _build.lib("simplified_log")
+    _build.check_smem(
+        lib.ctc_simplified_log_bwd_smem_bytes(lpad), "simplified_log_bwd", dev
+    )
+    pd = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
+    f = torch.empty((batch, lpad), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_simplified_log_bwd(
+            blank_l.data_ptr(), dg_l.data_ptr(), lens.data_ptr(), lab_len.data_ptr(),
+            loss.data_ptr(), sa.data_ptr(), batch, tpad, lpad,
+            pd.data_ptr(), f.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "simplified_log_bwd")
+    simplified_log_bwd.launches += 1
+    return pd, f
+
+
+simplified_log_bwd.launches = 0
+
+
+def simplified_log_inputs(ctx: CtcContext):
+    """``(blank_l, dg_l, lm, lens, lab_len)``: the inputs of B8 and B9."""
+    tpad, lpad, _ = geometry(ctx)
+    blank_l, dg_l = _simplified_log_gather_level(ctx, tpad, lpad)
+    lm, _nb, _rep = lane_masks(ctx, lpad)
+    lens, lab_len = kernel_lengths(ctx)
+    return blank_l, dg_l, lm, lens, lab_len
+
+
+def _pick_single_log_loss(f, label_length):
+    return -torch.gather(f, 1, label_length.to(torch.int64)[:, None])[:, 0]
+
+
+def simplified_loss_exact(ctx: CtcContext) -> torch.Tensor:
+    """Exact simplified loss through the log-space kernel B8 (mode final)."""
+    batch, num_t, _ = ctx.logproba.shape
+    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
+        return simplified_mod.loss(ctx, simplified_mod.alpha(ctx))
+    blank_l, dg_l, _lm, lens, lab_len = simplified_log_inputs(ctx)
+    f = simplified_log_fwd(blank_l, dg_l, lens, "final")
+    return _pick_single_log_loss(f, lab_len)
+
+
+def simplified_loss_and_gradient_log_exact(ctx: CtcContext):
+    """``(exact loss, exact log(-grad))`` through B8 (mode resid) and B9:
+    one alpha scan yields both."""
+    batch, num_t, _ = ctx.logproba.shape
+    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
+        return _pure_loss_and_gradient_log(simplified_mod, ctx)
+    blank_l, dg_l, lm, lens, lab_len = simplified_log_inputs(ctx)
+    sa, f = simplified_log_fwd(blank_l, dg_l, lens, "resid")
+    loss = _pick_single_log_loss(f, lab_len)
+    pd, _b = simplified_log_bwd(blank_l, dg_l, lens, lab_len, _safe_loss(loss), sa)
+    return loss, _gradient_log_from_acts(ctx, pd, lm, loss)
+
+
+def simplified_gradient_log_exact(ctx: CtcContext) -> torch.Tensor:
+    """Exact ``log(-grad)`` through B8 (mode resid) and B9; same semantics
+    as ``core.gradient_log`` on the pure path."""
+    return simplified_loss_and_gradient_log_exact(ctx)[1]

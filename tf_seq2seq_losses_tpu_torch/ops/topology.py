@@ -1,7 +1,11 @@
-"""The classic topology: pure log-space path vs the CUDA kernel path, and the
+"""The topologies: pure log-space path vs the CUDA kernel path, and the
 saturation guard.
 
-Counterpart of ``ClassicTopology`` in ``tf_seq2seq_losses_tpu/ops/topology.py``.
+Counterpart of ``ClassicTopology`` and ``SimplifiedTopology`` in
+``tf_seq2seq_losses_tpu/ops/topology.py``, as one :class:`Topology` that
+each topology parametrises with its pure module, its block-float kernel
+functions, its exact log-space functions and its feasibility rule.
+
 The block-float kernels flush a lattice entry that falls 2^-126 below its
 window's neighbourhood; a feasible row whose fast loss comes out +inf is
 then recomputed exactly.  The guard's contract, ported without the XLA
@@ -25,7 +29,9 @@ import torch
 from tf_seq2seq_losses_tpu_torch.ops import classic as _classic
 from tf_seq2seq_losses_tpu_torch.ops import core as _core
 from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as _kernels
+from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as _skernels
 from tf_seq2seq_losses_tpu_torch.ops import log_lattice as _log
+from tf_seq2seq_losses_tpu_torch.ops import simplified as _simplified
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext
 from tf_seq2seq_losses_tpu_torch.utils.config import get_config
 
@@ -46,6 +52,10 @@ def _classic_feasible(ctx: CtcContext) -> torch.Tensor:
     )
     repeats = rep.to(torch.int64).sum(dim=1)
     return ctx.logit_length >= ctx.label_length + repeats
+
+
+def _simplified_feasible(ctx: CtcContext) -> torch.Tensor:
+    return ctx.logit_length >= ctx.label_length
 
 
 def take_ctx(ctx: CtcContext, idx: torch.Tensor) -> CtcContext:
@@ -89,93 +99,105 @@ def compose_dlogits(ctx: CtcContext, grad, loss, d_loss):
     return d_loss[:, None, None] * (grad + torch.exp(ctx.logproba) * mask[:, :, None])
 
 
-def _pure_loss(c: CtcContext):
-    return _classic.loss(c, _classic.alpha(c))
+class Topology:
+    """One CTC topology: its pure path, its kernel path and the guard that
+    repairs the kernel path's flushed rows.
 
+    ``pure`` is the pure log-space module (``alpha``, ``beta``, ``gamma``,
+    ``combine``, ``loss``); ``loss_fast``, ``loss_and_pack`` and
+    ``gradient_with_loss`` are the block-float kernel path;
+    ``loss_exact`` and ``loss_and_gradient_log_exact`` the exact log-space
+    kernels that repair it; ``feasible`` gives the rows whose loss is
+    finite by their lengths.
+    """
 
-def _pure_grad(c: CtcContext):
-    return _core.gradient(ClassicTopology, c)
+    def __init__(self, name, pure, feasible, loss_fast, loss_and_pack,
+                 gradient_with_loss, loss_exact, loss_and_gradient_log_exact):
+        self.name = name
+        self.alpha = pure.alpha
+        self.beta = pure.beta
+        self.gamma = pure.gamma
+        self.combine = pure.combine
+        self.loss = pure.loss
+        self.feasible = feasible
+        self._loss_fast = loss_fast
+        self._loss_and_pack = loss_and_pack
+        self._gradient_with_loss = gradient_with_loss
+        self._loss_exact = loss_exact
+        self._loss_and_gradient_log_exact = loss_and_gradient_log_exact
 
+    def pure_loss(self, c: CtcContext):
+        return self.loss(c, self.alpha(c))
 
-def _exact_grad(c: CtcContext):
-    return -torch.exp(_log.classic_gradient_log_exact(c))
+    def _pure_grad(self, c: CtcContext):
+        return _core.gradient(self, c)
 
+    def _exact_grad(self, c: CtcContext):
+        return -torch.exp(self._loss_and_gradient_log_exact(c)[1])
 
-class ClassicTopology:
-    name = "classic"
-
-    @staticmethod
-    def alpha(ctx):
-        return _classic.alpha(ctx)
-
-    @staticmethod
-    def beta(ctx):
-        return _classic.beta(ctx)
-
-    @staticmethod
-    def gamma(ctx):
-        return _classic.gamma(ctx)
-
-    @staticmethod
-    def combine(ctx, a, b):
-        return _classic.combine(ctx, a, b)
-
-    @staticmethod
-    def loss(ctx, alpha_tensor):
-        return _classic.loss(ctx, alpha_tensor)
-
-    @staticmethod
-    def loss_fast(ctx: CtcContext):
-        """Forward-only loss: kernel B1 (mode final) on the kernel path."""
-        if not kernels_enabled(ctx):
-            return _pure_loss(ctx)
-        fast = _kernels.classic_loss_fast(ctx)
+    def _guarded_loss(self, ctx: CtcContext, fast):
         return _guarded(
-            fast, _log.classic_loss_exact, _pure_loss, fast,
-            _classic_feasible(ctx), ctx,
+            fast, self._loss_exact, self.pure_loss, fast, self.feasible(ctx), ctx
         )
 
-    @staticmethod
-    def loss_and_pack_fast(ctx: CtcContext):
-        """Training forward: the guarded loss plus the residual pack (kernel
-        B2, mode resid); the pack is None on the pure path."""
+    def loss_fast(self, ctx: CtcContext):
+        """Forward-only loss: the forward kernel in mode final on the
+        kernel path."""
         if not kernels_enabled(ctx):
-            return _pure_loss(ctx), None
-        fast, pack = _kernels.classic_loss_and_pack(ctx)
-        loss = _guarded(
-            fast, _log.classic_loss_exact, _pure_loss, fast,
-            _classic_feasible(ctx), ctx,
-        )
-        return loss, pack
+            return self.pure_loss(ctx)
+        return self._guarded_loss(ctx, self._loss_fast(ctx))
 
-    @staticmethod
-    def gradient_fast(ctx: CtcContext, pack=None):
-        """Gradient w.r.t. log-probabilities; kernel B3 on the kernel path."""
+    def loss_and_pack_fast(self, ctx: CtcContext):
+        """Training forward: the guarded loss plus the residual pack (the
+        forward kernel in mode resid); the pack is None on the pure path."""
         if not kernels_enabled(ctx):
-            return _pure_grad(ctx)
-        fast, fast_loss = _kernels.classic_gradient_with_loss(ctx, None, pack)
+            return self.pure_loss(ctx), None
+        fast, pack = self._loss_and_pack(ctx)
+        return self._guarded_loss(ctx, fast), pack
+
+    def gradient_fast(self, ctx: CtcContext, pack=None):
+        """Gradient w.r.t. log-probabilities; the backward kernel on the
+        kernel path."""
+        if not kernels_enabled(ctx):
+            return self._pure_grad(ctx)
+        fast, fast_loss = self._gradient_with_loss(ctx, None, pack)
         return _guarded(
-            fast, _exact_grad, _pure_grad, fast_loss, _classic_feasible(ctx), ctx
+            fast, self._exact_grad, self._pure_grad, fast_loss, self.feasible(ctx), ctx
         )
 
-    @staticmethod
-    def dlogits_fast(ctx: CtcContext, d_loss, pack=None):
+    def dlogits_fast(self, ctx: CtcContext, d_loss, pack=None):
         """Logits cotangent ``d_loss * (grad + softmax * valid)`` on the
-        kernel path (kernel B3), guarded at the d_logits level."""
+        kernel path (the backward kernel), guarded at the d_logits level."""
 
         def pure(c, dl):
-            loss = _pure_loss(c)
-            return compose_dlogits(c, _core.gradient(ClassicTopology, c, loss), loss, dl)
+            loss = self.pure_loss(c)
+            return compose_dlogits(c, _core.gradient(self, c, loss), loss, dl)
 
         def exact(c, dl):
-            loss, grad_log = _log.classic_loss_and_gradient_log_exact(c)
+            loss, grad_log = self._loss_and_gradient_log_exact(c)
             return compose_dlogits(c, -torch.exp(grad_log), loss, dl)
 
-        grad, fast_loss = _kernels.classic_gradient_with_loss(ctx, None, pack)
+        grad, fast_loss = self._gradient_with_loss(ctx, None, pack)
         fast = compose_dlogits(ctx, grad, fast_loss, d_loss)
         return _guarded(
-            fast, exact, pure, fast_loss, _classic_feasible(ctx), ctx, aux=d_loss
+            fast, exact, pure, fast_loss, self.feasible(ctx), ctx, aux=d_loss
         )
 
 
-CLASSIC = ClassicTopology()
+CLASSIC = Topology(
+    "classic", _classic, _classic_feasible,
+    loss_fast=_kernels.classic_loss_fast,
+    loss_and_pack=_kernels.classic_loss_and_pack,
+    gradient_with_loss=_kernels.classic_gradient_with_loss,
+    loss_exact=_log.classic_loss_exact,
+    loss_and_gradient_log_exact=_log.classic_loss_and_gradient_log_exact,
+)
+SIMPLIFIED = Topology(
+    "simplified", _simplified, _simplified_feasible,
+    loss_fast=_skernels.simplified_loss_fast,
+    loss_and_pack=_skernels.simplified_loss_and_pack,
+    gradient_with_loss=_skernels.simplified_gradient_with_loss,
+    loss_exact=_log.simplified_loss_exact,
+    loss_and_gradient_log_exact=_log.simplified_loss_and_gradient_log_exact,
+)
+TOPOLOGIES = {t.name: t for t in (CLASSIC, SIMPLIFIED)}

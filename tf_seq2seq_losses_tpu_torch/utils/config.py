@@ -17,7 +17,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Knobs of the classic CTC kernel path.
+    """Knobs of the CTC kernel path (classic and simplified topologies).
 
     ``use_kernels``: None = auto (the CUDA kernels for CUDA tensors, the
     pure log-space path for CPU tensors); True forces the kernel path
