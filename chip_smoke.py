@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one line each (phases 3 and 4 once per topology, classic then
+Phases, one line each (phases 3, 4 and 7 once per topology, classic then
 simplified):
 
-1. build the CUDA kernels of ``tf_seq2seq_losses_tpu_torch/csrc/``;
-2. run every kernel (classic B1-B5, simplified B6-B9) on the card at the
-   headline shape (B=256, T=500, V=32, labels [256, 250]), and at batch 8
-   with labels [8, 600], windows 1 and 16, and blank index 3 with labels
-   over {1, 2}, and hold it against its plain PyTorch version on the same
-   inputs: losses rtol 1e-5; acts and scaled carries atol 1e-5; block-float
-   residual mantissas rtol 1e-5 + atol 1e-6; log-space residuals rtol 1e-5
-   + atol 1e-5; inf patterns equal throughout;
+1. build the CUDA kernels of ``tf_seq2seq_losses_tpu_torch/csrc/``, and
+   print how many label lanes each kernel's shared memory allows;
+2. run every kernel (classic B1-B5 and B10, simplified B6-B9 and B11) on
+   the card at the headline shape (B=256, T=500, V=32, labels [256, 250]),
+   and at batch 8 with labels [8, 600], windows 1 and 16, and blank index 3
+   with labels over {1, 2}, and hold it against its plain PyTorch version
+   on the same inputs: losses rtol 1e-5; acts and scaled carries atol 1e-5;
+   block-float residual and carry mantissas rtol 1e-5 + atol 1e-6, their
+   exponents exactly; log-space residuals rtol 1e-5 + atol 1e-5; inf
+   patterns equal throughout.  The residual-free modes (B10, B11: forward
+   modes bound and final from a carry, backward from a beta carry) run at
+   the headline shape and chunk by chunk over T=1500, labels [8, 600], in
+   3 and in 24 chunks, each chunk from the carries the previous chunk's
+   kernels left;
 3. the main path, with TF32 allowed for float32 matrix products as
    training scripts on an H100 commonly set it: ``classic_ctc_loss`` (then
    ``simplified_ctc_loss``) forward plus ``.backward()``, then a
@@ -21,7 +27,9 @@ simplified):
    rows, +inf loss and exactly zero d_logits on infeasible rows, loss
    (rtol 1e-5) and d_logits (atol 1e-5) equal to the same topology's pure
    path run on the card in float64 (the float32 pure path's own error is
-   printed beside);
+   printed beside); then, as a path of its own, the training step with
+   ``stream_residuals=False``: one launch each of the forward in mode bound
+   and the residual-free backward, loss and d_logits bit for bit;
 4. the saturation guard: four rows saturated at the logit scale 1e2 and
    1e10 flush and are repaired through the log-space kernels; rows at
    1e2 match the pure path (loss and d_logits atol 2e-4), rows at 1e10
@@ -32,19 +40,36 @@ simplified):
    [1/3, -2/3, 1/3] (atol 1e-3), also from numpy arrays, whose result must
    lie on the card; the simplified loss of labels [[1, 2]] over three
    uniform frames of three tokens, ln 9 (three paths of 1/27; atol 1e-3);
-6. timing with CUDA events (each kernel: median of 5 bursts of 20
-   back-to-back launches; its plain version: median of 5 single calls;
-   ``torch.nn.functional.ctc_loss``, the library yardstick of the classic
-   loss: median of 20 single calls; no PyTorch call computes the
-   simplified loss) and on the host clock (each topology's fwd+bwd step
-   and forward-only call): each kernel, its plain version and its bound;
-   then a ``torch.profiler`` breakdown of each step's device time by
-   kernel.
+6. timing at the headline shape with CUDA events (each kernel: median of 5
+   bursts of 20 back-to-back launches; its plain version: median of 3
+   single calls; ``torch.nn.functional.ctc_loss``, the library yardstick
+   of the classic loss: median of 20 single calls; no PyTorch call
+   computes the simplified loss) and on the host clock (each topology's
+   fwd+bwd step, streamed and residual-free, and forward-only call): each
+   kernel, its plain version and its bound; then a ``torch.profiler``
+   breakdown of each step's device time by kernel;
+7. long T, a path of its own: B=256, T=4000, V=32 from
+   ``benchmarks/long_t.py``'s generator (labels [256, 2000], 8 chunks of
+   504 steps, 2016 lanes): a training step, an evaluation call and a step
+   with row 2 saturated at 1e2 (the guard repairs it through the pure
+   path: the log-space kernels serve one chunk); launches per call, read
+   just after that step; the classic step's peak device memory under
+   16 GB.  Then checks outside the path: the rows whose forward and beta
+   scans disagree, over the whole batch (at seed 0 ``LONG_FLAGGED``), and
+   none on peaked low-loss logits at T=500 and T=4000; loss (rtol 1e-5)
+   and d_logits (atol 1e-5) of ``LONG_ROWS`` against the pure path in
+   float64, except the d_logits of rows the guard repaired, which are
+   held to the float32 pure path that repaired them (atol 2e-4) and to
+   float64 at ``REPAIRED_LONG_ATOL``; rows 0-31 bit for bit as one chunk;
+   then each topology's step and forward-only call (host clock, median of
+   3), one chunk's kernels (CUDA events), ``F.ctc_loss`` there, and a
+   profile of the classic step.
 
-The launch counts are set to 0 before each topology's phase 3 and read
-after its phase 4: a kernel that its main path (training step, evaluation
-call, guard repair) never launched fails the run.  The last lines are the
-``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
+The launch counts are set to 0 before each path (a topology's phases 3
+and 4, its residual-free step, its phase 7) and read after it: a kernel
+that its path never launched fails the run, and the ``kernels`` line
+gives each kernel's launches summed over the paths.  The last lines are
+the ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": ...}``.  Any failed check exits non-zero.
 """
 
@@ -63,7 +88,8 @@ BATCH, MAX_T, VOCAB = 256, 500, 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 RUNS = 20
-PLAIN_RUNS = 5  # the plain versions take 0.1 to 0.2 s a launch at the headline
+PLAIN_RUNS = 3  # the plain versions take 0.1 to 0.4 s a launch at the headline
+LONG_RUNS = 3  # a long-T step takes 0.2 s, 5 s with a row the pure path repairs
 
 
 class CheckFailed(Exception):
@@ -79,29 +105,38 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_inputs(torch, seed: int, dev, batch=None, label_width=None):
+def make_inputs(torch, seed: int, dev, batch=None, label_width=None, max_t=None,
+                infeasible=True):
     """Headline inputs: labels [B, T/2] in 1..V-1, N(0, 1) logits,
     label_length in [T/4, T/2), logit_length in [T/2, T); rows 0 and 1 are
-    made infeasible (logit_length below label_length).  ``label_width``
-    widens the label array (its extra columns are past every
-    label_length)."""
+    made infeasible (logit_length below label_length) unless
+    ``infeasible`` is False.  ``label_width`` widens the label array (its
+    extra columns are past every label_length) or narrows it (label_length
+    then in [W/2, W)).  With ``infeasible=False`` this is the generator of
+    ``benchmarks/long_t.py``."""
     import numpy as np
 
     batch = batch or BATCH
+    max_t = max_t or MAX_T
+    width = label_width or max_t // 2
+    hi = min(max_t // 2, width)
     rng = np.random.RandomState(seed)
-    labels = rng.randint(1, VOCAB, (batch, label_width or MAX_T // 2)).astype(np.int32)
-    logits = rng.randn(batch, MAX_T, VOCAB).astype(np.float32)
-    label_length = rng.randint(MAX_T // 4, MAX_T // 2, (batch,)).astype(np.int32)
-    logit_length = rng.randint(MAX_T // 2, MAX_T, (batch,)).astype(np.int32)
-    logit_length[:2] = label_length[:2] // 2
+    labels = rng.randint(1, VOCAB, (batch, width)).astype(np.int32)
+    logits = rng.randn(batch, max_t, VOCAB).astype(np.float32)
+    label_length = rng.randint(min(max_t // 4, hi // 2), hi, (batch,)).astype(np.int32)
+    logit_length = rng.randint(max_t // 2, max_t, (batch,)).astype(np.int32)
+    if infeasible:
+        logit_length[:2] = label_length[:2] // 2
     return tuple(torch.as_tensor(a, device=dev) for a in (
         labels, logits, label_length, logit_length))
 
 
-def saturate(torch, labels, logits, label_length, logit_length):
-    """Rows 2..5: label_length 5, logit_length 12, and at frame 3 one token
-    absent from the label (not blank) at +s, every other token at -s, with
-    s = 1e2 for rows 2, 3 and 1e10 for rows 4, 5.  Every path pays ~2s
+def saturate(torch, labels, logits, label_length, logit_length,
+             rows=((2, 1e2), (3, 1e2), (4, 1e10), (5, 1e10))):
+    """Rows 2..5 (or ``rows``, pairs of row and scale): label_length 5,
+    logit_length 12, and at frame 3 one token absent from the label (not
+    blank) at +s, every other token at -s, with s = 1e2 for rows 2, 3 and
+    1e10 for rows 4, 5.  Every path pays ~2s
     there: the block-float forward flushes, the exact loss is finite.
 
     At s = 1e10 the loss is 2e10 plus about 12, and float32 holds it only
@@ -112,7 +147,7 @@ def saturate(torch, labels, logits, label_length, logit_length):
     logits = logits.clone()
     label_length = label_length.clone()
     logit_length = logit_length.clone()
-    for row, scale in ((2, 1e2), (3, 1e2), (4, 1e10), (5, 1e10)):
+    for row, scale in rows:
         label_length[row] = 5
         logit_length[row] = 12
         used = set(labels[row, :5].tolist()) | {0}
@@ -385,6 +420,112 @@ def compare_simplified_kernels(ctx):
     return errs, args
 
 
+def rf_ops(ctx, topology):
+    """The residual-free kernels of ``topology`` with their plain versions,
+    and a function giving chunk ``c``'s leading kernel arguments (the
+    transitions and the chunk's lengths; the lane masks for the classic
+    scans)."""
+    from types import SimpleNamespace
+
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
+
+    if topology == "classic":
+        lpad, k_win, lm, nb, rep, lens, lab_len = cl._lane_inputs(ctx)
+
+        def chunk(c, chunk_t):
+            blank, dcu, lens_c = cl._chunk(ctx, c, chunk_t, lpad, lens)
+            return blank, dcu, lm, nb, rep, lens_c
+
+        return SimpleNamespace(
+            chunk=chunk, k_win=k_win, lab_len=lab_len, states=2,
+            fwd=cl.classic_fwd, fwd_plain=cl.classic_fwd_plain,
+            bwd=cl.classic_bwd, bwd_plain=cl.classic_bwd_plain,
+            loss=lambda f: cl.pick_loss(f[0] + f[1], f[2], lab_len))
+    lpad, k_win, _lm, lens, lab_len = cs._lane_inputs(ctx)
+
+    def chunk(c, chunk_t):
+        blank, dg, lens_c = cs._chunk(ctx, c, chunk_t, lpad, lens)
+        return blank, dg, lens_c
+
+    return SimpleNamespace(
+        chunk=chunk, k_win=k_win, lab_len=lab_len, states=1,
+        fwd=cs.simplified_fwd, fwd_plain=cs.simplified_fwd_plain,
+        bwd=cs.simplified_bwd, bwd_plain=cs.simplified_bwd_plain,
+        loss=lambda f: cl.pick_loss(f[0], f[1], lab_len))
+
+
+def agree_carry(ours, ref, what) -> float:
+    """Hold a block-float carry (mantissas, then exponents) against its
+    plain version: mantissas rtol 1e-5 + atol 1e-6, exponents exactly."""
+    import torch
+
+    *mants, e = ours
+    *ref_mants, ref_e = ref
+    for m, r in zip(mants, ref_mants):
+        agree(m, r, 1e-5, 1e-6, f"{what} mantissas vs plain")
+    check(torch.equal(e, ref_e), f"{what} exponents vs plain")
+    return max(max_err(m, r) for m, r in zip(mants, ref_mants))
+
+
+def compare_rf_kernels(ctx, topology):
+    """Hold the residual-free kernels of ``topology`` (B10 or B11: the
+    forward in mode bound and in mode final from a carry, the backward from
+    a beta carry) against their plain versions, chunk by chunk along the
+    chunk plan of ``ctx``: the forward walks the chunks first to last, the
+    backward last to first, each launch on the inputs that the kernels of
+    the previous chunk gave.  Returns ``(max abs errors, kernel arguments
+    of the last chunk of the backward)``."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+
+    ops = rf_ops(ctx, topology)
+    n_chunks, chunk_t = cl.chunk_plan(ctx)
+    k_win, s = ops.k_win, ops.states
+    fwd_name, bwd_name = f"{topology}_fwd[bound]", f"{topology}_bwd"
+    errs = {fwd_name: 0.0, bwd_name: 0.0, f"{topology}_fwd[final]": 0.0}
+    carries, carry = [], None
+    for c in range(n_chunks):
+        args = ops.chunk(c, chunk_t)
+        kw = cl.init_kw(carry)
+        fin = ops.fwd(*args, k_win, "final", **kw)
+        errs[f"{topology}_fwd[final]"] = max(
+            errs[f"{topology}_fwd[final]"],
+            agree_carry(fin, ops.fwd_plain(*args, k_win, "final", **kw),
+                        f"{topology}_fwd[final] from a carry, chunk {c}"))
+        bnd = ops.fwd(*args, k_win, "bound", **kw)
+        bnd_p = ops.fwd_plain(*args, k_win, "bound", **kw)
+        err = agree_carry(bnd[:s + 1], bnd_p[:s + 1],
+                          f"{fwd_name} boundaries, chunk {c}")
+        err = max(err, agree_carry(bnd[s + 1:], bnd_p[s + 1:],
+                                   f"{fwd_name} final carry, chunk {c}"))
+        check(all(torch.equal(a, b) for a, b in zip(bnd[s + 1:], fin)),
+              f"{fwd_name} final carry equals mode final's, chunk {c}")
+        errs[fwd_name] = max(errs[fwd_name], err)
+        carries.append(carry)
+        carry = fin
+    loss = ops.loss(carry)
+    one_chunk = ops.fwd_plain(*ops.chunk(0, n_chunks * chunk_t), k_win, "final")
+    agree(loss, ops.loss(one_chunk), 1e-5, 0.0,
+          f"{topology} chunked loss vs the one-chunk plain scan")
+    ebi = cl.ebi_from_loss(loss)
+    beta = None
+    for c in range(n_chunks - 1, -1, -1):
+        args = ops.chunk(c, chunk_t)
+        bounds = ops.fwd(*args, k_win, "bound", **cl.init_kw(carries[c]))[:s + 1]
+        b_args = (*args, ops.lab_len, ebi, *bounds, k_win, beta)
+        b_k = ops.bwd(*b_args)
+        b_p = ops.bwd_plain(*b_args)
+        agree(b_k[0], b_p[0], 0.0, 1e-5, f"{bwd_name} acts vs plain, chunk {c}")
+        err = max(max_err(b_k[0], b_p[0]),
+                  agree_carry(b_k[1:], b_p[1:], f"{bwd_name} beta carry, chunk {c}"))
+        errs[bwd_name] = max(errs[bwd_name], err)
+        beta = b_k[1:]
+        last = dict(fwd=(*args, k_win), bwd=b_args)
+    return errs, last
+
+
 def kernel_counters() -> dict:
     """``{path: {kernel name: (wrapper, mode or None)}}``: the launch counts
     that each main path must move."""
@@ -400,6 +541,8 @@ def kernel_counters() -> dict:
             "classic_log_fwd[final]": (ll.classic_log_fwd, "final"),
             "classic_log_fwd[resid]": (ll.classic_log_fwd, "resid"),
             "classic_log_bwd": (ll.classic_log_bwd, None),
+            "classic_fwd[bound]": (cl.classic_fwd, "bound"),
+            "classic_bwd": (cl.classic_bwd, None),
         },
         "simplified": {
             "simplified_fwd[final]": (cs.simplified_fwd, "final"),
@@ -408,6 +551,8 @@ def kernel_counters() -> dict:
             "simplified_log_fwd[final]": (ll.simplified_log_fwd, "final"),
             "simplified_log_fwd[resid]": (ll.simplified_log_fwd, "resid"),
             "simplified_log_bwd": (ll.simplified_log_bwd, None),
+            "simplified_fwd[bound]": (cs.simplified_fwd, "bound"),
+            "simplified_bwd": (cs.simplified_bwd, None),
         },
     }
 
@@ -425,20 +570,17 @@ def read_launches(path: str) -> dict:
             for name, (fn, mode) in kernel_counters()[path].items()}
 
 
-def drive_main_path(torch, dev, topology, inputs, ctx, sync):
-    """Phases 3 and 4 for one topology: its loss through the public API,
-    training step and evaluation call, then the saturated batch through the
-    guard.  The launch counts are set to 0 just before and read just after;
-    returns the launches, the step function and the batches for timing."""
+def loss_function(topology):
     import tf_seq2seq_losses_tpu_torch as ctc
-    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
-    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
 
-    loss_fn = {"classic": ctc.classic_ctc_loss,
-               "simplified": ctc.simplified_ctc_loss}[topology]
-    labels, logits, label_length, logit_length = inputs
-    names = list(kernel_counters()[topology])
-    fwd_final, fwd_resid, bwd, log_final, log_resid, log_bwd = names
+    return {"classic": ctc.classic_ctc_loss,
+            "simplified": ctc.simplified_ctc_loss}[topology]
+
+
+def make_step(torch, loss_fn, labels):
+    """A training step of ``loss_fn`` on ``labels``: the loss forward and
+    ``.backward()`` of the sum of its finite values to the logits; returns
+    ``(loss, d_logits)``."""
 
     def train_step(x, ll_, gl_):
         x = x.detach().requires_grad_(True)
@@ -446,20 +588,40 @@ def drive_main_path(torch, dev, topology, inputs, ctx, sync):
         torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum().backward()
         return loss.detach(), x.grad
 
-    def launches_since(before):
-        now = read_launches(topology)
-        return {k: n - before[k] for k, n in now.items() if n > before[k]}
+    return train_step
+
+
+def launches_since(topology, before) -> dict:
+    now = read_launches(topology)
+    return {k: n - before[k] for k, n in now.items() if n > before[k]}
+
+
+def drive_main_path(torch, dev, topology, inputs, ctx, sync):
+    """Phases 3 and 4 for one topology: its loss through the public API,
+    training step and evaluation call, then the saturated batch through the
+    guard; then, as a path of its own, the training step with
+    ``stream_residuals=False``.  The launch counts are set to 0 just before
+    each path and read just after; returns the launches of both, the step
+    functions and the batches for timing."""
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    loss_fn = loss_function(topology)
+    labels, logits, label_length, logit_length = inputs
+    fwd_final, fwd_resid, bwd, log_final, log_resid, log_bwd, fwd_bound, bwd_rf = (
+        kernel_counters()[topology])
+    train_step = make_step(torch, loss_fn, labels)
 
     # ---- 3. the main path --------------------------------------------------
     reset_launches()
     per_step = {}
     mark = read_launches(topology)
     loss, d_logits = train_step(logits, label_length, logit_length)
-    per_step["training step"] = launches_since(mark)
+    per_step["training step"] = launches_since(topology, mark)
     mark = read_launches(topology)
     with torch.no_grad():
         loss_eval = loss_fn(labels, logits, label_length, logit_length, 0)
-    per_step["evaluation call"] = launches_since(mark)
+    per_step["evaluation call"] = launches_since(topology, mark)
     sync()
     feasible = TOPOLOGIES[topology].feasible(ctx)
     check(bool(torch.isfinite(loss[feasible]).all()), "finite loss on feasible rows")
@@ -486,7 +648,7 @@ def drive_main_path(torch, dev, topology, inputs, ctx, sync):
     s_logits, s_ll, s_gl = saturate(torch, labels, logits, label_length, logit_length)
     mark = read_launches(topology)
     s_loss, s_d = train_step(s_logits, s_ll, s_gl)
-    per_step["step with 4 rows repaired"] = launches_since(mark)
+    per_step["step with 4 rows repaired"] = launches_since(topology, mark)
     sync()
     for name in (log_final, log_resid, log_bwd):
         check(name in per_step["step with 4 rows repaired"], f"guard launched {name}")
@@ -508,16 +670,256 @@ def drive_main_path(torch, dev, topology, inputs, ctx, sync):
     check(torch.equal(s_loss[clean], loss[clean]), "clean rows' loss bit for bit")
     check(torch.equal(s_d[clean], d_logits[clean]), "clean rows' d_logits bit for bit")
     launches = read_launches(topology)
-    for name, n in launches.items():
-        check(n >= 1, f"{name} launched on the {topology} main path")
+    for name in (fwd_final, fwd_resid, bwd, log_final, log_resid, log_bwd):
+        check(launches[name] >= 1, f"{name} launched on the {topology} main path")
     log(f"phase 4 {topology} guard: ok, repaired rows 2-5, losses "
         f"{[round(float(v), 4) for v in s_loss[2:6]]}, max abs err vs pure "
         f"loss {max_err(s_loss[rows], p_loss[rows]):.3g} "
         f"d_logits {max_err(s_d[rows], p_d[rows]):.3g}; rows 4-5 d_logits not "
         f"compared: float32 pure vs float64 {max_err(p_d[big], s_d64[big]):.3g} there; "
         f"launches per call {json.dumps(per_step)}")
-    return dict(launches=launches, train_step=train_step, loss_fn=loss_fn,
+
+    # ---- 3, residual-free: the training step with stream_residuals=False ---
+    reset_launches()
+    with config_override(stream_residuals=False):
+        rf_loss, rf_d = train_step(logits, label_length, logit_length)
+    sync()
+    rf_launches = read_launches(topology)
+    rf_step = {k: n for k, n in rf_launches.items() if n}
+    check(rf_step == {fwd_bound: 1, bwd_rf: 1},
+          f"{topology} stream_residuals=False launches {rf_step}")
+    check(torch.equal(rf_loss, loss), f"{topology} residual-free loss bit for bit")
+    check(torch.equal(rf_d, d_logits), f"{topology} residual-free d_logits bit for bit")
+    log(f"phase 3 {topology} residual-free step (stream_residuals=False, one chunk): "
+        f"ok, loss and d_logits bit for bit the streamed step's; launches per step "
+        f"{json.dumps(rf_step)}")
+    return dict(launches={k: n + rf_launches[k] for k, n in launches.items()},
+                train_step=train_step, loss_fn=loss_fn,
                 saturated=(s_logits, s_ll, s_gl))
+
+
+LONG_T = 4000
+# rows held against float64: 0-6 and row 220 of seed 0's batch (infeasible
+# in the classic topology; flagged by the scan gap in the simplified one)
+LONG_ROWS = [0, 1, 2, 3, 4, 5, 6, 220]
+# the rows of seed 0's long-T batch whose scans disagree (the guard repairs
+# them through the pure path)
+LONG_FLAGGED = {"classic": [], "simplified": [220]}
+# d_logits of a long row repaired through the float32 pure path against
+# float64: that path's own rounding over 4000 steps (7.4e-3 measured on
+# row 220, simplified, on an H100), not the 1e-5 of the kernel path
+REPAIRED_LONG_ATOL = 2e-2
+PEAK_SCALE = 12.0  # peaked logits: losses of a nat or less
+
+
+def peaked(torch, topology, labels, label_length, logit_length, logits,
+           scale=PEAK_SCALE):
+    """``logits`` plus ``scale`` on one alignment of each row: the row's
+    label sequence (in the classic topology with a blank (0) between two
+    equal labels) spread over its frames, each element at the first frame
+    of its share and blank on the rest.  Low-loss rows, as a trained model
+    gives them."""
+    lab = labels.long()
+    u = label_length.long()[:, None]
+    k = torch.arange(lab.shape[1], device=lab.device)[None]
+    repeat = torch.zeros_like(lab, dtype=torch.bool)
+    if topology == "classic":
+        repeat[:, 1:] = (lab[:, 1:] == lab[:, :-1]) & (k[:, 1:] < u)
+    seq = torch.zeros((len(lab), 2 * lab.shape[1]), dtype=torch.long, device=lab.device)
+    seq.scatter_(1, k + torch.cumsum(repeat.long(), 1), lab)
+    m = u + repeat.long().sum(1, keepdim=True)  # elements of the sequence
+    t = torch.arange(logits.shape[1], device=logits.device)[None]
+    n = logit_length.long()[:, None]
+    seg = torch.minimum(t * m // n.clamp(min=1), (m - 1).clamp(min=0))
+    first = torch.ones_like(seg, dtype=torch.bool)
+    first[:, 1:] = seg[:, 1:] != seg[:, :-1]
+    tok = torch.where(first, seq.gather(1, seg), 0)
+    hot = torch.nn.functional.one_hot(tok, logits.shape[2]).to(logits.dtype) * scale
+    return logits + torch.where((t < n)[:, :, None], hot, torch.zeros_like(hot))
+
+
+def scan_gaps(torch, topology, labels, logits, label_length, logit_length) -> dict:
+    """The kernel path below the guard, on the whole batch: the feasible
+    rows whose fast loss is +inf (the rows the guard repairs), and on the
+    other feasible rows the largest gap between the forward and the beta
+    scan's losses as a share of ``cuda_lattice.scan_gap_limit``, with their
+    median loss."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                            logit_length, 0)
+    forward, backward = {
+        "classic": (cl.classic_loss_and_pack, cl.classic_gradient_with_loss),
+        "simplified": (cs.simplified_loss_and_pack, cs.simplified_gradient_with_loss),
+    }[topology]
+    loss, pack = forward(ctx)
+    fast = backward(ctx, loss, pack)[1]
+    feasible = TOPOLOGIES[topology].feasible(ctx)
+    flagged = torch.isposinf(fast) & feasible
+    clean = feasible & ~flagged
+    share = torch.abs(fast - loss)[clean] / cl.scan_gap_limit(
+        fast[clean], ctx.logit_length[clean])
+    return dict(flagged=torch.nonzero(flagged)[:, 0].tolist(),
+                max_share=float(share.max()) if bool(clean.any()) else 0.0,
+                median_loss=float(loss[clean].median()) if bool(clean.any()) else None)
+
+
+def drive_long_t(torch, dev, topology, inputs, sync, seed):
+    """The long-T phase of one topology, a path of its own (launch counts
+    set to 0 just before, read just after): a training step and an
+    evaluation call at B=256, T=4000 (8 chunks), then a batch with row 2
+    saturated at 1e2, which the guard repairs through the pure path (the
+    log-space kernels serve one chunk only).  Checks: the launches of each
+    call, the step's peak device memory, +inf and zero d_logits on
+    infeasible rows; then, outside the path, the rows the scan gap flags
+    (``LONG_FLAGGED`` at seed 0; none on peaked low-loss logits at T=500
+    and 4000), loss and d_logits of rows ``LONG_ROWS`` against the pure
+    path in float64 (repaired rows to ``REPAIRED_LONG_ATOL``), and the
+    first 32 rows run again as one chunk, which must give the same bits.
+    Returns the launches, the peak memory and the step for timing."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    loss_fn = loss_function(topology)
+    labels, logits, label_length, logit_length = inputs
+    fwd_final, fwd_bound, bwd_rf = (f"{topology}_fwd[final]", f"{topology}_fwd[bound]",
+                                    f"{topology}_bwd")
+    train_step = make_step(torch, loss_fn, labels)
+    ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                            logit_length, 0)
+    n_chunks, chunk_t = cl.chunk_plan(ctx)
+    t0 = time.perf_counter()
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    per_step = {}
+    mark = read_launches(topology)
+    loss, d_logits = train_step(logits, label_length, logit_length)
+    sync()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    per_step["training step"] = launches_since(topology, mark)
+    mark = read_launches(topology)
+    with torch.no_grad():
+        loss_eval = loss_fn(labels, logits, label_length, logit_length, 0)
+    per_step["evaluation call"] = launches_since(topology, mark)
+    sync()
+    check(per_step["training step"] == {fwd_final: n_chunks, fwd_bound: n_chunks,
+                                        bwd_rf: n_chunks},
+          f"{topology} long-T training step launches {per_step['training step']}")
+    check(per_step["evaluation call"] == {fwd_final: n_chunks},
+          f"{topology} long-T evaluation launches {per_step['evaluation call']}")
+    feasible = TOPOLOGIES[topology].feasible(ctx)
+    check(bool(torch.isfinite(loss[feasible]).all()),
+          "finite long-T loss on feasible rows")
+    check(bool(torch.isposinf(loss[~feasible]).all()),
+          "+inf long-T loss on infeasible rows")
+    check(bool((d_logits[~feasible] == 0).all()),
+          "zero long-T d_logits on infeasible rows")
+    check(torch.equal(loss, loss_eval),
+          "long-T forward-only loss equals the training loss")
+
+    s_logits, s_ll, s_gl = saturate(torch, labels, logits, label_length, logit_length,
+                                    rows=((2, 1e2),))
+    mark = read_launches(topology)
+    s_loss, s_d = train_step(s_logits, s_ll, s_gl)
+    per_step["step with 1 row repaired"] = launches_since(topology, mark)
+    sync()
+    # the end of the path: what follows checks it, and its launches do not count
+    launches = read_launches(topology)
+    check(per_step["step with 1 row repaired"] == per_step["training step"],
+          f"{topology} long-T repair launched no log-space kernel")
+    for name in (fwd_final, fwd_bound, bwd_rf):
+        check(launches[name] >= 1, f"{name} launched on the {topology} long-T path")
+    if topology == "classic":
+        check(peak < 16e9,
+              f"long-T classic step peak memory {peak / 1e9:.2f} GB < 16 GB")
+    check(bool(torch.isfinite(s_loss[2])), f"{topology} long-T repaired row finite")
+    clean = torch.ones(len(loss), dtype=torch.bool, device=dev)
+    clean[2] = False
+    check(torch.equal(s_loss[clean], loss[clean]),
+          "long-T clean rows' loss bit for bit")
+    check(torch.equal(s_d[clean], d_logits[clean]),
+          "long-T clean rows' d_logits bit for bit")
+
+    # the rows whose forward and beta scans disagree, on the whole batch;
+    # none on peaked low-loss logits, at T=500 and at T=4000
+    gaps = {"random": scan_gaps(torch, topology, *inputs)}
+    gaps["peaked"] = scan_gaps(torch, topology, labels,
+                               peaked(torch, topology, labels, label_length, logit_length,
+                                      logits),
+                               label_length, logit_length)
+    h_labels, h_logits, h_label_length, h_logit_length = make_inputs(torch, seed, dev)
+    h_logits = peaked(torch, topology, h_labels, h_label_length, h_logit_length, h_logits)
+    gaps["peaked, T=500"] = scan_gaps(torch, topology, h_labels, h_logits,
+                                      h_label_length, h_logit_length)
+    del h_labels, h_logits, h_label_length, h_logit_length
+    if seed == 0:
+        check(gaps["random"]["flagged"] == LONG_FLAGGED[topology],
+              f"{topology} long-T rows flagged {gaps['random']['flagged']}, expected "
+              f"{LONG_FLAGGED[topology]}")
+    for kind in ("peaked", "peaked, T=500"):
+        check(not gaps[kind]["flagged"],
+              f"{topology} {kind} logits: rows {gaps[kind]['flagged']} flagged")
+
+    rows = torch.tensor(LONG_ROWS, device=dev)
+    sub = [t[rows] for t in inputs]
+    loss64, d64 = pure_float64(*sub, topology)
+    # one float32 pure pass (a Python loop over T) for the rows LONG_ROWS
+    # and the saturated row 2: the repair's own reference
+    both = [torch.cat([a, b[2:3]]) for a, b in zip(sub, (labels, s_logits, s_ll, s_gl))]
+    with config_override(use_kernels=False):
+        loss32, d32 = make_step(torch, loss_fn, both[0])(*both[1:])
+    p_loss, p_d = loss32[-1:], d32[-1:]
+    loss32, d32 = loss32[:-1], d32[:-1]
+    agree(s_loss[2:3], p_loss, 0.0, 2e-4, f"{topology} long-T repaired loss vs pure")
+    agree(s_d[2:3], p_d, 0.0, 2e-4, f"{topology} long-T repaired d_logits vs pure")
+    # the flagged rows went through the float32 pure path: exactly it, and
+    # as far from float64 as its rounding over T steps takes it
+    fixed = torch.tensor([r in gaps["random"]["flagged"] for r in LONG_ROWS], device=dev)
+    fixed_rows = [r for r, f in zip(LONG_ROWS, fixed.tolist()) if f]
+    agree(loss[rows], loss64, 1e-5, 0.0, f"{topology} long-T loss vs float64 pure")
+    agree(d_logits[rows][~fixed], d64[~fixed], 0.0, 1e-5,
+          f"{topology} long-T d_logits vs float64 pure")
+    agree(d_logits[rows][fixed], d32[fixed], 0.0, 2e-4,
+          f"{topology} long-T repaired d_logits vs float32 pure")
+    agree(d_logits[rows][fixed], d64[fixed], 0.0, REPAIRED_LONG_ATOL,
+          f"{topology} long-T repaired d_logits vs float64 pure")
+
+    first = [t[:32] for t in inputs]
+    step32 = make_step(torch, loss_fn, first[0])
+    chunked = step32(*first[1:])
+    with config_override(chunk_time=4096, stream_residuals=False):
+        one = step32(*first[1:])
+    check(all(torch.equal(a, b) for a, b in zip(chunked, one)),
+          f"{topology} long-T rows 0-31: chunked equals one chunk bit for bit")
+    log(f"phase 7 {topology} long T (B={len(loss)}, T={logits.shape[1]}, labels "
+        f"{list(labels.shape)}, {n_chunks} chunks of {chunk_t}): ok in "
+        f"{time.perf_counter() - t0:.1f} s; infeasible rows {int((~feasible).sum())}; "
+        f"scan gap on the whole batch (flagged rows; on the others the largest gap "
+        f"as a share of its limit, and the median loss): {json.dumps(gaps)}; "
+        f"rows {LONG_ROWS} vs the float64 pure path: kernel path loss "
+        f"{max_err(loss[rows], loss64):.3g} d_logits "
+        f"{max_err(d_logits[rows][~fixed], d64[~fixed]):.3g}, float32 pure path loss "
+        f"{max_err(loss32, loss64):.3g} d_logits {max_err(d32, d64):.3g}; of these, "
+        f"rows {fixed_rows} were repaired through the float32 pure path (d_logits "
+        f"{max_err(d_logits[rows][fixed], d32[fixed]):.3g} from it, "
+        f"{max_err(d_logits[rows][fixed], d64[fixed]):.3g} from float64, limit "
+        f"{REPAIRED_LONG_ATOL}, not the 1e-5 of the kernel rows); "
+        f"rows 0-31 chunked equal one chunk bit for bit; row 2 "
+        f"repaired through the pure path (loss {float(s_loss[2]):.4f}, max abs err "
+        f"loss {max_err(s_loss[2:3], p_loss):.3g} d_logits "
+        f"{max_err(s_d[2:3], p_d):.3g}), "
+        f"clean rows bit for bit; peak memory of the training step "
+        f"{peak / 1e9:.3f} GB; launches per call {json.dumps(per_step)}")
+    return dict(launches=launches, peak=peak, train_step=train_step, loss_fn=loss_fn,
+                loss=loss)
 
 
 def run(seed: int, dev) -> dict:
@@ -539,25 +941,39 @@ def run(seed: int, dev) -> dict:
             torch.cuda.synchronize()
 
     # ---- 1. build --------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.build_all()
-    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s for "
-        f"{len(_build._SOURCES)} libraries from tf_seq2seq_losses_tpu_torch/csrc")
+    t_phase = time.perf_counter()
+    libs = _build.build_all()
+    log(f"phase 1 build: {time.perf_counter() - t_phase:.1f} s for "
+        f"{len(_build._SOURCES)} libraries from tf_seq2seq_losses_tpu_torch/csrc; "
+        f"the most lanes each kernel takes at window 8: "
+        f"{json.dumps(widest_lanes(libs, dev))}")
 
     inputs = make_inputs(torch, seed, dev)
     labels, logits, label_length, logit_length = inputs
 
     # ---- 2. every kernel against its plain version ------------------------
+    t_phase = time.perf_counter()
     ctx = core.make_context(
         labels, logit_to_logproba(logits, 2), label_length, logit_length, 0
     )
 
-    def compare_all(c):
+    def compare_rf(c):
+        errs_rf, args_rf = {}, {}
+        for topology in ("classic", "simplified"):
+            e, args_rf[topology] = compare_rf_kernels(c, topology)
+            errs_rf.update(e)
+        return errs_rf, args_rf
+
+    def compare_all(c, rf=False):
         errs_c, args_c = compare_kernels(c)
         errs_s, args_s = compare_simplified_kernels(c)
-        return {**errs_c, **errs_s}, args_c, args_s
+        out = {**errs_c, **errs_s}
+        errs_rf, args_rf = compare_rf(c) if rf else ({}, None)
+        for name, e in errs_rf.items():
+            out[name] = max(out.get(name, 0.0), e)
+        return out, args_c, args_s, args_rf
 
-    errs, kargs, sargs = compare_all(ctx)
+    errs, kargs, sargs, rfargs = compare_all(ctx, rf=True)
     # other geometries at batch 8: two lanes per thread (labels [8, 600]),
     # windows 1 and 16, blank index 3 with labels over {1, 2} (many repeats)
     small = make_inputs(torch, seed + 1, dev, batch=8)
@@ -572,19 +988,35 @@ def run(seed: int, dev) -> dict:
     rep_labels = 1 + small[0] % 2
     extra["blank 3, labels over {1, 2}"] = compare_all(core.make_context(
         rep_labels, logit_to_logproba(small[1], 2), *small[2:], 3))[0]
+    # the residual-free kernels over several chunks, each from the carries
+    # the previous chunk's kernels left: T=1500, labels [8, 600]
+    multi = make_inputs(torch, seed + 3, dev, batch=8, label_width=600, max_t=1500)
+    multi_ctx = core.make_context(multi[0], logit_to_logproba(multi[1], 2), *multi[2:],
+                                  0)
+    for chunk_time in (512, 64):
+        with config_override(chunk_time=chunk_time):
+            key = (f"T 1500, labels [8, 600], {cl.chunk_plan(multi_ctx)[0]} chunks "
+                   f"of at most {chunk_time}")
+            extra[key] = compare_rf(multi_ctx)[0]
+        for name, e in extra[key].items():
+            errs[name] = max(errs[name], e)
     sync()
     worst = {name: float(f"{max(e.values()):.3g}") for name, e in extra.items()}
     log("phase 2 kernel vs plain on the card: ok, max abs err at the headline "
-        "shape " + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
-        + "; worst over the kernels at batch 8: " + json.dumps(worst))
+        "shape (the residual-free modes: also over the chunks of T 1500) "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
+        + "; worst over the kernels at batch 8: " + json.dumps(worst)
+        + f"; {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 3 and 4. each main path, then the guard ---------------------------
     # TF32 on, as an H100 training script sets it: the act scatter must not
     # depend on it
     torch.set_float32_matmul_precision("high")
+    t_phase = time.perf_counter()
     paths = {name: drive_main_path(torch, dev, name, inputs, ctx, sync)
              for name in ("classic", "simplified")}
     launches = {**paths["classic"]["launches"], **paths["simplified"]["launches"]}
+    log(f"phases 3-4: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 5. oracles ----------------------------------------------------------
     o_labels = torch.tensor([[1, 2, 2, 1], [1, 2, 1, 0]], device=dev)
@@ -613,34 +1045,9 @@ def run(seed: int, dev) -> dict:
         f"(also from numpy, on {n_loss.device}); simplified [[1, 2]] over 3 "
         f"frames {round(float(s_loss[0]), 4)} (ln 9 = 2.1972)")
 
-    # ---- 6. timing -----------------------------------------------------------
-    # Bytes and operations that this run's data needs, counted per sample:
-    # len_b steps over the label_length_b + 1 lanes of its lattice (lanes
-    # above it never reach the loss, mass only flows upward).  The kernels
-    # read every padded lane of every step they run: the distance between
-    # their time and this bound includes that.
-    batch = kargs["shape"][0]
-    lens, k_win = kargs["lens"].double(), kargs["k_win"]
-    lanes_b = label_length.double() + 1
-    steps = float(lens.sum())  # blank-row reads
-    cells = float((lens * lanes_b).sum())  # one [T, L] stream
-    wcells = float((torch.ceil(lens / k_win) * lanes_b).sum())  # frames
-    lanes = float(lanes_b.sum())  # one [L] mask or carry
-    fwd_final_b = 4 * (cells + steps + 3 * lanes + batch + 3 * lanes)
-    fwd_resid_b = fwd_final_b + 4 * (2 * cells + wcells)
-    bwd_b = 4 * (cells + steps + 3 * lanes + 3 * batch + 2 * cells + wcells
-                 + cells + 3 * lanes)
-    logf_final_b = 4 * (2 * cells + steps + 2 * lanes + batch + 2 * lanes)
-    logf_resid_b = logf_final_b + 4 * 2 * cells
-    logb_b = 4 * (2 * cells + steps + 2 * lanes + 3 * batch + 2 * cells
-                  + cells + 2 * lanes)
-    # simplified: one transition stream, one residual stream, no lane masks
-    sfwd_final_b = 4 * (cells + steps + batch + 2 * lanes)
-    sfwd_resid_b = sfwd_final_b + 4 * (cells + wcells)
-    sbwd_b = 4 * (steps + 3 * cells + wcells + 3 * batch + 2 * lanes)
-    slogf_final_b = 4 * (cells + steps + batch + lanes)
-    slogf_resid_b = slogf_final_b + 4 * cells
-    slogb_b = 4 * (steps + 3 * cells + 3 * batch + lanes)
+    # ---- 6. timing at the headline shape -------------------------------------
+    t_phase = time.perf_counter()
+    bounds = kernel_bounds(kargs["lens"], label_length, kargs["k_win"])
     lib_lp = logit_to_logproba(logits, 2).transpose(0, 1).contiguous()
     lib_targets = labels.long()
 
@@ -654,68 +1061,86 @@ def run(seed: int, dev) -> dict:
         lib_fwd_ms = time_ms(torch, library_fwd, runs=RUNS, burst=1)
     fwd, bwd, logf, logb = (kargs[k] for k in ("fwd", "bwd", "log_fwd", "log_bwd"))
     sfwd, sbwd, slogf, slogb = (sargs[k] for k in ("fwd", "bwd", "log_fwd", "log_bwd"))
+    rff, rfb = rfargs["classic"]["fwd"], rfargs["classic"]["bwd"]
+    srff, srfb = rfargs["simplified"]["fwd"], rfargs["simplified"]["bwd"]
     pl = "tf_seq2seq_losses_tpu/ops/pallas_lattice.py"
     lg = "tf_seq2seq_losses_tpu/ops/log_lattice.py"
     table = {
         "classic_fwd[final]": (
             lambda: cl.classic_fwd(*fwd, "final"),
             lambda: cl.classic_fwd_plain(*fwd, "final"),
-            fwd_final_b, 11 * cells, "csrc/classic_fwd.cu", f"{pl}:579", lib_fwd_ms),
+            "csrc/classic_fwd.cu", f"{pl}:579", lib_fwd_ms),
         "classic_fwd[resid]": (
             lambda: cl.classic_fwd(*fwd, "resid"),
             lambda: cl.classic_fwd_plain(*fwd, "resid"),
-            fwd_resid_b, 11 * cells, "csrc/classic_fwd.cu", f"{pl}:579", None),
+            "csrc/classic_fwd.cu", f"{pl}:579", None),
         "classic_bwd_streamed": (
             lambda: cl.classic_bwd_streamed(*bwd),
             lambda: cl.classic_bwd_streamed_plain(*bwd),
-            bwd_b, 24 * cells, "csrc/classic_bwd.cu", f"{pl}:1123", None),
+            "csrc/classic_bwd.cu", f"{pl}:1123", None),
         "classic_log_fwd[final]": (
             lambda: ll.classic_log_fwd(*logf, "final"),
             lambda: ll.classic_log_fwd_plain(*logf, "final"),
-            logf_final_b, 16 * cells, "csrc/classic_log.cu", f"{lg}:152", lib_fwd_ms),
+            "csrc/classic_log.cu", f"{lg}:152", lib_fwd_ms),
         "classic_log_fwd[resid]": (
             lambda: ll.classic_log_fwd(*logf, "resid"),
             lambda: ll.classic_log_fwd_plain(*logf, "resid"),
-            logf_resid_b, 16 * cells, "csrc/classic_log.cu", f"{lg}:152", None),
+            "csrc/classic_log.cu", f"{lg}:152", None),
         "classic_log_bwd": (
             lambda: ll.classic_log_bwd(*logb),
             lambda: ll.classic_log_bwd_plain(*logb),
-            logb_b, 30 * cells, "csrc/classic_log.cu", f"{lg}:267", None),
+            "csrc/classic_log.cu", f"{lg}:267", None),
+        "classic_fwd[bound]": (
+            lambda: cl.classic_fwd(*rff, "bound"),
+            lambda: cl.classic_fwd_plain(*rff, "bound"),
+            "csrc/classic_fwd.cu", f"{pl}:579", None),
+        "classic_bwd": (
+            lambda: cl.classic_bwd(*rfb),
+            lambda: cl.classic_bwd_plain(*rfb),
+            "csrc/classic_bwd_rf.cu", f"{pl}:945", None),
         # no PyTorch call computes the simplified loss: library_ms is null
         "simplified_fwd[final]": (
             lambda: cs.simplified_fwd(*sfwd, "final"),
             lambda: cs.simplified_fwd_plain(*sfwd, "final"),
-            sfwd_final_b, 4 * cells, "csrc/simplified_fwd.cu", f"{pl}:1720", None),
+            "csrc/simplified_fwd.cu", f"{pl}:1720", None),
         "simplified_fwd[resid]": (
             lambda: cs.simplified_fwd(*sfwd, "resid"),
             lambda: cs.simplified_fwd_plain(*sfwd, "resid"),
-            sfwd_resid_b, 4 * cells, "csrc/simplified_fwd.cu", f"{pl}:1720", None),
+            "csrc/simplified_fwd.cu", f"{pl}:1720", None),
         "simplified_bwd_streamed": (
             lambda: cs.simplified_bwd_streamed(*sbwd),
             lambda: cs.simplified_bwd_streamed_plain(*sbwd),
-            sbwd_b, 8 * cells, "csrc/simplified_bwd.cu", f"{pl}:2073", None),
+            "csrc/simplified_bwd.cu", f"{pl}:2073", None),
         "simplified_log_fwd[final]": (
             lambda: ll.simplified_log_fwd(*slogf, "final"),
             lambda: ll.simplified_log_fwd_plain(*slogf, "final"),
-            slogf_final_b, 8 * cells, "csrc/simplified_log.cu", f"{lg}:462", None),
+            "csrc/simplified_log.cu", f"{lg}:462", None),
         "simplified_log_fwd[resid]": (
             lambda: ll.simplified_log_fwd(*slogf, "resid"),
             lambda: ll.simplified_log_fwd_plain(*slogf, "resid"),
-            slogf_resid_b, 8 * cells, "csrc/simplified_log.cu", f"{lg}:462", None),
+            "csrc/simplified_log.cu", f"{lg}:462", None),
         "simplified_log_bwd": (
             lambda: ll.simplified_log_bwd(*slogb),
             lambda: ll.simplified_log_bwd_plain(*slogb),
-            slogb_b, 12 * cells, "csrc/simplified_log.cu", f"{lg}:575", None),
+            "csrc/simplified_log.cu", f"{lg}:575", None),
+        "simplified_fwd[bound]": (
+            lambda: cs.simplified_fwd(*srff, "bound"),
+            lambda: cs.simplified_fwd_plain(*srff, "bound"),
+            "csrc/simplified_fwd.cu", f"{pl}:1720", None),
+        "simplified_bwd": (
+            lambda: cs.simplified_bwd(*srfb),
+            lambda: cs.simplified_bwd_plain(*srfb),
+            "csrc/simplified_bwd_rf.cu", f"{pl}:1961", None),
     }
     kernels = []
-    for name, (kern, plain, nbytes, ops, src, replaces, lib_ms) in table.items():
+    for name, (kern, plain, src, replaces, lib_ms) in table.items():
         ms = time_ms(torch, kern)
         plain_ms = time_ms(torch, plain, runs=PLAIN_RUNS, burst=1)
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(*bounds[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tf_seq2seq_losses_tpu_torch/" + src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": None,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
@@ -726,6 +1151,9 @@ def run(seed: int, dev) -> dict:
         s_logits, s_ll, s_gl = path["saturated"]
         steps_ms[f"{name}_fwd_bwd_step"] = host_ms(
             torch, lambda: step(logits, label_length, logit_length))
+        with config_override(stream_residuals=False):
+            steps_ms[f"{name}_fwd_bwd_step_residual_free"] = host_ms(
+                torch, lambda: step(logits, label_length, logit_length))
         with config_override(guard=False):
             steps_ms[f"{name}_fwd_bwd_step_guard_off"] = host_ms(
                 torch, lambda: step(logits, label_length, logit_length))
@@ -751,7 +1179,156 @@ def run(seed: int, dev) -> dict:
         log(f"phase 6 profile of the {name} fwd+bwd step: " + json.dumps(profile_step(
             torch, dev, steps_ms[f"{name}_fwd_bwd_step"],
             lambda: step(logits, label_length, logit_length))))
+    log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 7. long T, then its timing ------------------------------------------
+    long_inputs = make_inputs(torch, seed, dev, max_t=LONG_T, infeasible=False)
+    # the headline's tensors go before the long-T step's peak memory is read
+    del inputs, logits, ctx, lib_lp, paths, kargs, sargs, rfargs, table
+    del fwd, bwd, logf, logb, sfwd, sbwd, slogf, slogb, rff, rfb, srff, srfb
+    del small, wide, small_ctx, multi, multi_ctx
+    long_paths = {name: drive_long_t(torch, dev, name, long_inputs, sync, seed)
+                  for name in ("classic", "simplified")}
+    for path in long_paths.values():
+        for name, n in path["launches"].items():
+            launches[name] += n
+    t_phase = time.perf_counter()
+    l_labels, l_logits, l_ll, l_gl = long_inputs
+    long_ms, long_kernels = {}, {}
+    for name, path in long_paths.items():
+        step, loss_fn = path["train_step"], path["loss_fn"]
+        long_ms[f"{name}_fwd_bwd_step"] = host_ms(
+            torch, lambda: step(l_logits, l_ll, l_gl), runs=LONG_RUNS)
+        with config_override(guard=False):
+            long_ms[f"{name}_fwd_bwd_step_guard_off"] = host_ms(
+                torch, lambda: step(l_logits, l_ll, l_gl), runs=LONG_RUNS)
+        with torch.no_grad():
+            long_ms[f"{name}_forward_only"] = host_ms(
+                torch, lambda: loss_fn(l_labels, l_logits, l_ll, l_gl, 0),
+                runs=LONG_RUNS)
+        # one chunk's kernels: chunk 1, from the carry that chunk 0 leaves
+        l_ctx = core.make_context(l_labels, logit_to_logproba(l_logits, 2), l_ll, l_gl,
+                                  0)
+        n_chunks, chunk_t = cl.chunk_plan(l_ctx)
+        ops = rf_ops(l_ctx, name)
+        args0, args1 = ops.chunk(0, chunk_t), ops.chunk(1, chunk_t)
+        carry = ops.fwd(*args0, ops.k_win, "final")
+        bounds1 = ops.fwd(*args1, ops.k_win, "bound", init=carry)[:ops.states + 1]
+        ebi = cl.ebi_from_loss(path["loss"])
+        chunk_bounds = kernel_bounds(args1[-1], l_ll, ops.k_win)
+        for kname, fn in (
+            (f"{name}_fwd[final]",
+             lambda: ops.fwd(*args1, ops.k_win, "final", init=carry)),
+            (f"{name}_fwd[bound]",
+             lambda: ops.fwd(*args1, ops.k_win, "bound", init=carry)),
+            (f"{name}_bwd",
+             lambda: ops.bwd(*args1, ops.lab_len, ebi, *bounds1, ops.k_win, None)),
+        ):
+            b_ms, b_by = bound(*chunk_bounds[kname])
+            long_kernels[kname] = {"ms": time_ms(torch, fn, burst=5), "bound_ms": b_ms,
+                                   "bound_by": b_by}
+        del l_ctx, ops, args0, args1, carry, bounds1
+    lib_lp_long = logit_to_logproba(l_logits, 2).transpose(0, 1).contiguous()
+
+    def library_long(grad):
+        x = lib_lp_long.detach().requires_grad_(grad)
+        loss = torch.nn.functional.ctc_loss(
+            x, l_labels.long(), l_gl.long(), l_ll.long(), blank=0, reduction="none",
+            zero_infinity=True)
+        if grad:
+            loss.sum().backward()
+
+    with torch.no_grad():
+        long_ms["library_ctc_loss_fwd"] = time_ms(
+            torch, lambda: library_long(False), runs=LONG_RUNS, burst=1)
+    long_ms["library_ctc_loss_fwd_bwd"] = host_ms(
+        torch, lambda: library_long(True), runs=LONG_RUNS)
+    del lib_lp_long
+    log(f"phase 7 long-T timing (ms; steps on the host clock, median of {LONG_RUNS}; "
+        f"F.ctc_loss forward by CUDA events, median of {LONG_RUNS} calls; " + card
+        + "): " + json.dumps(long_ms) + f"; chunk 1 of {n_chunks} ({chunk_t} steps, "
+        f"B={len(l_ll)}) by CUDA events, median of 5 bursts of 5: "
+        + json.dumps(long_kernels))
+    step = long_paths["classic"]["train_step"]
+    profile = profile_step(torch, dev, long_ms["classic_fwd_bwd_step"],
+                           lambda: step(l_logits, l_ll, l_gl), steps=2)
+    log("phase 7 profile of the classic long-T fwd+bwd step: " + json.dumps(profile))
+    log(f"phase 7 timing: {time.perf_counter() - t_phase:.1f} s")
+
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+        check(entry["launches"] > 0, f"{entry['name']} launched on some path")
     return {"kernels": kernels, "card": card}
+
+
+def widest_lanes(libs, dev, k_win=8) -> dict:
+    """``{kernel library function: the most label lanes (a multiple of 32)
+    whose shared memory the card gives one CTA}`` at window ``k_win``."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    if dev.type != "cuda":
+        return {}
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    out = {}
+    for source, signatures in _build._SIGNATURES.items():
+        for fn, argtypes in signatures.items():
+            if fn.endswith("_smem_bytes"):
+                args = (k_win,) if len(argtypes) == 2 else ()
+                nbytes = getattr(libs[source], fn)
+                fits = [lp for lp in range(32, 8192, 32) if nbytes(lp, *args) <= limit]
+                out[fn[len("ctc_"):-len("_smem_bytes")]] = max(fits, default=0)
+    return out
+
+
+def kernel_bounds(lens, label_length, k_win) -> dict:
+    """``{kernel mode: (bytes, operations)}`` that the function needs for
+    this run's data, counted per sample: ``lens`` steps over the
+    ``label_length + 1`` lanes of its lattice (lanes above it never reach
+    the loss, mass only flows upward), each input read once and each output
+    written once.  The kernels read every padded lane of every step they
+    run: the distance between their time and this bound includes that."""
+    import torch
+
+    batch = len(lens)
+    lens = lens.double()
+    lanes_b = label_length.double() + 1
+    steps = float(lens.sum())  # blank-row reads
+    cells = float((lens * lanes_b).sum())  # one [T, L] stream
+    wcells = float((torch.ceil(lens / k_win) * lanes_b).sum())  # one [T/K, L] stream
+    lanes = float(lanes_b.sum())  # one [L] mask or carry
+    fwd_final = 4 * (cells + steps + 3 * lanes + batch + 3 * lanes)
+    bwd_in = cells + steps + 3 * lanes + 3 * batch  # transitions, masks, lengths, ebi
+    logf_final = 4 * (2 * cells + steps + 2 * lanes + batch + 2 * lanes)
+    # simplified: one transition stream, one residual stream, no lane masks
+    sfwd_final = 4 * (cells + steps + batch + 2 * lanes)
+    slogf_final = 4 * (cells + steps + batch + lanes)
+    return {
+        "classic_fwd[final]": (fwd_final, 11 * cells),
+        "classic_fwd[resid]": (fwd_final + 4 * (2 * cells + wcells), 11 * cells),
+        "classic_bwd_streamed": (4 * (bwd_in + 2 * cells + wcells + cells + 3 * lanes),
+                                 24 * cells),
+        "classic_log_fwd[final]": (logf_final, 16 * cells),
+        "classic_log_fwd[resid]": (logf_final + 4 * 2 * cells, 16 * cells),
+        "classic_log_bwd": (4 * (2 * cells + steps + 2 * lanes + 3 * batch + 2 * cells
+                                 + cells + 2 * lanes), 30 * cells),
+        # mode bound writes three carries a window; the residual-free backward
+        # reads them instead of residuals, and re-expands (11 operations a
+        # cell) before its beta scan (24)
+        "classic_fwd[bound]": (fwd_final + 4 * 3 * wcells, 11 * cells),
+        "classic_bwd": (4 * (bwd_in + 3 * wcells + cells + 3 * lanes), 35 * cells),
+        "simplified_fwd[final]": (sfwd_final, 4 * cells),
+        "simplified_fwd[resid]": (sfwd_final + 4 * (cells + wcells), 4 * cells),
+        "simplified_bwd_streamed": (4 * (steps + 3 * cells + wcells + 3 * batch
+                                         + 2 * lanes), 8 * cells),
+        "simplified_log_fwd[final]": (slogf_final, 8 * cells),
+        "simplified_log_fwd[resid]": (slogf_final + 4 * cells, 8 * cells),
+        "simplified_log_bwd": (4 * (steps + 3 * cells + 3 * batch + lanes), 12 * cells),
+        "simplified_fwd[bound]": (sfwd_final + 4 * 2 * wcells, 4 * cells),
+        "simplified_bwd": (4 * (cells + steps + 3 * batch + 2 * wcells + cells
+                                + 2 * lanes), 12 * cells),
+    }
 
 
 def profile_step(torch, dev, step_ms, step, steps=5) -> dict:

@@ -18,7 +18,7 @@ import torch
 import tf_seq2seq_losses_tpu as jctc
 from tf_seq2seq_losses_tpu.utils.config import KernelConfig as JaxKernelConfig
 from tf_seq2seq_losses_tpu_torch import api
-from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice
+from tf_seq2seq_losses_tpu_torch.ops import core, cuda_lattice
 from tf_seq2seq_losses_tpu_torch.utils.config import (
     KernelConfig,
     config_from_reference,
@@ -148,10 +148,28 @@ def test_config_from_reference_maps_the_jax_defaults():
             cfg.log_fallback) == (4, 256, False, 8, False)
 
 
+def test_config_from_reference_maps_stream_residuals():
+    fields = dict(dataclasses.asdict(JaxKernelConfig()), stream_residuals=False)
+    assert config_from_reference(fields).stream_residuals is False
+    assert get_config().stream_residuals is True
+    labels, logits, ll, gl = _args()
+    ctx = core.make_context(labels, torch.log_softmax(logits, 2), ll, gl, 0)
+    with config_override(stream_residuals=False) as cfg:
+        assert cfg.stream_residuals is False and get_config() is cfg
+        loss, pack = cuda_lattice.classic_loss_and_pack(ctx)
+    assert isinstance(pack, cuda_lattice.ChunkPack)
+    assert get_config().stream_residuals is True
+    streamed, pack = cuda_lattice.classic_loss_and_pack(ctx)
+    assert isinstance(pack, cuda_lattice.StreamPack)
+    assert torch.equal(loss, streamed)
+    with pytest.raises(ValueError, match="stream_residuals"):
+        KernelConfig(stream_residuals=0)
+
+
 @pytest.mark.parametrize(
     "field,value,roadmap",
-    [("stream_residuals", False, "B10"), ("half_stream", True, "B13"),
-     ("fused_epilogue", True, "B12"), ("guard_struct", "cond", "A7")],
+    [("half_stream", True, "B13"), ("fused_epilogue", True, "B12"),
+     ("guard_struct", "cond", "A7")],
 )
 def test_unported_knobs_raise(field, value, roadmap):
     fields = dict(dataclasses.asdict(JaxKernelConfig()), **{field: value})

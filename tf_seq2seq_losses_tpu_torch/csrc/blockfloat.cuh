@@ -1,6 +1,6 @@
 // Block-float primitives shared by the lattice kernels (classic_fwd.cu,
-// classic_bwd.cu, classic_log.cu, simplified_fwd.cu, simplified_bwd.cu,
-// simplified_log.cu).
+// classic_bwd.cu, classic_bwd_rf.cu, classic_log.cu, simplified_fwd.cu,
+// simplified_bwd.cu, simplified_bwd_rf.cu, simplified_log.cu).
 //
 // Counterparts of the in-kernel helpers of
 // tf_seq2seq_losses_tpu/ops/pallas_lattice.py (_expfield, _pow2, _true_exp,

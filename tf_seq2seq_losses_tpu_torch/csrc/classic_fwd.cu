@@ -1,17 +1,25 @@
-// Classic CTC alpha scan in block-float probability space (modes "final"
-// and "resid").
+// Classic CTC alpha scan in block-float probability space (modes "final",
+// "resid" and "bound").
 //
 // Replaces tf_seq2seq_losses_tpu/ops/pallas_lattice.py:_classic_fwd_kernel
 // (launched by _classic_fwd_call).  Mode "final" emits the last carry, from
-// which the host picks the loss (forward-only classic_ctc_loss); mode
-// "resid" also streams every step's mantissas and every window's frames,
-// the residual pack that classic_bwd.cu reads (the training forward).
+// which the host picks the loss (forward-only classic_ctc_loss, and each
+// chunk of the chunked training forward); mode "resid" also streams every
+// step's mantissas and every window's frames, the residual pack that
+// classic_bwd.cu reads (the streamed training forward); mode "bound" also
+// writes the carry entering each window, [n_windows, B, L] x (a0, a1, e),
+// from which classic_bwd_rf.cu re-expands alpha (the residual-free scheme).
+// The time block of the residual-free scheme is one window: the TPU's
+// blocks of several windows existed to fill its grid cells.  An optional
+// initial carry (null: unit mass at lane 0) lets a chunk of a long time
+// axis start where the previous chunk ended.
 //
 // What bounds it on the H100: the scan is sequential in time, so one
 // sample's 500 steps are a chain of dependent shared-memory exchanges and
 // barriers; the bytes (the [B, T, L] transition stream in, and in "resid"
-// mode the [B, T, 2, L] residual stream out) would take a few tens of
-// microseconds at full HBM rate.  It is latency-bound.
+// mode the [B, T, 2, L] residual stream out, in "bound" mode 3 / K floats
+// a cell) would take a few tens of microseconds at full HBM rate.  It is
+// latency-bound.
 //
 // Design: one CTA per sample, one thread per label lane (a strided lane loop
 // beyond 512 lanes).  The TPU grid's sequential (batch block, time block)
@@ -26,6 +34,8 @@
 #include "blockfloat.cuh"
 
 namespace ctc {
+
+enum FwdMode { kFinal = 0, kResid = 1, kBound = 2 };
 
 struct FwdSmem {
   float *a0, *a1, *sarr, *d, *lm, *nb, *rep, *dcu_w, *blank_w;
@@ -55,29 +65,42 @@ __device__ inline FwdSmem fwd_carve(float* base, int lpad, int k) {
   return s;
 }
 
-template <bool kResid>
+template <int kMode>
 __global__ void classic_fwd_kernel(
     const float* __restrict__ blank,  // [B, Tp]
     const float* __restrict__ dcu,    // [B, Tp, L] unmasked expected-token probs
     const float* __restrict__ lm,     // [B, L] label-length mask
     const float* __restrict__ nb,     // [B, L] preceding label is not blank
     const float* __restrict__ rep,    // [B, L] label differs from its predecessor
-    const int* __restrict__ lens,     // [B] logit_length, clamped to [0, T]
+    const int* __restrict__ lens,     // [B] steps to run, within [0, Tp]
+    const float* __restrict__ i0,     // [B, L] initial carry (null: the t=0 one)
+    const float* __restrict__ i1,
+    const int* __restrict__ ie,
     int tpad, int lpad, int k_win,
     float* __restrict__ sa,           // [B, Tp, 2, L] (resid)
     int* __restrict__ saf,            // [B, Tp / K, L] (resid)
+    float* __restrict__ bd0,          // [Tp / K, B, L] carry entering a window (bound)
+    float* __restrict__ bd1,
+    int* __restrict__ bde,
     float* __restrict__ f0, float* __restrict__ f1, int* __restrict__ fe) {
   extern __shared__ float smem[];
   FwdSmem s = fwd_carve(smem, lpad, k_win);
   const int b = blockIdx.x;
+  const int batch = gridDim.x;
   const int len = lens[b];
   const int n_win_all = tpad / k_win;
   const size_t row = (size_t)b * lpad;
 
   for (int l = threadIdx.x; l < lpad; l += blockDim.x) {
-    s.a0[l] = l == 0 ? 1.0f : 0.0f;
-    s.a1[l] = 0.0f;
-    s.e[l] = 0;
+    if (i0 != nullptr) {
+      s.a0[l] = i0[row + l];
+      s.a1[l] = i1[row + l];
+      s.e[l] = ie[row + l];
+    } else {
+      s.a0[l] = l == 0 ? 1.0f : 0.0f;
+      s.a1[l] = 0.0f;
+      s.e[l] = 0;
+    }
     s.lm[l] = lm[row + l];
     s.nb[l] = nb[row + l];
     s.rep[l] = rep[row + l];
@@ -96,6 +119,12 @@ __global__ void classic_fwd_kernel(
     }
     // open the window: true exponents (subnormal mantissas flushed) ...
     for (int l = threadIdx.x; l < lpad; l += blockDim.x) {
+      if (kMode == kBound) {
+        const size_t o = ((size_t)w * batch + b) * lpad + l;
+        bd0[o] = s.a0[l];
+        bd1[o] = s.a1[l];
+        bde[o] = s.e[l];
+      }
       float m0 = flush_subnormal(s.a0[l]);
       float m1 = flush_subnormal(s.a1[l]);
       s.a0[l] = m0;
@@ -119,7 +148,7 @@ __global__ void classic_fwd_kernel(
       const int f_src = l == 0 ? -kEBig : s.f[l - 1];
       s.sarr[l] = pow2i(f_src - f);
       s.e[l] = f;
-      if (kResid) saf[((size_t)b * n_win_all + w) * lpad + l] = f;
+      if (kMode == kResid) saf[((size_t)b * n_win_all + w) * lpad + l] = f;
     }
     for (int kk = 0; kk < kend; ++kk) {
       const int t = t0 + kk;
@@ -127,7 +156,7 @@ __global__ void classic_fwd_kernel(
       float* dnow = s.d + buf * lpad;
       for (int l = threadIdx.x; l < lpad; l += blockDim.x) {
         const float a0 = s.a0[l], a1 = s.a1[l];
-        if (kResid) {
+        if (kMode == kResid) {
           const size_t o = (((size_t)b * tpad + t) * 2) * lpad + l;
           sa[o] = a0;
           sa[o + lpad] = a1;
@@ -154,7 +183,29 @@ __global__ void classic_fwd_kernel(
     f0[row + l] = s.a0[l];
     f1[row + l] = s.a1[l];
     fe[row + l] = s.e[l];
+    // the windows past the sample's length hold its final carry
+    for (int w = n_win; kMode == kBound && w < n_win_all; ++w) {
+      const size_t o = ((size_t)w * batch + b) * lpad + l;
+      bd0[o] = s.a0[l];
+      bd1[o] = s.a1[l];
+      bde[o] = s.e[l];
+    }
   }
+}
+
+template <int kMode>
+void launch_fwd(const float* blank, const float* dcu, const float* lm,
+                const float* nb, const float* rep, const int* lens,
+                const float* i0, const float* i1, const int* ie, int batch,
+                int tpad, int lpad, int k_win, float* sa, int* saf, float* bd0,
+                float* bd1, int* bde, float* f0, float* f1, int* fe,
+                cudaStream_t st) {
+  const size_t smem = fwd_smem_bytes(lpad, k_win);
+  cudaFuncSetAttribute(classic_fwd_kernel<kMode>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  classic_fwd_kernel<kMode><<<batch, block_threads(lpad), smem, st>>>(
+      blank, dcu, lm, nb, rep, lens, i0, i1, ie, tpad, lpad, k_win, sa, saf,
+      bd0, bd1, bde, f0, f1, fe);
 }
 
 }  // namespace ctc
@@ -165,24 +216,26 @@ size_t ctc_classic_fwd_smem_bytes(int lpad, int k_win) {
   return ctc::fwd_smem_bytes(lpad, k_win);
 }
 
+// mode: 0 final, 1 resid, 2 bound; i0, i1, ie null for the t=0 carry
 int ctc_classic_fwd(const float* blank, const float* dcu, const float* lm,
                     const float* nb, const float* rep, const int* lens,
-                    int batch, int tpad, int lpad, int k_win, int resid,
-                    float* sa, int* saf, float* f0, float* f1, int* fe,
-                    void* stream) {
-  const size_t smem = ctc::fwd_smem_bytes(lpad, k_win);
-  const int threads = ctc::block_threads(lpad);
+                    const float* i0, const float* i1, const int* ie,
+                    int batch, int tpad, int lpad, int k_win, int mode,
+                    float* sa, int* saf, float* bd0, float* bd1, int* bde,
+                    float* f0, float* f1, int* fe, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (resid) {
-    cudaFuncSetAttribute(ctc::classic_fwd_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    ctc::classic_fwd_kernel<true><<<batch, threads, smem, st>>>(
-        blank, dcu, lm, nb, rep, lens, tpad, lpad, k_win, sa, saf, f0, f1, fe);
+  if (mode == ctc::kResid) {
+    ctc::launch_fwd<ctc::kResid>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
+                                 batch, tpad, lpad, k_win, sa, saf, bd0, bd1,
+                                 bde, f0, f1, fe, st);
+  } else if (mode == ctc::kBound) {
+    ctc::launch_fwd<ctc::kBound>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
+                                 batch, tpad, lpad, k_win, sa, saf, bd0, bd1,
+                                 bde, f0, f1, fe, st);
   } else {
-    cudaFuncSetAttribute(ctc::classic_fwd_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    ctc::classic_fwd_kernel<false><<<batch, threads, smem, st>>>(
-        blank, dcu, lm, nb, rep, lens, tpad, lpad, k_win, sa, saf, f0, f1, fe);
+    ctc::launch_fwd<ctc::kFinal>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
+                                 batch, tpad, lpad, k_win, sa, saf, bd0, bd1,
+                                 bde, f0, f1, fe, st);
   }
   return (int)cudaGetLastError();
 }

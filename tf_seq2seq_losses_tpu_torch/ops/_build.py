@@ -21,8 +21,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = (
-    "classic_fwd", "classic_bwd", "classic_log",
-    "simplified_fwd", "simplified_bwd", "simplified_log",
+    "classic_fwd", "classic_bwd", "classic_bwd_rf", "classic_log",
+    "simplified_fwd", "simplified_bwd", "simplified_bwd_rf", "simplified_log",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,12 +33,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "classic_fwd": {
-        "ctc_classic_fwd": [_P] * 6 + [_I] * 5 + [_P] * 6,
+        "ctc_classic_fwd": [_P] * 9 + [_I] * 5 + [_P] * 9,
         "ctc_classic_fwd_smem_bytes": [_I, _I],
     },
     "classic_bwd": {
         "ctc_classic_bwd_streamed": [_P] * 10 + [_I] * 4 + [_P] * 5,
         "ctc_classic_bwd_smem_bytes": [_I, _I],
+    },
+    "classic_bwd_rf": {
+        "ctc_classic_bwd_rf": [_P] * 14 + [_I] * 4 + [_P] * 6,
+        "ctc_classic_bwd_rf_smem_bytes": [_I, _I],
     },
     "classic_log": {
         "ctc_classic_log_fwd": [_P] * 6 + [_I] * 4 + [_P] * 5,
@@ -47,12 +51,16 @@ _SIGNATURES = {
         "ctc_classic_log_bwd_smem_bytes": [_I],
     },
     "simplified_fwd": {
-        "ctc_simplified_fwd": [_P] * 3 + [_I] * 5 + [_P] * 5,
+        "ctc_simplified_fwd": [_P] * 5 + [_I] * 5 + [_P] * 7,
         "ctc_simplified_fwd_smem_bytes": [_I, _I],
     },
     "simplified_bwd": {
         "ctc_simplified_bwd_streamed": [_P] * 7 + [_I] * 4 + [_P] * 4,
         "ctc_simplified_bwd_smem_bytes": [_I, _I],
+    },
+    "simplified_bwd_rf": {
+        "ctc_simplified_bwd_rf": [_P] * 9 + [_I] * 4 + [_P] * 5,
+        "ctc_simplified_bwd_rf_smem_bytes": [_I, _I],
     },
     "simplified_log": {
         "ctc_simplified_log_fwd": [_P] * 3 + [_I] * 4 + [_P] * 3,

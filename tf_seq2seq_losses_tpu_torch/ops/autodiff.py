@@ -15,11 +15,12 @@ chain per topology, each Function here takes the topology object
 * level 3, :class:`Hessian`: its backward raises.
 
 Inside ``Function.forward`` grad mode is off, so the forward kernel's mode
-is chosen from ``ctx.needs_input_grad[0]``: the residual-streaming training
-forward when a backward will follow, the final-carry forward otherwise.
-Backwards are built from differentiable ops on the saved inputs (the
-log-softmax is recomputed there), so double backward works; the residual
-pack is saved state that is never differentiated.
+is chosen from ``ctx.needs_input_grad[0]``: the training forward, which
+keeps a pack for the backward (streamed residuals, or the residual-free
+scheme's carries), when a backward will follow, the final-carry forward
+otherwise.  Backwards are built from differentiable ops on the saved inputs
+(the log-softmax is recomputed there), so double backward works; the pack
+is saved state that is never differentiated.
 """
 
 from __future__ import annotations

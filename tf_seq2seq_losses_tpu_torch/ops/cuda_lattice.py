@@ -2,18 +2,32 @@
 plain PyTorch versions.
 
 Counterpart of ``tf_seq2seq_losses_tpu/ops/pallas_lattice.py`` for the
-classic topology on the single-chunk geometry (window-padded T within
-``config.chunk_time``):
+classic topology:
 
 * ``classic_fwd`` (csrc/classic_fwd.cu) is the block-float alpha scan in
-  modes ``"final"`` (forward-only loss) and ``"resid"`` (training forward,
-  streams the residual pack);
+  modes ``"final"`` (the final carry), ``"resid"`` (also streams the
+  residual pack) and ``"bound"`` (also writes the carry entering each
+  window), from the standard t=0 carry or a given one;
 * ``classic_bwd_streamed`` (csrc/classic_bwd.cu) is the beta scan over the
-  residuals, emitting the combined, loss-normalised act ``pc``.
+  streamed residuals, emitting the combined, loss-normalised act ``pc``;
+* ``classic_bwd`` (csrc/classic_bwd_rf.cu) is the residual-free beta scan:
+  it re-expands alpha over each window from its boundary carry and emits
+  the same ``pc``, from a given beta carry or the standard one.
 
-The simplified topology's kernels (B6, B7) live in ``cuda_simplified.py``,
-which shares this module's geometry, block-float primitives, act scatter and
-gradient assembly.
+The time axis, padded to whole windows, runs in equal chunks of at most
+``config.chunk_time`` steps (:func:`chunk_plan`), each chunk starting from
+the carry the previous one left, so ``[B, T, L]`` tensors only ever exist
+one chunk wide.  Forward-only calls scan the chunks in mode ``"final"``.
+A training step streams residuals when the axis is one chunk and
+``config.stream_residuals`` holds (B2, then B3); otherwise it keeps the
+chunk-initial carries, and the backward walks the chunks last to first,
+regenerating each chunk's transitions and window boundaries (mode
+``"bound"``) and chaining the beta carry (the residual-free scheme; on one
+chunk the forward itself runs in mode ``"bound"``).
+
+The simplified topology's kernels (B6, B7, B11) live in
+``cuda_simplified.py``, which shares this module's geometry, block-float
+primitives, packs, act scatter and gradient assembly.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version (same window schedule, same subnormal rule) for CPU tensors, the
@@ -24,14 +38,16 @@ label padding and the ``(block_batch, block_time)`` geometry existed to
 make TPU grid cells length-homogeneous and lane-aligned.  On the GPU one
 CTA per sample stops at its own ``logit_length``, so nothing is sorted or
 skipped; lanes are padded to a multiple of 32 (a warp) and time to a
-multiple of the window.
+multiple of the window, which is also the residual-free scheme's time block.
 
 The token scatter of the acts (``einsum('btl,blv->btv', pc, ohlm)`` in the
 JAX package, outside any kernel there) is :func:`act_scatter`, a
-``torch.bmm`` in float64.
+``torch.bmm`` in float64, one chunk at a time.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,20 +71,29 @@ def _round_up(x: int, m: int) -> int:
 
 
 def geometry(ctx: CtcContext):
-    """``(tpad, lpad, window)`` of the single-chunk kernel path."""
+    """``(tpad, lpad, window)``: T padded to whole windows, lanes to a warp."""
     num_t = ctx.logproba.shape[1]
     k_win = get_config().window
     return _round_up(max(num_t, 1), k_win), _round_up(ctx.label.shape[1], _LANE), k_win
 
 
-def check_single_chunk(ctx: CtcContext) -> None:
-    tpad, _, _ = geometry(ctx)
-    chunk = get_config().chunk_time
-    if tpad > chunk:
-        raise NotImplementedError(
-            f"padded T = {tpad} exceeds chunk_time = {chunk}: the chunked "
-            "long-T kernel path is not ported yet (ROADMAP A11 and B10)"
-        )
+def chunk_plan(ctx: CtcContext):
+    """``(n_chunks, chunk_t)``: the window-padded time axis in equal chunks,
+    each a whole number of windows and at most ``config.chunk_time`` steps
+    (one window at least), as ``_chunk_plan`` of the JAX package cuts it.
+    Window boundaries fall where the one-chunk scan puts them, so the
+    chunked result equals the unchunked one bit for bit.  The chunks may
+    overhang T by up to a window each: those steps are no-ops."""
+    tpad, _, k_win = geometry(ctx)
+    cmax = max(k_win, get_config().chunk_time // k_win * k_win)
+    n_chunks = -(-tpad // cmax)
+    return n_chunks, -(-(tpad // k_win) // n_chunks) * k_win
+
+
+def chunk_lengths(lens: torch.Tensor, t0: int, chunk_t: int) -> torch.Tensor:
+    """Steps each sample runs in the chunk starting at ``t0``: its length
+    relative to the chunk, ``clamp(lens - t0, 0, chunk_t)``."""
+    return (lens - t0).clamp(0, chunk_t).to(torch.int32)
 
 
 def _pad_mask(mask: torch.Tensor, lpad: int) -> torch.Tensor:
@@ -94,12 +119,18 @@ def kernel_lengths(ctx: CtcContext):
     return lens, ctx.label_length.to(torch.int32)
 
 
-def classic_transitions(ctx: CtcContext, tpad: int, lpad: int):
-    """``(blank [B, tpad], dcu [B, tpad, lpad])`` in probability space.
+def _steps(ctx: CtcContext, t0: int, span: int) -> int:
+    """Steps of ``[t0, t0 + span)`` inside the time axis."""
+    return max(0, min(ctx.logproba.shape[1], t0 + span) - t0)
+
+
+def classic_transitions(ctx: CtcContext, lpad: int, t0: int, span: int):
+    """``(blank [B, span], dcu [B, span, lpad])`` of the steps
+    ``t0 .. t0 + span`` in probability space.
 
     ``dcu`` is the folded, unmasked expected-token stream ``p[label[l]]``;
     the kernels derive the masked diagonal ``dcu * lm`` and the preceding-
-    token probabilities ``dcu[l - 1]``.  Padded steps are no-ops (blank 1,
+    token probabilities ``dcu[l - 1]``.  Steps past T are no-ops (blank 1,
     every other transition 0); padded lanes carry 0.
 
     Subnormal rule, first half: a transition probability below the
@@ -109,21 +140,23 @@ def classic_transitions(ctx: CtcContext, tpad: int, lpad: int):
     window's share survives: a finite, wrong loss that the guard, which
     looks for +inf, would not repair.
     """
-    batch, num_t, _ = ctx.logproba.shape
+    batch = ctx.logproba.shape[0]
     lp1 = ctx.label.shape[1]
+    n = _steps(ctx, t0, span)
     device = ctx.logproba.device
-    blank = torch.ones((batch, tpad), dtype=torch.float32, device=device)
-    blank[:, :num_t] = _flush_subnormal(torch.exp(ctx.blank_lp))
-    dcu = torch.zeros((batch, tpad, lpad), dtype=torch.float32, device=device)
-    dcu[:, :num_t, :lp1] = _flush_subnormal(
-        torch.exp(take_token_logprobas(ctx.logproba, ctx.label))
+    blank = torch.ones((batch, span), dtype=torch.float32, device=device)
+    blank[:, :n] = _flush_subnormal(torch.exp(ctx.blank_lp[:, t0:t0 + n]))
+    dcu = torch.zeros((batch, span, lpad), dtype=torch.float32, device=device)
+    dcu[:, :n, :lp1] = _flush_subnormal(
+        torch.exp(take_token_logprobas(ctx.logproba[:, t0:t0 + n], ctx.label))
     )
     return blank, dcu
 
 
 def act_scatter(ctx: CtcContext, pc: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
-    """Token sums of the acts, ``[B, T, V]`` f32: ``sums[b, t, v]`` adds
-    ``pc[b, t, l]`` over the lanes ``l <= label_length`` that hold token v.
+    """Token sums of the acts of some steps, ``[B, steps, V]`` f32:
+    ``sums[b, t, v]`` adds ``pc[b, t, l]`` over the lanes
+    ``l <= label_length`` that hold token v.
 
     A ``torch.bmm`` against the label one-hot, in float64: its products are
     exact and its sums round once to float32 whatever the caller's TF32
@@ -131,13 +164,20 @@ def act_scatter(ctx: CtcContext, pc: torch.Tensor, lm: torch.Tensor) -> torch.Te
     mantissa, 5e-4 relative), and it is deterministic, which an atomic
     ``scatter_add_`` is not (clean rows stay bit for bit across batches)."""
     batch, lp1 = ctx.label.shape
-    num_t, num_tokens = ctx.logproba.shape[1:]
+    num_tokens = ctx.logproba.shape[2]
     lpad = pc.shape[2]
     idx = torch.zeros((batch, lpad, 1), dtype=torch.int64, device=ctx.label.device)
     idx[:, :lp1, 0] = ctx.label
     onehot = torch.zeros((batch, lpad, num_tokens), dtype=torch.float64, device=pc.device)
     onehot.scatter_(2, idx, lm[:, :, None].to(torch.float64))
-    return torch.bmm(pc[:, :num_t].to(torch.float64), onehot).to(torch.float32)
+    return torch.bmm(pc.to(torch.float64), onehot).to(torch.float32)
+
+
+def scatter_chunk(ctx: CtcContext, sums, acts, lm, t0: int) -> None:
+    """Write the token sums of one chunk's acts into ``sums[:, t0:]``."""
+    n = _steps(ctx, t0, acts.shape[1])
+    if n:
+        sums[:, t0:t0 + n] = act_scatter(ctx, acts[:, :n], lm)
 
 
 # ---------------------------------------------------------------------------
@@ -199,54 +239,29 @@ def _act_factor(fa, fb, ebi):
     return _pow2(h), _pow2(s - h)
 
 
-# ---------------------------------------------------------------------------
-# kernel B1/B2: block-float alpha scan
-# ---------------------------------------------------------------------------
-
-
-def classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str):
-    """Plain version of ``classic_fwd`` (same windows, same subnormal rule)."""
-    batch, tpad, lpad = dcu.shape
-    device = dcu.device
+def alpha_init(batch: int, lpad: int, device, states: int):
+    """The standard t=0 carry: unit mass at lane 0 (in the closed state of
+    a two-state carry), exponent 0; ``states`` mantissa arrays."""
     lane = torch.arange(lpad, device=device)
-    a0 = (lane == 0).to(torch.float32).expand(batch, lpad).clone()
-    a1 = torch.zeros((batch, lpad), dtype=torch.float32, device=device)
-    e = torch.zeros((batch, lpad), dtype=torch.int32, device=device)
-    resid = mode == "resid"
-    if resid:
-        sa = torch.zeros((batch, tpad, 2, lpad), dtype=torch.float32, device=device)
-        saf = torch.zeros(
-            (batch, tpad // k_win, lpad), dtype=torch.int32, device=device
-        )
-    lens_c = lens.to(torch.int64)[:, None]
-    max_len = int(lens.max()) if batch else 0
-    for w in range(-(-max_len // k_win)):
-        t0 = w * k_win
-        act = t0 < lens_c
-        (m0, m1), f, s_arr = _open_window((a0, a1), e, k_win, True)
-        a0 = torch.where(act, m0, a0)
-        a1 = torch.where(act, m1, a1)
-        e = torch.where(act, f, e)
-        if resid:
-            saf[:, w] = torch.where(act, f, torch.zeros_like(f))
-        for t in range(t0, min(t0 + k_win, max_len)):
-            run = t < lens_c
-            if resid:
-                sa[:, t, 0] = torch.where(run, a0, torch.zeros_like(a0))
-                sa[:, t, 1] = torch.where(run, a1, torch.zeros_like(a1))
-            dcu_t = dcu[:, t]
-            dc = dcu_t * lm
-            dov = dc * rep
-            pm = shift_lanes(dcu_t, 1, 0.0) * nb
-            d = a0 * dc + a1 * dov
-            arr = shift_lanes(d, 1, 0.0) * s_arr
-            n0 = (a0 + a1) * blank[:, t, None]
-            n1 = a1 * pm + arr
-            a0 = torch.where(run, n0, a0)
-            a1 = torch.where(run, n1, a1)
-    if resid:
-        return sa, saf, a0, a1, e
-    return a0, a1, e
+    unit = (lane == 0).to(torch.float32).expand(batch, lpad).clone()
+    zeros = [torch.zeros((batch, lpad), dtype=torch.float32, device=device)
+             for _ in range(states - 1)]
+    return (unit, *zeros, torch.zeros((batch, lpad), dtype=torch.int32, device=device))
+
+
+def beta_init(lab_len: torch.Tensor, lpad: int, states: int):
+    """The standard beta carry at the end of the lattice: one-hot at
+    label_length in every state, exponent 0."""
+    lane = torch.arange(lpad, device=lab_len.device)
+    hot = (lane[None, :] == lab_len.to(torch.int64)[:, None]).to(torch.float32)
+    e = torch.zeros_like(hot, dtype=torch.int32)
+    return (*[hot.clone() for _ in range(states)], e)
+
+
+def init_kw(carry) -> dict:
+    """Keyword arguments that start a scan from ``carry``: ``init=carry``,
+    or none for the standard carry (None)."""
+    return {} if carry is None else {"init": carry}
 
 
 def check_tensor(t: torch.Tensor, shape, dtype, name: str, device) -> None:
@@ -260,16 +275,99 @@ def check_tensor(t: torch.Tensor, shape, dtype, name: str, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str):
-    """Block-float alpha scan.  ``mode="final"``: ``(f0, f1, fe)``;
-    ``mode="resid"``: ``(sa [B, Tp, 2, L], saf [B, Tp/K, L], f0, f1, fe)``.
+def carry_pointers(carry, states: int, shape, name: str, device):
+    """Data pointers of a carry (``states`` mantissa arrays f32, then the
+    exponent int32, each of ``shape``), or Nones for the standard carry
+    (``carry`` None)."""
+    if carry is None:
+        return (None,) * (states + 1)
+    if len(carry) != states + 1:
+        raise ValueError(f"{name} must hold {states + 1} arrays, got {len(carry)}")
+    *mants, e = carry
+    for i, m in enumerate(mants):
+        check_tensor(m, shape, torch.float32, f"{name}[{i}]", device)
+    check_tensor(e, shape, torch.int32, f"{name} exponent", device)
+    return tuple(t.data_ptr() for t in (*mants, e))
+
+
+# ---------------------------------------------------------------------------
+# kernel B1/B2/B10 forward: block-float alpha scan
+# ---------------------------------------------------------------------------
+
+
+def _classic_step(a0, a1, blank_t, dcu_t, lm, nb, rep, s_arr):
+    """One windowed step of the two-state alpha carry (pure f32)."""
+    dc = dcu_t * lm
+    dov = dc * rep
+    pm = shift_lanes(dcu_t, 1, 0.0) * nb
+    d = a0 * dc + a1 * dov
+    arr = shift_lanes(d, 1, 0.0) * s_arr
+    return (a0 + a1) * blank_t[:, None], a1 * pm + arr
+
+
+def classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None):
+    """Plain version of ``classic_fwd`` (same windows, same subnormal rule)."""
+    batch, tpad, lpad = dcu.shape
+    device = dcu.device
+    if init is None:
+        a0, a1, e = alpha_init(batch, lpad, device, 2)
+    else:
+        a0, a1, e = (t.clone() for t in init)
+    n_w = tpad // k_win
+    if mode == "resid":
+        sa = torch.zeros((batch, tpad, 2, lpad), dtype=torch.float32, device=device)
+        saf = torch.zeros((batch, n_w, lpad), dtype=torch.int32, device=device)
+    if mode == "bound":
+        bd0 = torch.empty((n_w, batch, lpad), dtype=torch.float32, device=device)
+        bd1 = torch.empty_like(bd0)
+        bde = torch.empty((n_w, batch, lpad), dtype=torch.int32, device=device)
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for w in range(n_w):
+        t0 = w * k_win
+        if mode == "bound":
+            # the carry entering the window; past a sample's length, its final one
+            bd0[w], bd1[w], bde[w] = a0, a1, e
+        if t0 >= max_len:
+            continue
+        act = t0 < lens_c
+        (m0, m1), f, s_arr = _open_window((a0, a1), e, k_win, True)
+        a0 = torch.where(act, m0, a0)
+        a1 = torch.where(act, m1, a1)
+        e = torch.where(act, f, e)
+        if mode == "resid":
+            saf[:, w] = torch.where(act, f, torch.zeros_like(f))
+        for t in range(t0, min(t0 + k_win, max_len)):
+            run = t < lens_c
+            if mode == "resid":
+                sa[:, t, 0] = torch.where(run, a0, torch.zeros_like(a0))
+                sa[:, t, 1] = torch.where(run, a1, torch.zeros_like(a1))
+            n0, n1 = _classic_step(a0, a1, blank[:, t], dcu[:, t], lm, nb, rep, s_arr)
+            a0 = torch.where(run, n0, a0)
+            a1 = torch.where(run, n1, a1)
+    if mode == "resid":
+        return sa, saf, a0, a1, e
+    if mode == "bound":
+        return bd0, bd1, bde, a0, a1, e
+    return a0, a1, e
+
+
+_FWD_MODES = {"final": 0, "resid": 1, "bound": 2}
+
+
+def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None):
+    """Block-float alpha scan from ``init`` (``(a0, a1, e)`` [B, L], None
+    for the t=0 carry).  ``mode="final"``: ``(f0, f1, fe)``;
+    ``mode="resid"``: ``(sa [B, Tp, 2, L], saf [B, Tp/K, L], f0, f1, fe)``;
+    ``mode="bound"``: ``(b0, b1, be [Tp/K, B, L], f0, f1, fe)``, the carry
+    entering each window.
 
     CUDA tensors launch csrc/classic_fwd.cu; CPU tensors run
     :func:`classic_fwd_plain`."""
-    if mode not in ("final", "resid"):
+    if mode not in _FWD_MODES:
         raise ValueError(f"unknown classic_fwd mode {mode!r}")
     if dcu.device.type == "cpu":
-        return classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win, mode)
+        return classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win, mode, init)
     if dcu.device.type != "cuda":
         raise ValueError(f"classic_fwd runs on CUDA or CPU tensors, got {dcu.device}")
     from tf_seq2seq_losses_tpu_torch.ops import _build
@@ -284,51 +382,56 @@ def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str):
     for name, t in (("lm", lm), ("nb", nb), ("rep", rep)):
         check_tensor(t, (batch, lpad), f32, name, dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
     lib = _build.lib("classic_fwd")
     _build.check_smem(lib.ctc_classic_fwd_smem_bytes(lpad, k_win), "classic_fwd", dev)
-    resid = mode == "resid"
+    n_w = tpad // k_win
     f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
     f1 = torch.empty_like(f0)
     fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
-    sa = saf = None
-    if resid:
-        sa = torch.empty((batch, tpad, 2, lpad), dtype=f32, device=dev)
-        saf = torch.empty((batch, tpad // k_win, lpad), dtype=torch.int32, device=dev)
+    extra = ()
+    if mode == "resid":
+        extra = (torch.empty((batch, tpad, 2, lpad), dtype=f32, device=dev),
+                 torch.empty((batch, n_w, lpad), dtype=torch.int32, device=dev))
+    elif mode == "bound":
+        extra = (torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
+                 torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
+                 torch.empty((n_w, batch, lpad), dtype=torch.int32, device=dev))
+    sa, saf = (t.data_ptr() for t in extra) if mode == "resid" else (None, None)
+    bd = [t.data_ptr() for t in extra] if mode == "bound" else [None] * 3
     with torch.cuda.device(dev):
         err = lib.ctc_classic_fwd(
             blank.data_ptr(), dcu.data_ptr(), lm.data_ptr(),
-            nb.data_ptr(), rep.data_ptr(), lens.data_ptr(),
-            batch, tpad, lpad, k_win, int(resid),
-            sa.data_ptr() if resid else None, saf.data_ptr() if resid else None,
-            f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
+            nb.data_ptr(), rep.data_ptr(), lens.data_ptr(), *init_ptrs,
+            batch, tpad, lpad, k_win, _FWD_MODES[mode],
+            sa, saf, *bd, f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "classic_fwd")
     classic_fwd.launches += 1
     classic_fwd.mode_launches[mode] += 1
-    if resid:
-        return sa, saf, f0, f1, fe
-    return f0, f1, fe
+    return (*extra, f0, f1, fe)
 
 
 classic_fwd.launches = 0
-classic_fwd.mode_launches = {"final": 0, "resid": 0}
+classic_fwd.mode_launches = {mode: 0 for mode in _FWD_MODES}
 
 
 # ---------------------------------------------------------------------------
-# kernel B3: streamed beta scan emitting the combined act
+# kernels B3 and B10 backward: beta scans emitting the combined act
 # ---------------------------------------------------------------------------
 
 
-def classic_bwd_streamed_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa,
-                               saf, k_win: int):
-    """Plain version of ``classic_bwd_streamed``."""
+def _classic_beta_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
+                        k_win: int, init=None):
+    """The beta scan over alpha residuals that the plain versions of both
+    backward kernels share: ``(pc, b0, b1, be)``."""
     batch, tpad, lpad = dcu.shape
     device = dcu.device
-    lane = torch.arange(lpad, device=device)
-    b0 = (lane[None, :] == lab_len.to(torch.int64)[:, None]).to(torch.float32)
-    b1 = b0.clone()
-    e = torch.zeros((batch, lpad), dtype=torch.int32, device=device)
+    if init is None:
+        b0, b1, e = beta_init(lab_len, lpad, 2)
+    else:
+        b0, b1, e = (t.clone() for t in init)
     pc = torch.zeros((batch, tpad, lpad), dtype=torch.float32, device=device)
     lens_c = lens.to(torch.int64)[:, None]
     max_len = int(lens.max()) if batch else 0
@@ -360,6 +463,13 @@ def classic_bwd_streamed_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa,
             b0 = torch.where(run, n0, b0)
             b1 = torch.where(run, n1, b1)
     return pc, b0, b1, e
+
+
+def classic_bwd_streamed_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa,
+                               saf, k_win: int):
+    """Plain version of ``classic_bwd_streamed``."""
+    return _classic_beta_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
+                               k_win)
 
 
 def classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
@@ -417,9 +527,122 @@ def classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
 classic_bwd_streamed.launches = 0
 
 
+def _classic_reexpand_plain(blank, dcu, lm, nb, rep, lens, bd0, bd1, bde, k_win: int):
+    """Alpha residuals ``(sa, saf)`` as ``classic_fwd`` streams them in mode
+    resid, re-expanded window by window, each from its own boundary carry."""
+    batch, tpad, lpad = dcu.shape
+    sa = torch.zeros((batch, tpad, 2, lpad), dtype=torch.float32, device=dcu.device)
+    saf = torch.zeros((batch, tpad // k_win, lpad), dtype=torch.int32,
+                      device=dcu.device)
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for w in range(-(-max_len // k_win)):
+        t0 = w * k_win
+        (a0, a1), f, s_arr = _open_window((bd0[w], bd1[w]), bde[w], k_win, True)
+        saf[:, w] = torch.where(t0 < lens_c, f, torch.zeros_like(f))
+        for t in range(t0, min(t0 + k_win, max_len)):
+            run = t < lens_c
+            sa[:, t, 0] = torch.where(run, a0, torch.zeros_like(a0))
+            sa[:, t, 1] = torch.where(run, a1, torch.zeros_like(a1))
+            a0, a1 = _classic_step(a0, a1, blank[:, t], dcu[:, t], lm, nb, rep, s_arr)
+    return sa, saf
+
+
+def classic_bwd_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
+                      k_win: int, init=None):
+    """Plain version of ``classic_bwd``: the streamed beta scan over the
+    residuals that the window boundaries re-expand to."""
+    sa, saf = _classic_reexpand_plain(blank, dcu, lm, nb, rep, lens, bd0, bd1, bde,
+                                      k_win)
+    return _classic_beta_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
+                               k_win, init)
+
+
+def classic_bwd(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
+                k_win: int, init=None):
+    """Residual-free beta scan over the window boundaries ``bd0, bd1, bde``
+    [Tp/K, B, L] of ``classic_fwd`` mode bound, from the beta carry
+    ``init`` (``(b0, b1, e)`` [B, L]; None for the end of the lattice):
+    ``(pc [B, Tp, L], b0, b1, be)``, ``pc`` as ``classic_bwd_streamed``
+    emits it.
+
+    CUDA tensors launch csrc/classic_bwd_rf.cu; CPU tensors run
+    :func:`classic_bwd_plain`."""
+    if dcu.device.type == "cpu":
+        return classic_bwd_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi,
+                                 bd0, bd1, bde, k_win, init)
+    if dcu.device.type != "cuda":
+        raise ValueError(f"classic_bwd runs on CUDA or CPU tensors, got {dcu.device}")
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    batch, tpad, lpad = dcu.shape
+    dev = dcu.device
+    if tpad % k_win:
+        raise ValueError(f"padded T {tpad} is not a multiple of the window {k_win}")
+    f32 = torch.float32
+    n_w = tpad // k_win
+    check_tensor(blank, (batch, tpad), f32, "blank", dev)
+    check_tensor(dcu, (batch, tpad, lpad), f32, "dcu", dev)
+    for name, t in (("lm", lm), ("nb", nb), ("rep", rep)):
+        check_tensor(t, (batch, lpad), f32, name, dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
+    check_tensor(ebi, (batch,), f32, "ebi", dev)
+    check_tensor(bd0, (n_w, batch, lpad), f32, "bd0", dev)
+    check_tensor(bd1, (n_w, batch, lpad), f32, "bd1", dev)
+    check_tensor(bde, (n_w, batch, lpad), torch.int32, "bde", dev)
+    init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
+    lib = _build.lib("classic_bwd_rf")
+    _build.check_smem(lib.ctc_classic_bwd_rf_smem_bytes(lpad, k_win), "classic_bwd",
+                      dev)
+    ws = torch.empty((batch, k_win, 2, lpad), dtype=f32, device=dev)
+    pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
+    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
+    f1 = torch.empty_like(f0)
+    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_classic_bwd_rf(
+            blank.data_ptr(), dcu.data_ptr(), lm.data_ptr(), nb.data_ptr(),
+            rep.data_ptr(), lens.data_ptr(), lab_len.data_ptr(), ebi.data_ptr(),
+            bd0.data_ptr(), bd1.data_ptr(), bde.data_ptr(), *init_ptrs,
+            batch, tpad, lpad, k_win, ws.data_ptr(),
+            pc.data_ptr(), f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "classic_bwd")
+    classic_bwd.launches += 1
+    return pc, f0, f1, fe
+
+
+classic_bwd.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # entry points of the kernel path
 # ---------------------------------------------------------------------------
+
+
+class StreamPack(NamedTuple):
+    """Training forward's pack of the streamed scheme (one chunk): the
+    prepared kernel inputs, which the backward reads again, the residuals
+    and the forward's loss."""
+
+    inputs: tuple
+    sa: torch.Tensor
+    saf: torch.Tensor
+    loss: torch.Tensor
+
+
+class ChunkPack(NamedTuple):
+    """Training forward's pack of the residual-free scheme; it holds no
+    ``[B, T, L]`` tensor.  ``carries``: the alpha carry entering each chunk
+    (None for the standard t=0 carry); ``bounds``: the window boundaries of
+    the one chunk, written by the forward itself (None when there are
+    several chunks: the backward regenerates them chunk by chunk)."""
+
+    carries: list
+    bounds: Optional[tuple]
+    loss: torch.Tensor
 
 
 def pick_loss(mant, fe, label_length):
@@ -440,39 +663,78 @@ def ebi_from_loss(loss: torch.Tensor) -> torch.Tensor:
 
 def kernel_inputs(ctx: CtcContext):
     """``(blank, dcu, lm, nb, rep, lens, lab_len, window)``: the inputs that
-    kernels B1, B2 and B3 share."""
-    check_single_chunk(ctx)
+    kernels B2 and B3 share on the one-chunk streamed path."""
     tpad, lpad, k_win = geometry(ctx)
-    blank, dcu = classic_transitions(ctx, tpad, lpad)
+    blank, dcu = classic_transitions(ctx, lpad, 0, tpad)
     lm, nb, rep = lane_masks(ctx, lpad)
     lens, lab_len = kernel_lengths(ctx)
     return blank, dcu, lm, nb, rep, lens, lab_len, k_win
 
 
+def _lane_inputs(ctx: CtcContext):
+    """``(lpad, window, lm, nb, rep, lens, lab_len)``: what every chunk's
+    launches share."""
+    _, lpad, k_win = geometry(ctx)
+    return (lpad, k_win, *lane_masks(ctx, lpad), *kernel_lengths(ctx))
+
+
+def _chunk(ctx: CtcContext, c: int, chunk_t: int, lpad: int, lens):
+    """``(blank, dcu, lens)`` of chunk ``c``."""
+    t0 = c * chunk_t
+    return (*classic_transitions(ctx, lpad, t0, chunk_t),
+            chunk_lengths(lens, t0, chunk_t))
+
+
 def classic_loss_fast(ctx: CtcContext) -> torch.Tensor:
-    """Forward-only block-float loss (kernel B1); may flush to +inf."""
+    """Forward-only block-float loss (kernel B1, once per chunk); may flush
+    to +inf."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0:
         return classic_mod.loss(ctx, classic_mod.alpha(ctx))
-    blank, dcu, lm, nb, rep, lens, lab_len, k_win = kernel_inputs(ctx)
-    f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "final")
+    n_chunks, chunk_t = chunk_plan(ctx)
+    lpad, k_win, lm, nb, rep, lens, lab_len = _lane_inputs(ctx)
+    carry = None
+    for c in range(n_chunks):
+        blank, dcu, lens_c = _chunk(ctx, c, chunk_t, lpad, lens)
+        carry = classic_fwd(blank, dcu, lm, nb, rep, lens_c, k_win, "final",
+                            **init_kw(carry))
+    f0, f1, fe = carry
     return pick_loss(f0 + f1, fe, lab_len)
 
 
 def classic_loss_and_pack(ctx: CtcContext):
-    """Training forward (kernel B2): ``(fast loss, pack)``.  The pack
-    ``(kernel inputs, sa, saf, fast loss)`` is the port's own residual
-    layout, read back by :func:`classic_gradient_with_loss`.  It keeps the
-    prepared transitions (``dcu`` is half the size of ``sa``) so that the
-    backward does not gather them again."""
+    """Training forward: ``(fast loss, pack)``.  One chunk with
+    ``stream_residuals``: kernel B2, and a :class:`StreamPack` (the port's
+    own residual layout, which keeps the prepared transitions: ``dcu`` is
+    half the size of ``sa``).  Otherwise the residual-free scheme: kernel
+    B1 in mode bound on one chunk, else in mode final per chunk, and a
+    :class:`ChunkPack`."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0:
         return classic_mod.loss(ctx, classic_mod.alpha(ctx)), None
-    inputs = kernel_inputs(ctx)
-    blank, dcu, lm, nb, rep, lens, lab_len, k_win = inputs
-    sa, saf, f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "resid")
+    n_chunks, chunk_t = chunk_plan(ctx)
+    if get_config().stream_residuals and n_chunks == 1:
+        inputs = kernel_inputs(ctx)
+        blank, dcu, lm, nb, rep, lens, lab_len, k_win = inputs
+        sa, saf, f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "resid")
+        loss = pick_loss(f0 + f1, fe, lab_len)
+        return loss, StreamPack(inputs, sa, saf, loss)
+    lpad, k_win, lm, nb, rep, lens, lab_len = _lane_inputs(ctx)
+    if n_chunks == 1:
+        blank, dcu, lens_c = _chunk(ctx, 0, chunk_t, lpad, lens)
+        b0, b1, be, f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens_c, k_win,
+                                             "bound")
+        loss = pick_loss(f0 + f1, fe, lab_len)
+        return loss, ChunkPack([None], (b0, b1, be), loss)
+    carries, carry = [], None
+    for c in range(n_chunks):
+        blank, dcu, lens_c = _chunk(ctx, c, chunk_t, lpad, lens)
+        carries.append(carry)
+        carry = classic_fwd(blank, dcu, lm, nb, rep, lens_c, k_win, "final",
+                            **init_kw(carry))
+    f0, f1, fe = carry
     loss = pick_loss(f0 + f1, fe, lab_len)
-    return loss, (inputs, sa, saf, loss)
+    return loss, ChunkPack(carries, None, loss)
 
 
 def grad_direct_assemble(ctx: CtcContext, sums, loss_for_mask, scale):
@@ -491,35 +753,99 @@ def grad_direct_assemble(ctx: CtcContext, sums, loss_for_mask, scale):
     return torch.where(ctx.logit_length_mask[:, :, None], grad, zero)
 
 
-def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
-    """Block-float gradient w.r.t. log-probabilities (kernel B3 plus the act
-    scatter and assembly): ``(grad [B, T, V], fast loss [B])``.  The fast
-    loss comes from the beta carry and is the guard's flush signal."""
+def _empty_gradient(ctx: CtcContext, loss, pure_loss):
     batch, num_t, num_tokens = ctx.logproba.shape
+    zeros = torch.zeros(
+        (batch, num_t, num_tokens), dtype=torch.float32, device=ctx.logproba.device
+    )
+    return zeros, pure_loss(ctx) if loss is None else loss
+
+
+def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
+    """Block-float gradient w.r.t. log-probabilities: ``(grad [B, T, V],
+    fast loss [B])``, by the scheme of the pack (a :class:`StreamPack`:
+    kernel B3; a :class:`ChunkPack`: kernel B10 per chunk, last to first),
+    then the act scatter and the assembly.  The fast loss comes from the
+    beta carry and is the guard's flush signal."""
+    batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0:
-        zeros = torch.zeros(
-            (batch, num_t, num_tokens), dtype=torch.float32, device=ctx.logproba.device
+        return _empty_gradient(
+            ctx, loss, lambda c: classic_mod.loss(c, classic_mod.alpha(c))
         )
-        if loss is None:
-            loss = classic_mod.loss(ctx, classic_mod.alpha(ctx))
-        return zeros, loss
     if pack is None:
         _, pack = classic_loss_and_pack(ctx)
-    inputs, sa, saf, fwd_loss = pack
-    blank, dcu, lm, nb, rep, lens, lab_len, k_win = inputs
-    ebi = ebi_from_loss(fwd_loss)
-    pc, f0, _f1, fe = classic_bwd_streamed(
-        blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf, k_win
-    )
-    return gradient_from_beta_carry(ctx, pc, lm, ebi, f0[:, 0], fe[:, 0])
+    if isinstance(pack, StreamPack):
+        blank, dcu, lm, nb, rep, lens, lab_len, k_win = pack.inputs
+        ebi = ebi_from_loss(pack.loss)
+        pc, f0, _f1, fe = classic_bwd_streamed(
+            blank, dcu, lm, nb, rep, lens, lab_len, ebi, pack.sa, pack.saf, k_win
+        )
+        sums = act_scatter(ctx, pc[:, :num_t], lm)
+        return gradient_from_beta_carry(ctx, sums, pack.loss, ebi, f0[:, 0], fe[:, 0])
+    n_chunks, chunk_t = chunk_plan(ctx)
+    lpad, k_win, lm, nb, rep, lens, lab_len = _lane_inputs(ctx)
+    ebi = ebi_from_loss(pack.loss)
+    sums = torch.empty((batch, num_t, ctx.logproba.shape[2]), dtype=torch.float32,
+                       device=ctx.logproba.device)
+
+    def chunk_backward(c, beta):
+        # one chunk's launches; its [B, chunk, L] tensors die on return
+        blank, dcu, lens_c = _chunk(ctx, c, chunk_t, lpad, lens)
+        bounds = pack.bounds
+        if bounds is None:
+            bounds = classic_fwd(blank, dcu, lm, nb, rep, lens_c, k_win, "bound",
+                                 **init_kw(pack.carries[c]))[:3]
+        pc, *beta = classic_bwd(blank, dcu, lm, nb, rep, lens_c, lab_len, ebi,
+                                *bounds, k_win, beta)
+        scatter_chunk(ctx, sums, pc, lm, c * chunk_t)
+        return beta
+
+    beta = None
+    for c in range(n_chunks - 1, -1, -1):
+        beta = chunk_backward(c, beta)
+    b0, _b1, be = beta
+    return gradient_from_beta_carry(ctx, sums, pack.loss, ebi, b0[:, 0], be[:, 0])
 
 
-def gradient_from_beta_carry(ctx: CtcContext, acts, lm, ebi, beta0, beta0_e):
-    """``(grad [B, T, V], fast loss [B])`` from a beta scan's acts and the
-    mantissa and exponent of its final carry at lane 0.  The fast loss is
-    the guard's flush signal."""
+# Forward and beta scans compute -log P of one lattice in float32.  Every
+# operation rounds relative to the (positive) mass it carries, so the two
+# P drift apart by a relative error that grows with the steps (a few
+# 2^-24 a step at worst, far less as roundings cancel), and each scan
+# rounds its loss once.  The limit allows 2^-24 nats a step and 4 to 8
+# ulps of the loss; a larger gap means that one scan lost mass that
+# mattered (a lane fell out of its window's frame and went through the
+# subnormal range).  On an H100 at B=256 (chip_smoke.py phase 7) the clean
+# rows' gaps reach 0.24 of the limit on N(0, 1) logits at T=4000, and
+# under 0.1 on peaked low-loss logits at T=500 and 4000.
+_GAP_PER_STEP = 2.0 ** -24  # nats
+_GAP_OF_LOSS = 2.0 ** -21  # of |loss|: 4 to 8 float32 ulps
+
+
+def scan_gap_limit(loss, n_steps):
+    """The largest gap in nats between the forward and the beta scan's
+    losses that rounding explains, for scans of ``n_steps`` steps."""
+    return _GAP_OF_LOSS * torch.abs(loss) + _GAP_PER_STEP * n_steps.to(loss.dtype)
+
+
+def beta_carry_loss(fwd_loss, beta0, beta0_e, n_steps):
+    """The fast loss of a beta scan's final carry (mantissa and exponent at
+    lane 0) over ``n_steps`` steps, set to +inf, the guard's flush signal,
+    where it differs from the forward scan's ``fwd_loss`` by more than
+    :func:`scan_gap_limit` or where the forward flushed alone.  NaN stays
+    NaN."""
+    loss = -(torch.log(beta0) + beta0_e.to(torch.float32) * LN2)
+    both = torch.isfinite(fwd_loss) & torch.isfinite(loss)
+    gap = torch.abs(fwd_loss - loss) > scan_gap_limit(loss, n_steps)
+    damaged = (both & gap) | (torch.isposinf(fwd_loss) & torch.isfinite(loss))
+    return torch.where(damaged, torch.full_like(loss, float("inf")), loss)
+
+
+def gradient_from_beta_carry(ctx: CtcContext, sums, fwd_loss, ebi, beta0, beta0_e):
+    """``(grad [B, T, V], fast loss [B])`` from the token sums of a beta
+    scan's acts and the mantissa and exponent of its final carry at lane 0.
+    The fast loss (:func:`beta_carry_loss`) is the guard's flush signal."""
     beta0_e = beta0_e.to(torch.float32)
-    fast_loss = -(torch.log(beta0) + beta0_e * LN2)
+    fast_loss = beta_carry_loss(fwd_loss, beta0, beta0_e, ctx.logit_length)
     # The acts were scaled by 2^-ebi; the posterior scale is
     # exp(fast_loss + ebi ln2) = 2^(ebi - e) / m for the beta carry m * 2^e.
     # Taken from the carry, not through the float32 loss, whose rounding
@@ -527,4 +853,4 @@ def gradient_from_beta_carry(ctx: CtcContext, acts, lm, ebi, beta0, beta0_e):
     scale = torch.where(
         torch.isfinite(fast_loss), torch.exp2(ebi - beta0_e) / beta0, torch.exp2(ebi)
     )
-    return grad_direct_assemble(ctx, act_scatter(ctx, acts, lm), fast_loss, scale), fast_loss
+    return grad_direct_assemble(ctx, sums, fast_loss, scale), fast_loss

@@ -11,8 +11,9 @@ Counterpart of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
   ``pd = exp(loss + a + dg + b[l + 1])``.
 
 Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
-kernels; CPU tensors run the plain versions.  Single-chunk geometry only:
-beyond ``config.chunk_time`` the repair takes the pure path.
+kernels; CPU tensors run the plain versions.  These kernels serve a time
+axis of one chunk only (a rare repair needs no chunked scan): beyond
+``config.chunk_time`` the repair takes the pure path.
 """
 
 from __future__ import annotations
@@ -26,12 +27,12 @@ from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logproba
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     act_scatter,
     check_tensor,
+    chunk_plan,
     geometry,
     kernel_lengths,
     lane_masks,
     shift_lanes,
 )
-from tf_seq2seq_losses_tpu_torch.utils.config import get_config
 from tf_seq2seq_losses_tpu_torch.utils.numerics import apply_logarithmic_mask
 
 NEG_INF = float("-inf")
@@ -65,10 +66,8 @@ def _log_gather_level(ctx: CtcContext, tpad: int, lpad: int):
 
 
 def fits_log_fallback(ctx: CtcContext) -> bool:
-    """The log kernels run single-chunk: window-padded T within chunk_time."""
-    num_t = ctx.logproba.shape[1]
-    tpad, _, _ = geometry(ctx)
-    return num_t > 0 and tpad <= get_config().chunk_time
+    """The log kernels run on one chunk: window-padded T within chunk_time."""
+    return ctx.logproba.shape[1] > 0 and chunk_plan(ctx)[0] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +317,8 @@ def _gradient_log_from_acts(ctx: CtcContext, pc, lm, loss):
     """Exact ``log(-grad)`` from a log-space beta scan's acts ``pc``, which
     were normalised by the finite-masked ``loss``."""
     safe_loss = _safe_loss(loss)
-    non_blank = torch.log(act_scatter(ctx, pc, lm)) - safe_loss[:, None, None]
+    sums = act_scatter(ctx, pc[:, :ctx.logproba.shape[1]], lm)
+    non_blank = torch.log(sums) - safe_loss[:, None, None]
     combined = assemble_with_blank_identity(ctx, non_blank, loss)
     out = loss[:, None, None] + combined
     out = torch.where(

@@ -13,8 +13,8 @@ control-flow structure that served it there:
 
 * ``flushed = isposinf(fast_loss) & feasible``;
 * every flushed row is recomputed, in rounds of ``repair_bucket2`` rows,
-  through the log-space kernels (``log_fallback``, single-chunk) or the
-  pure path, and scattered back;
+  through the log-space kernels (``log_fallback``; a time axis of one
+  chunk only) or the pure path, and scattered back;
 * clean rows keep their fast values bit for bit;
 * NaN inputs flow through (NaN is not +inf).
 
@@ -148,8 +148,9 @@ class Topology:
         return self._guarded_loss(ctx, self._loss_fast(ctx))
 
     def loss_and_pack_fast(self, ctx: CtcContext):
-        """Training forward: the guarded loss plus the residual pack (the
-        forward kernel in mode resid); the pack is None on the pure path."""
+        """Training forward: the guarded loss plus the pack that the
+        backward reads (see ``cuda_lattice.classic_loss_and_pack``); the
+        pack is None on the pure path."""
         if not kernels_enabled(ctx):
             return self.pure_loss(ctx), None
         fast, pack = self._loss_and_pack(ctx)

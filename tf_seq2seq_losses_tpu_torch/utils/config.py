@@ -25,8 +25,13 @@ class KernelConfig:
     forces the pure path.
     ``window``: frozen-frame window length of the block-float scans; the
     set of rows that flush depends on it.
-    ``chunk_time``: the longest (window-padded) time axis the single-chunk
-    kernel path serves.
+    ``chunk_time``: the longest chunk of the (window-padded) time axis that
+    one kernel launch scans; a longer axis runs in equal chunks, each a
+    whole number of windows, chaining the lattice carry from chunk to chunk.
+    ``stream_residuals``: the training forward streams per-step alpha
+    residuals ``[B, T, L]`` for the backward (single-chunk geometry only);
+    off, or beyond one chunk, the backward re-expands alpha from per-window
+    boundary carries (the residual-free scheme).
     ``guard``: recompute feasible rows whose fast loss flushed to +inf.
     ``repair_bucket2``: rows per exact repair round of the guard.
     ``log_fallback``: repair through the log-space kernels (else through
@@ -36,6 +41,7 @@ class KernelConfig:
     use_kernels: Optional[bool] = None
     window: int = 8
     chunk_time: int = 512
+    stream_residuals: bool = True
     guard: bool = True
     repair_bucket2: int = 32
     log_fallback: bool = True
@@ -45,7 +51,7 @@ class KernelConfig:
             raise ValueError(
                 f"use_kernels must be None, True or False, got {self.use_kernels!r}"
             )
-        for name in ("guard", "log_fallback"):
+        for name in ("stream_residuals", "guard", "log_fallback"):
             if not isinstance(getattr(self, name), bool):
                 raise ValueError(
                     f"{name} must be a bool, got {getattr(self, name)!r}"
@@ -64,7 +70,6 @@ class KernelConfig:
 # Knobs of the JAX KernelConfig whose code paths the port does not have yet:
 # field -> (the default this port implements, ROADMAP item).
 _UNPORTED = {
-    "stream_residuals": (True, "B10 (residual-free scheme)"),
     "half_stream": (False, "B13 (half-stream scheme)"),
     "fused_epilogue": (False, "B12 (fused d_logits epilogue)"),
     "guard_struct": ("while", "A7 (cond-lattice guard structure)"),
@@ -109,9 +114,10 @@ def config_from_reference(fields: dict) -> KernelConfig:
     The loss has no learned parameters; its behaviour is fixed by this
     config, so carrying it across is what reproduces the reference run.
 
-    Mapped: ``window``, ``chunk_time``, ``guard``, ``repair_bucket2`` and
-    ``log_fallback``; ``use_pallas`` is dropped, since the port picks its
-    path from the tensor's device (see ``KernelConfig.use_kernels``).
+    Mapped: ``window``, ``chunk_time``, ``stream_residuals``, ``guard``,
+    ``repair_bucket2`` and ``log_fallback``; ``use_pallas`` is dropped,
+    since the port picks its path from the tensor's device (see
+    ``KernelConfig.use_kernels``).
 
     Dropped (TPU geometry and lowering, same values either way):
     ``interpret``, ``unroll``, ``block_batch``, ``block_time``,
@@ -121,9 +127,9 @@ def config_from_reference(fields: dict) -> KernelConfig:
     always repairs every flushed row in rounds of ``repair_bucket2``).
 
     Raises ``NotImplementedError`` for an unported knob off its default
-    (``stream_residuals=False``, ``half_stream=True``,
-    ``fused_epilogue=True``, ``guard_struct="cond"``) and ``ValueError``
-    for an unknown field or enum value.
+    (``half_stream=True``, ``fused_epilogue=True``,
+    ``guard_struct="cond"``) and ``ValueError`` for an unknown field or
+    enum value.
     """
     known = set(_UNPORTED) | set(_DROPPED) | {
         f.name for f in dataclasses.fields(KernelConfig) if f.name != "use_kernels"
@@ -134,7 +140,8 @@ def config_from_reference(fields: dict) -> KernelConfig:
     _check_unported(fields)
     kw = {
         name: fields[name]
-        for name in ("window", "chunk_time", "guard", "repair_bucket2", "log_fallback")
+        for name in ("window", "chunk_time", "stream_residuals", "guard",
+                     "repair_bucket2", "log_fallback")
         if name in fields
     }
     return KernelConfig(**kw)
