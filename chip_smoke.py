@@ -6,20 +6,25 @@
 Phases, one line each (phases 3, 4 and 7 once per topology, classic then
 simplified):
 
-1. build the CUDA kernels of ``tf_seq2seq_losses_tpu_torch/csrc/``, and
-   print how many label lanes each kernel's shared memory allows;
-2. run every kernel (classic B1-B5 and B10, simplified B6-B9 and B11) on
-   the card at the headline shape (B=256, T=500, V=32, labels [256, 250]),
-   and at batch 8 with labels [8, 600], windows 1 and 16, and blank index 3
-   with labels over {1, 2}, and hold it against its plain PyTorch version
-   on the same inputs: losses rtol 1e-5; acts and scaled carries atol 1e-5;
-   block-float residual and carry mantissas rtol 1e-5 + atol 1e-6, their
-   exponents exactly; log-space residuals rtol 1e-5 + atol 1e-5; inf
-   patterns equal throughout.  The residual-free modes (B10, B11: forward
-   modes bound and final from a carry, backward from a beta carry) run at
-   the headline shape and chunk by chunk over T=1500, labels [8, 600], in
-   3 and in 24 chunks, each chunk from the carries the previous chunk's
-   kernels left;
+1. build the CUDA kernels of ``tf_seq2seq_losses_tpu_torch/csrc/``, hold
+   the Python mirror of each library's shared-memory formula, by which the
+   host picks a scheme, against the library's own, and print how many
+   label lanes each kernel's shared memory allows;
+2. run every kernel (classic B1-B5, B10 and B13, simplified B6-B9 and
+   B11, the fused epilogue B12) on the card at the headline shape (B=256,
+   T=500, V=32, labels [256, 250]), and at batch 8 with labels [8, 600],
+   windows 1 and 16, and blank index 3 with labels over {1, 2}, and hold it
+   against its plain PyTorch version on the same inputs: losses rtol 1e-5;
+   acts and scaled carries atol 1e-5; block-float residual and carry
+   mantissas rtol 1e-5 + atol 1e-6, their exponents exactly; log-space
+   residuals rtol 1e-5 + atol 1e-5; inf patterns equal throughout.  B13's
+   forward (mode resid1) must give mode resid's residuals, and its backward
+   B3's acts and beta carry, bit for bit.  B12 runs at batch 8, blank 3,
+   V = 32, 128 and 1000 (atol 1e-6).  The residual-free modes (B10, B11:
+   forward modes bound and final from a carry, backward from a beta carry)
+   run at the headline shape and chunk by chunk over T=1500, labels
+   [8, 600], in 3 and in 24 chunks, each chunk from the carries the
+   previous chunk's kernels left;
 3. the main path, with TF32 allowed for float32 matrix products as
    training scripts on an H100 commonly set it: ``classic_ctc_loss`` (then
    ``simplified_ctc_loss``) forward plus ``.backward()``, then a
@@ -29,7 +34,13 @@ simplified):
    path run on the card in float64 (the float32 pure path's own error is
    printed beside); then, as a path of its own, the training step with
    ``stream_residuals=False``: one launch each of the forward in mode bound
-   and the residual-free backward, loss and d_logits bit for bit;
+   and the residual-free backward, loss and d_logits bit for bit; then the
+   paths of the half-stream scheme and the fused epilogue
+   (``drive_slice_paths``): the classic half-stream step (bit for bit the
+   streamed one); at V=128 each topology's fused step and a saturated
+   batch through it, then the classic half-stream step fused; a classic
+   step on labels [8, 2000] (2016 lanes: the residual-free scheme, and a
+   repair through the pure path);
 4. the saturation guard: four rows saturated at the logit scale 1e2 and
    1e10 flush and are repaired through the log-space kernels; rows at
    1e2 match the pure path (loss and d_logits atol 2e-4), rows at 1e10
@@ -45,9 +56,11 @@ simplified):
    single calls; ``torch.nn.functional.ctc_loss``, the library yardstick
    of the classic loss: median of 20 single calls; no PyTorch call
    computes the simplified loss) and on the host clock (each topology's
-   fwd+bwd step, streamed and residual-free, and forward-only call): each
-   kernel, its plain version and its bound; then a ``torch.profiler``
-   breakdown of each step's device time by kernel;
+   fwd+bwd step, streamed and residual-free, and forward-only call; the
+   steps of ``drive_slice_paths``): each kernel, its plain version and its
+   bound, and the device time of the unfused epilogue that B12 replaces at
+   V=128; then a ``torch.profiler`` breakdown of each step's device time by
+   kernel (also the classic V=128 step, unfused and fused);
 7. long T, a path of its own: B=256, T=4000, V=32 from
    ``benchmarks/long_t.py``'s generator (labels [256, 2000], 8 chunks of
    504 steps, 2016 lanes): a training step, an evaluation call and a step
@@ -66,9 +79,10 @@ simplified):
    profile of the classic step.
 
 The launch counts are set to 0 before each path (a topology's phases 3
-and 4, its residual-free step, its phase 7) and read after it: a kernel
-that its path never launched fails the run, and the ``kernels`` line
-gives each kernel's launches summed over the paths.  The last lines are
+and 4, its residual-free step, each path of ``drive_slice_paths``, its
+phase 7) and read after it: a kernel that its path never launched fails
+the run, and the ``kernels`` line gives each kernel's launches summed over
+the paths.  The last lines are
 the ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": ...}``.  Any failed check exits non-zero.
 """
@@ -106,23 +120,24 @@ def log(msg: str) -> None:
 
 
 def make_inputs(torch, seed: int, dev, batch=None, label_width=None, max_t=None,
-                infeasible=True):
+                infeasible=True, vocab=None):
     """Headline inputs: labels [B, T/2] in 1..V-1, N(0, 1) logits,
     label_length in [T/4, T/2), logit_length in [T/2, T); rows 0 and 1 are
     made infeasible (logit_length below label_length) unless
     ``infeasible`` is False.  ``label_width`` widens the label array (its
     extra columns are past every label_length) or narrows it (label_length
-    then in [W/2, W)).  With ``infeasible=False`` this is the generator of
-    ``benchmarks/long_t.py``."""
+    then in [W/2, W)); ``vocab`` replaces V.  With ``infeasible=False`` this
+    is the generator of ``benchmarks/long_t.py``."""
     import numpy as np
 
+    vocab = vocab or VOCAB
     batch = batch or BATCH
     max_t = max_t or MAX_T
     width = label_width or max_t // 2
     hi = min(max_t // 2, width)
     rng = np.random.RandomState(seed)
-    labels = rng.randint(1, VOCAB, (batch, width)).astype(np.int32)
-    logits = rng.randn(batch, max_t, VOCAB).astype(np.float32)
+    labels = rng.randint(1, vocab, (batch, width)).astype(np.int32)
+    logits = rng.randn(batch, max_t, vocab).astype(np.float32)
     label_length = rng.randint(min(max_t // 4, hi // 2), hi, (batch,)).astype(np.int32)
     logit_length = rng.randint(max_t // 2, max_t, (batch,)).astype(np.int32)
     if infeasible:
@@ -309,6 +324,36 @@ def compare_kernels(ctx):
     errs["classic_bwd_streamed"] = max(max_err(b_k[0], b_p[0]),
                                        max_err(beta_loss(b_k), beta_loss(b_p)))
 
+    # the half-stream pair (B13): mode resid1, then the backward that
+    # rebuilds a0; the latter bit for bit B3 on the same forward
+    h_k = cl.classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "resid1")
+    h_p = cl.classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win, "resid1")
+    valid_w = (torch.arange(tpad // k_win, device=dev)[None, :] * k_win < lens[:, None])
+    agree(pick(*h_k[3:]), rl_p, 1e-5, 0.0, "classic_fwd[resid1] loss vs plain")
+    agree(h_k[0][valid_t], h_p[0][valid_t], 1e-5, 1e-6,
+          "classic_fwd[resid1] a1 residuals vs plain")
+    agree(h_k[2][valid_w], h_p[2][valid_w], 1e-5, 1e-6,
+          "classic_fwd[resid1] a0 window residuals vs plain")
+    check(torch.equal(h_k[1][valid_w], h_p[1][valid_w]),
+          "classic_fwd[resid1] frames vs plain")
+    check(torch.equal(h_k[0][valid_t], r_k[0][:, :, 1][valid_t])
+          and torch.equal(h_k[2][valid_w], r_k[0][:, ::k_win, 0][valid_w])
+          and torch.equal(h_k[1][valid_w], r_k[1][valid_w]),
+          "classic_fwd[resid1] residuals are mode resid's bit for bit")
+    errs["classic_fwd[resid1]"] = max(max_err(pick(*h_k[3:]), rl_p),
+                                      max_err(h_k[0][valid_t], h_p[0][valid_t]),
+                                      max_err(h_k[2][valid_w], h_p[2][valid_w]))
+    hb_args = (blank, dcu, lm, nb, rep, lens, lab_len, ebi, *h_k[:3], k_win)
+    hb_k = cl.classic_bwd_half(*hb_args)
+    hb_p = cl.classic_bwd_half_plain(*hb_args)
+    agree(hb_k[0], hb_p[0], 0.0, 1e-5, "classic_bwd_half pc vs plain")
+    agree(beta_loss(hb_k), beta_loss(hb_p), 1e-5, 0.0,
+          "classic_bwd_half beta carry vs plain")
+    check(all(torch.equal(a, b) for a, b in zip(hb_k, b_k)),
+          "classic_bwd_half pc and beta carry are B3's bit for bit")
+    errs["classic_bwd_half"] = max(max_err(hb_k[0], hb_p[0]),
+                                   max_err(beta_loss(hb_k), beta_loss(hb_p)))
+
     blank_l, dc_l, pt_l, _lm, nb_, rep_, _, _ = ll._log_inputs(ctx)
     lf_k = ll.classic_log_fwd(blank_l, dc_l, pt_l, nb_, rep_, lens, "final")
     lf_p = ll.classic_log_fwd_plain(blank_l, dc_l, pt_l, nb_, rep_, lens, "final")
@@ -337,6 +382,7 @@ def compare_kernels(ctx):
     errs["classic_log_bwd"] = max(max_err(lb_k[0], lb_p[0]),
                                   max_err(lb_k[1][:, 0], lb_p[1][:, 0]))
     args = dict(fwd=(blank, dcu, lm, nb, rep, lens, k_win), bwd=b_args,
+                half_bwd=hb_args,
                 log_fwd=(blank_l, dc_l, pt_l, nb_, rep_, lens), log_bwd=lb_args,
                 lens=lens, k_win=k_win, shape=(batch, tpad, lpad))
     return errs, args
@@ -418,6 +464,51 @@ def compare_simplified_kernels(ctx):
     args = dict(fwd=(blank, dg, lens, k_win), bwd=b_args,
                 log_fwd=(blank_l, dg_l, lens), log_bwd=lb_args)
     return errs, args
+
+
+def fused_args(ctx):
+    """The arguments that the streamed classic scheme (kernels B2 and B3)
+    gives ``fused_dlogits`` on ``ctx``, with d_loss in [0.5, 1.5), and the
+    acts step's ``(acts, lm, fast loss, scale)``."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    with config_override(chunk_time=1 << 20):  # one chunk: the streamed scheme
+        _, pack = cl.classic_loss_and_pack(ctx)
+    acts_step = cl.classic_streamed_acts(ctx, pack)
+    acts, lm, fast_loss, scale = acts_step
+    num_t = ctx.logproba.shape[1]
+    lens = torch.where(torch.isfinite(fast_loss), ctx.logit_length.clamp(0, num_t),
+                       torch.zeros_like(ctx.logit_length)).to(torch.int32)
+    d_loss = (0.5 + torch.arange(len(lens), device=lens.device) / len(lens)).float()
+    return (acts, cl.lane_tokens(ctx, acts.shape[2]), lm, scale, d_loss, lens,
+            ctx.logproba.contiguous(), ctx.blank_index), acts_step
+
+
+def compare_fused(torch, seed, dev):
+    """Hold B12 against its plain version at batch 8, blank 3, V = 32, 128
+    and 1000 (atol 1e-6: its float64 token sums round once to float32, as
+    the plain version's do, and ``expf`` may differ from ``torch.exp`` by
+    an ulp); returns the largest error."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    err = 0.0
+    for vocab in (32, 128, 1000):
+        labels, logits, ll_, gl = make_inputs(torch, seed + vocab, dev, batch=8,
+                                              vocab=vocab)
+        labels = torch.where(labels == 3, torch.full_like(labels, 4), labels)
+        ctx = core.make_context(labels, logit_to_logproba(logits, 2), ll_, gl, 3)
+        args = fused_args(ctx)[0]
+        out, ref = cl.fused_dlogits(*args), cl.fused_dlogits_plain(*args)
+        agree(out, ref, 0.0, 1e-6, f"fused_dlogits vs plain at V={vocab}")
+        check(not bool(out[:2].any()),
+              f"fused_dlogits zero on infeasible rows, V={vocab}")
+        err = max(err, max_err(out, ref))
+    return err
 
 
 def rf_ops(ctx, topology):
@@ -527,8 +618,8 @@ def compare_rf_kernels(ctx, topology):
 
 
 def kernel_counters() -> dict:
-    """``{path: {kernel name: (wrapper, mode or None)}}``: the launch counts
-    that each main path must move."""
+    """``{topology: {kernel name: (wrapper, mode or None)}}``: the launch
+    counts that the topology's paths may move (B12 serves both)."""
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
@@ -543,6 +634,9 @@ def kernel_counters() -> dict:
             "classic_log_bwd": (ll.classic_log_bwd, None),
             "classic_fwd[bound]": (cl.classic_fwd, "bound"),
             "classic_bwd": (cl.classic_bwd, None),
+            "classic_fwd[resid1]": (cl.classic_fwd, "resid1"),
+            "classic_bwd_half": (cl.classic_bwd_half, None),
+            "fused_dlogits": (cl.fused_dlogits, None),
         },
         "simplified": {
             "simplified_fwd[final]": (cs.simplified_fwd, "final"),
@@ -553,6 +647,7 @@ def kernel_counters() -> dict:
             "simplified_log_bwd": (ll.simplified_log_bwd, None),
             "simplified_fwd[bound]": (cs.simplified_fwd, "bound"),
             "simplified_bwd": (cs.simplified_bwd, None),
+            "fused_dlogits": (cl.fused_dlogits, None),
         },
     }
 
@@ -608,8 +703,11 @@ def drive_main_path(torch, dev, topology, inputs, ctx, sync):
 
     loss_fn = loss_function(topology)
     labels, logits, label_length, logit_length = inputs
-    fwd_final, fwd_resid, bwd, log_final, log_resid, log_bwd, fwd_bound, bwd_rf = (
-        kernel_counters()[topology])
+    fwd_final, fwd_resid, fwd_bound = (f"{topology}_fwd[{m}]"
+                                       for m in ("final", "resid", "bound"))
+    bwd, bwd_rf = f"{topology}_bwd_streamed", f"{topology}_bwd"
+    log_final, log_resid, log_bwd = (f"{topology}_log_{m}"
+                                     for m in ("fwd[final]", "fwd[resid]", "bwd"))
     train_step = make_step(torch, loss_fn, labels)
 
     # ---- 3. the main path --------------------------------------------------
@@ -695,7 +793,161 @@ def drive_main_path(torch, dev, topology, inputs, ctx, sync):
         f"{json.dumps(rf_step)}")
     return dict(launches={k: n + rf_launches[k] for k, n in launches.items()},
                 train_step=train_step, loss_fn=loss_fn,
-                saturated=(s_logits, s_ll, s_gl))
+                saturated=(s_logits, s_ll, s_gl), loss=loss, d_logits=d_logits)
+
+
+# the JAX repo's ASR north-star vocabulary (bench.py:266-267), which its
+# fused epilogue was written for
+SLICE_VOCAB = 128
+# a label array of 2016 lanes: wider than B3 (1600) and B5 (1568) hold
+WIDE_LABELS = 2000
+
+
+def configured(fn, **cfg):
+    """``fn`` run under ``config_override(**cfg)``."""
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    def run(*args):
+        with config_override(**cfg):
+            return fn(*args)
+
+    return run
+
+
+def drive_slice_paths(torch, dev, seed, inputs, classic_main, sync):
+    """The half-stream scheme and the fused epilogue, each path of its own
+    (launch counts set to 0 just before it, read just after), with TF32 on:
+
+    * the classic half-stream step at the headline: one launch each of the
+      forward in mode resid1 and B13, no B3; loss and d_logits bit for bit
+      the streamed step's;
+    * at V=128, each topology's fused step and a step on a batch saturated
+      as in phase 4 (``fused_epilogue``): one B12 launch a step; loss bit
+      for bit and d_logits atol 1e-6 against the unfused step, loss rtol
+      1e-5 and d_logits atol 1e-5 against float64; repaired rows against
+      the pure path, clean rows bit for bit;
+    * the classic half-stream step with the fused epilogue at V=128: bit for
+      bit the fused step;
+    * a classic step on labels [8, 2000] (2016 lanes), then the same batch
+      with row 2 saturated: the residual-free scheme (B1 bound, B10), the
+      repair through the pure path (B5 does not hold the lanes); float64
+      on the clean rows, the pure path on the repaired one.
+
+    Returns the launches summed by kernel and the steps for timing."""
+    from collections import Counter
+
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    totals = Counter()
+
+    def path(topology, fn):
+        reset_launches()
+        out = fn()
+        sync()
+        got = {k: n for k, n in read_launches(topology).items() if n}
+        totals.update(got)
+        return out, got
+
+    labels, logits, label_length, logit_length = inputs
+    step = classic_main["train_step"]
+    half_step = configured(step, half_stream=True)
+    (h_loss, h_d), got = path("classic", lambda: half_step(logits, label_length,
+                                                          logit_length))
+    check(got == {"classic_fwd[resid1]": 1, "classic_bwd_half": 1},
+          f"half-stream step launches {got}")
+    check(torch.equal(h_loss, classic_main["loss"])
+          and torch.equal(h_d, classic_main["d_logits"]),
+          "half-stream step's loss and d_logits bit for bit the streamed step's")
+    log(f"phase 3 classic half-stream step (half_stream=True): ok, loss and d_logits "
+        f"bit for bit the streamed step's; launches per step {json.dumps(got)}")
+
+    v_inputs = make_inputs(torch, seed, dev, vocab=SLICE_VOCAB)
+    v_labels, v_logits, v_ll, v_gl = v_inputs
+    s_logits, s_ll, s_gl = saturate(torch, *v_inputs)
+    steps = {"classic_fwd_bwd_step_half_stream": (half_step, inputs[1:])}
+    fused = {}
+    for topology in ("classic", "simplified"):
+        v_step = make_step(torch, loss_function(topology), v_labels)
+        fused_step = configured(v_step, fused_epilogue=True)
+        ((f_loss, f_d), (fs_loss, fs_d)), got = path(topology, lambda: (
+            fused_step(v_logits, v_ll, v_gl), fused_step(s_logits, s_ll, s_gl)))
+        expect = {f"{topology}_fwd[resid]": 2, f"{topology}_bwd_streamed": 2,
+                  "fused_dlogits": 2, f"{topology}_log_fwd[final]": 1,
+                  f"{topology}_log_fwd[resid]": 1, f"{topology}_log_bwd": 1}
+        check(got == expect, f"{topology} fused V={SLICE_VOCAB} launches {got}")
+        u_loss, u_d = v_step(v_logits, v_ll, v_gl)
+        check(torch.equal(f_loss, u_loss), f"{topology} fused step's loss is unfused's")
+        agree(f_d, u_d, 0.0, 1e-6, f"{topology} fused d_logits vs the unfused step")
+        loss64, d64 = pure_float64(*v_inputs, topology)
+        agree(f_loss, loss64, 1e-5, 0.0, f"{topology} fused step loss vs float64 pure")
+        agree(f_d, d64, 0.0, 1e-5, f"{topology} fused d_logits vs float64 pure")
+        with config_override(use_kernels=False):
+            p_loss, p_d = v_step(s_logits, s_ll, s_gl)
+        rows, big = [2, 3], [4, 5]
+        agree(fs_loss[rows], p_loss[rows], 0.0, 2e-4, f"{topology} fused repaired loss")
+        agree(fs_d[rows], p_d[rows], 0.0, 2e-4, f"{topology} fused repaired d_logits")
+        check(bool(torch.isfinite(fs_loss[big]).all())
+              and bool(torch.isfinite(fs_d[big]).all()),
+              f"{topology} fused step finite at logits 1e10")
+        clean = torch.ones(len(f_loss), dtype=torch.bool, device=dev)
+        clean[2:6] = False
+        check(torch.equal(fs_loss[clean], f_loss[clean])
+              and torch.equal(fs_d[clean], f_d[clean]),
+              f"{topology} fused step: clean rows bit for bit")
+        log(f"phase 3 {topology} fused epilogue at V={SLICE_VOCAB} "
+            f"(fused_epilogue=True): ok; max abs err d_logits vs the unfused step "
+            f"{max_err(f_d, u_d):.3g}, vs "
+            f"float64 pure: loss {max_err(f_loss, loss64):.3g} d_logits "
+            f"{max_err(f_d, d64):.3g}; rows 2-5 repaired (vs pure: d_logits "
+            f"{max_err(fs_d[rows], p_d[rows]):.3g}), clean rows bit for bit; "
+            f"launches for the step and the saturated step {json.dumps(got)}")
+        fused[topology] = (f_loss, f_d)
+        steps[f"{topology}_fwd_bwd_step_v{SLICE_VOCAB}"] = (v_step, v_inputs[1:])
+        steps[f"{topology}_fwd_bwd_step_v{SLICE_VOCAB}_fused"] = (fused_step,
+                                                                  v_inputs[1:])
+
+    hf_step = configured(make_step(torch, loss_function("classic"), v_labels),
+                         half_stream=True, fused_epilogue=True)
+    (hf_loss, hf_d), got = path("classic", lambda: hf_step(v_logits, v_ll, v_gl))
+    check(got == {"classic_fwd[resid1]": 1, "classic_bwd_half": 1, "fused_dlogits": 1},
+          f"half-stream fused step launches {got}")
+    check(torch.equal(hf_loss, fused["classic"][0])
+          and torch.equal(hf_d, fused["classic"][1]),
+          "half-stream fused step bit for bit the fused step")
+    log(f"phase 3 classic half-stream step with the fused epilogue at V={SLICE_VOCAB}: "
+        f"ok, bit for bit the fused step; launches per step {json.dumps(got)}")
+    steps[f"classic_fwd_bwd_step_v{SLICE_VOCAB}_half_stream_fused"] = (hf_step,
+                                                                       v_inputs[1:])
+
+    w_inputs = make_inputs(torch, seed + 4, dev, batch=8, label_width=WIDE_LABELS)
+    w_labels, w_logits, w_ll, w_gl = w_inputs
+    w_step = make_step(torch, loss_function("classic"), w_labels)
+    ws_logits, ws_ll, ws_gl = saturate(torch, *w_inputs, rows=((2, 1e2),))
+    ((w_loss, w_d), (ws_loss, ws_d)), got = path("classic", lambda: (
+        w_step(w_logits, w_ll, w_gl), w_step(ws_logits, ws_ll, ws_gl)))
+    check(got == {"classic_fwd[bound]": 2, "classic_bwd": 2},
+          f"labels [8, {WIDE_LABELS}] launches {got}")
+    loss64, d64 = pure_float64(*w_inputs)
+    agree(w_loss, loss64, 1e-5, 0.0, f"labels [8, {WIDE_LABELS}] loss vs float64 pure")
+    agree(w_d, d64, 0.0, 1e-5, f"labels [8, {WIDE_LABELS}] d_logits vs float64 pure")
+    with config_override(use_kernels=False):
+        p_loss, p_d = w_step(ws_logits, ws_ll, ws_gl)
+    agree(ws_loss[2:3], p_loss[2:3], 0.0, 2e-4, "wide labels: repaired loss vs pure")
+    agree(ws_d[2:3], p_d[2:3], 0.0, 2e-4, "wide labels: repaired d_logits vs pure")
+    clean = torch.ones(len(w_loss), dtype=torch.bool, device=dev)
+    clean[2] = False
+    check(torch.equal(ws_loss[clean], w_loss[clean]) and torch.equal(ws_d[clean],
+                                                                      w_d[clean]),
+          "wide labels: clean rows bit for bit")
+    lanes = w_labels.shape[1] + 1
+    log(f"phase 3 classic labels [8, {WIDE_LABELS}] ({lanes} lanes padded to "
+        f"{-(-lanes // 32) * 32}), one chunk: ok through the residual-free scheme; "
+        f"vs float64 pure: loss {max_err(w_loss, loss64):.3g} "
+        f"d_logits {max_err(w_d, d64):.3g}; row 2 repaired through the pure path "
+        f"(d_logits {max_err(ws_d[2:3], p_d[2:3]):.3g} from it), clean rows bit for "
+        f"bit; launches for the step and the saturated step {json.dumps(got)}")
+    steps[f"classic_fwd_bwd_step_labels_{WIDE_LABELS}"] = (w_step, w_inputs[1:])
+    return dict(launches=totals, steps=steps, v_inputs=v_inputs)
 
 
 LONG_T = 4000
@@ -923,11 +1175,14 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
 
 
 def run(seed: int, dev) -> dict:
+    from collections import Counter
+
     import numpy as np
     import torch
 
     import tf_seq2seq_losses_tpu_torch as ctc
     from tf_seq2seq_losses_tpu_torch.ops import _build, core
+    from tf_seq2seq_losses_tpu_torch.ops.topology import compose_dlogits
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
@@ -943,10 +1198,12 @@ def run(seed: int, dev) -> dict:
     # ---- 1. build --------------------------------------------------------
     t_phase = time.perf_counter()
     libs = _build.build_all()
+    check_mirrors(libs)
     log(f"phase 1 build: {time.perf_counter() - t_phase:.1f} s for "
         f"{len(_build._SOURCES)} libraries from tf_seq2seq_losses_tpu_torch/csrc; "
-        f"the most lanes each kernel takes at window 8: "
-        f"{json.dumps(widest_lanes(libs, dev))}")
+        f"the Python mirrors of the {len(_build.SMEM_BYTES)} shared-memory formulas "
+        f"equal the libraries'; the most lanes each kernel takes at window 8 (the "
+        f"fused epilogue at V={SLICE_VOCAB}): {json.dumps(widest_lanes(dev))}")
 
     inputs = make_inputs(torch, seed, dev)
     labels, logits, label_length, logit_length = inputs
@@ -1000,10 +1257,12 @@ def run(seed: int, dev) -> dict:
             extra[key] = compare_rf(multi_ctx)[0]
         for name, e in extra[key].items():
             errs[name] = max(errs[name], e)
+    errs["fused_dlogits"] = compare_fused(torch, seed, dev)
     sync()
     worst = {name: float(f"{max(e.values()):.3g}") for name, e in extra.items()}
     log("phase 2 kernel vs plain on the card: ok, max abs err at the headline "
-        "shape (the residual-free modes: also over the chunks of T 1500) "
+        "shape (the residual-free modes: also over the chunks of T 1500; "
+        "fused_dlogits: at batch 8, blank 3, V = 32, 128 and 1000) "
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
         + "; worst over the kernels at batch 8: " + json.dumps(worst)
         + f"; {time.perf_counter() - t_phase:.1f} s")
@@ -1015,7 +1274,11 @@ def run(seed: int, dev) -> dict:
     t_phase = time.perf_counter()
     paths = {name: drive_main_path(torch, dev, name, inputs, ctx, sync)
              for name in ("classic", "simplified")}
-    launches = {**paths["classic"]["launches"], **paths["simplified"]["launches"]}
+    launches = Counter()
+    for path in paths.values():
+        launches.update(path["launches"])
+    slice_paths = drive_slice_paths(torch, dev, seed, inputs, paths["classic"], sync)
+    launches.update(slice_paths["launches"])
     log(f"phases 3-4: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 5. oracles ----------------------------------------------------------
@@ -1063,6 +1326,23 @@ def run(seed: int, dev) -> dict:
     sfwd, sbwd, slogf, slogb = (sargs[k] for k in ("fwd", "bwd", "log_fwd", "log_bwd"))
     rff, rfb = rfargs["classic"]["fwd"], rfargs["classic"]["bwd"]
     srff, srfb = rfargs["simplified"]["fwd"], rfargs["simplified"]["bwd"]
+    hbwd = kargs["half_bwd"]
+    # B12 at V=128 on the headline batch, and the unfused epilogue it
+    # replaces there: act scatter, assembly and compose
+    v_labels, v_logits, v_ll, v_gl = slice_paths["v_inputs"]
+    v_ctx = core.make_context(v_labels, logit_to_logproba(v_logits, 2), v_ll, v_gl, 0)
+    eargs, (acts, lm_, fast_loss, scale) = fused_args(v_ctx)
+    d_loss = eargs[4]
+
+    def unfused_epilogue():
+        grad = cl.streamed_gradient(v_ctx, acts, lm_, fast_loss, scale)[0]
+        return compose_dlogits(v_ctx, grad, fast_loss, d_loss)
+
+    check(max_err(cl.fused_dlogits(*eargs), unfused_epilogue()) <= 1e-6,
+          "fused_dlogits vs the unfused epilogue at V=128")
+    bounds["fused_dlogits"] = fused_bound(eargs[5], v_ll, v_logits.shape[1],
+                                          v_logits.shape[2])
+    unfused_ms = time_ms(torch, unfused_epilogue)
     pl = "tf_seq2seq_losses_tpu/ops/pallas_lattice.py"
     lg = "tf_seq2seq_losses_tpu/ops/log_lattice.py"
     table = {
@@ -1098,6 +1378,20 @@ def run(seed: int, dev) -> dict:
             lambda: cl.classic_bwd(*rfb),
             lambda: cl.classic_bwd_plain(*rfb),
             "csrc/classic_bwd_rf.cu", f"{pl}:945", None),
+        "classic_fwd[resid1]": (
+            lambda: cl.classic_fwd(*fwd, "resid1"),
+            lambda: cl.classic_fwd_plain(*fwd, "resid1"),
+            "csrc/classic_fwd.cu", f"{pl}:579", None),
+        "classic_bwd_half": (
+            lambda: cl.classic_bwd_half(*hbwd),
+            lambda: cl.classic_bwd_half_plain(*hbwd),
+            "csrc/classic_bwd_half.cu", f"{pl}:1273", None),
+        # no one PyTorch call computes d_logits from the acts; the unfused
+        # epilogue's device time is printed beside the kernels line
+        "fused_dlogits": (
+            lambda: cl.fused_dlogits(*eargs),
+            lambda: cl.fused_dlogits_plain(*eargs),
+            "csrc/fused_epilogue.cu", f"{pl}:2390", None),
         # no PyTorch call computes the simplified loss: library_ms is null
         "simplified_fwd[final]": (
             lambda: cs.simplified_fwd(*sfwd, "final"),
@@ -1172,13 +1466,23 @@ def run(seed: int, dev) -> dict:
 
     steps_ms["library_ctc_loss_fwd_bwd"] = host_ms(torch, library_step)
     steps_ms["library_ctc_loss_fwd"] = lib_fwd_ms
+    for name, (step, args) in slice_paths["steps"].items():
+        steps_ms[name] = host_ms(torch, lambda: step(*args))
+    steps_ms[f"unfused_epilogue_v{SLICE_VOCAB}_device"] = unfused_ms
     log(f"phase 6 timing (ms, host clock, median of {RUNS}; F.ctc_loss forward by "
-        f"CUDA events, median of {RUNS} calls; " + card + "): " + json.dumps(steps_ms))
+        f"CUDA events, median of {RUNS} calls; the unfused epilogue at V={SLICE_VOCAB} "
+        f"(act scatter, assembly, compose) by CUDA events as the kernels; "
+        + card + "): " + json.dumps(steps_ms))
     for name, path in paths.items():
         step = path["train_step"]
         log(f"phase 6 profile of the {name} fwd+bwd step: " + json.dumps(profile_step(
             torch, dev, steps_ms[f"{name}_fwd_bwd_step"],
             lambda: step(logits, label_length, logit_length))))
+    for name in (f"classic_fwd_bwd_step_v{SLICE_VOCAB}",
+                 f"classic_fwd_bwd_step_v{SLICE_VOCAB}_fused"):
+        step, args = slice_paths["steps"][name]
+        log(f"phase 6 profile of the {name}: " + json.dumps(profile_step(
+            torch, dev, steps_ms[name], lambda: step(*args))))
     log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 7. long T, then its timing ------------------------------------------
@@ -1186,6 +1490,8 @@ def run(seed: int, dev) -> dict:
     # the headline's tensors go before the long-T step's peak memory is read
     del inputs, logits, ctx, lib_lp, paths, kargs, sargs, rfargs, table
     del fwd, bwd, logf, logb, sfwd, sbwd, slogf, slogb, rff, rfb, srff, srfb
+    del slice_paths, hbwd, v_logits, v_ctx, eargs, acts, lm_, fast_loss, scale, d_loss
+    del step, args
     del small, wide, small_ctx, multi, multi_ctx
     long_paths = {name: drive_long_t(torch, dev, name, long_inputs, sync, seed)
                   for name in ("classic", "simplified")}
@@ -1261,24 +1567,38 @@ def run(seed: int, dev) -> dict:
     return {"kernels": kernels, "card": card}
 
 
-def widest_lanes(libs, dev, k_win=8) -> dict:
-    """``{kernel library function: the most label lanes (a multiple of 32)
-    whose shared memory the card gives one CTA}`` at window ``k_win``."""
-    import torch
-
+def check_mirrors(libs) -> None:
+    """Hold each Python mirror of a library's shared-memory formula
+    (``_build.SMEM_BYTES``, by which the host picks a scheme) against the
+    library's own, at every lane width to 8160 and windows 1, 8 and 16
+    (vocabularies 32, 128 and 1000 for the fused epilogue)."""
     from tf_seq2seq_losses_tpu_torch.ops import _build
 
-    if dev.type != "cuda":
-        return {}
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    out = {}
     for source, signatures in _build._SIGNATURES.items():
         for fn, argtypes in signatures.items():
-            if fn.endswith("_smem_bytes"):
-                args = (k_win,) if len(argtypes) == 2 else ()
-                nbytes = getattr(libs[source], fn)
-                fits = [lp for lp in range(32, 8192, 32) if nbytes(lp, *args) <= limit]
-                out[fn[len("ctc_"):-len("_smem_bytes")]] = max(fits, default=0)
+            if not fn.endswith("_smem_bytes"):
+                continue
+            name = fn[len("ctc_"):-len("_smem_bytes")]
+            mirror, lib_fn = _build.SMEM_BYTES[name], getattr(libs[source], fn)
+            xs = (32, 128, 1000) if name == "fused_epilogue" else (1, 8, 16)
+            arg = (lambda x: (x,)) if len(argtypes) == 2 else (lambda x: ())
+            bad = [(lp, x) for lp in range(32, 8192, 32) for x in xs
+                   if lib_fn(lp, *arg(x)) != mirror(lp, x)]
+            check(not bad, f"{name}: shared-memory mirror differs at (lanes, x) "
+                  f"{bad[:3]}")
+
+
+def widest_lanes(dev, k_win=8) -> dict:
+    """``{kernel: the most label lanes (a multiple of 32) whose shared memory
+    the card gives one CTA}`` at window ``k_win`` (the fused epilogue at
+    V = ``SLICE_VOCAB``), by the mirrors that route the schemes."""
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    out = {}
+    for name in _build.SMEM_BYTES:
+        x = SLICE_VOCAB if name == "fused_epilogue" else k_win
+        fits = [lp for lp in range(32, 8192, 32) if _build.fits((name,), lp, x, dev)]
+        out[name] = max(fits, default=0)
     return out
 
 
@@ -1309,6 +1629,11 @@ def kernel_bounds(lens, label_length, k_win) -> dict:
         "classic_fwd[resid]": (fwd_final + 4 * (2 * cells + wcells), 11 * cells),
         "classic_bwd_streamed": (4 * (bwd_in + 2 * cells + wcells + cells + 3 * lanes),
                                  24 * cells),
+        # the half-stream pack: a1 a cell, frames and a0 a window; the
+        # backward rebuilds a0 (2 operations a cell) before B3's scan
+        "classic_fwd[resid1]": (fwd_final + 4 * (cells + 2 * wcells), 11 * cells),
+        "classic_bwd_half": (4 * (bwd_in + cells + 2 * wcells + cells + 3 * lanes),
+                             26 * cells),
         "classic_log_fwd[final]": (logf_final, 16 * cells),
         "classic_log_fwd[resid]": (logf_final + 4 * 2 * cells, 16 * cells),
         "classic_log_bwd": (4 * (2 * cells + steps + 2 * lanes + 3 * batch + 2 * cells
@@ -1329,6 +1654,22 @@ def kernel_bounds(lens, label_length, k_win) -> dict:
         "simplified_bwd": (4 * (cells + steps + 3 * batch + 2 * wcells + cells
                                 + 2 * lanes), 12 * cells),
     }
+
+
+def fused_bound(lens, label_length, num_t, vocab) -> tuple:
+    """``(bytes, operations)`` of the fused epilogue for this run's data:
+    the acts of the valid steps over each label's lanes and their
+    log-probabilities read once, the labels, lane masks and four scalars a
+    sample, d_logits [B, T, V] written once; per valid step a float64 add a
+    lane and about 6 operations a token (scale, sum, exp, subtract,
+    multiply)."""
+    lens = lens.double()
+    cells = float((lens * label_length.double()).sum())
+    rows = float(lens.sum())
+    batch = len(lens)
+    nbytes = 4 * (cells + rows * vocab + 2 * float(label_length.sum()) + 4 * batch
+                  + batch * num_t * vocab)
+    return nbytes, cells + 6 * rows * vocab
 
 
 def profile_step(torch, dev, step_ms, step, steps=5) -> dict:

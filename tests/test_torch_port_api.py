@@ -166,10 +166,22 @@ def test_config_from_reference_maps_stream_residuals():
         KernelConfig(stream_residuals=0)
 
 
+@pytest.mark.parametrize("field", ["half_stream", "fused_epilogue"])
+def test_config_from_reference_maps_half_stream_and_fused_epilogue(field):
+    fields = dict(dataclasses.asdict(JaxKernelConfig()), **{field: True})
+    assert getattr(config_from_reference(fields), field) is True
+    assert getattr(config_from_reference(dataclasses.asdict(JaxKernelConfig())),
+                   field) is False
+    with config_override(**{field: True}) as cfg:
+        assert getattr(cfg, field) is True and get_config() is cfg
+    assert getattr(get_config(), field) is False
+    with pytest.raises(ValueError, match=field):
+        KernelConfig(**{field: 1})
+
+
 @pytest.mark.parametrize(
     "field,value,roadmap",
-    [("half_stream", True, "B13"), ("fused_epilogue", True, "B12"),
-     ("guard_struct", "cond", "A7")],
+    [("guard_struct", "cond", "A7")],
 )
 def test_unported_knobs_raise(field, value, roadmap):
     fields = dict(dataclasses.asdict(JaxKernelConfig()), **{field: value})

@@ -205,3 +205,33 @@ def test_empty_batch_and_time_fall_through():
         grad, _ = cl.classic_gradient_with_loss(tctx)
         assert grad.shape == shape
         assert cl.classic_loss_fast(tctx).shape == (shape[0],)
+
+
+def test_scaled_act_does_not_underflow_in_float32():
+    # two mantissas far below their frames, scaled back up by 2^200: their
+    # float32 product is 0, the float64 one exact
+    x = torch.tensor([2.0 ** -100, 0.75])
+    y = torch.tensor([2.0 ** -100, 0.5])
+    s_hi, s_lo = torch.tensor([2.0 ** 100, 1.0]), torch.tensor([2.0 ** 100, 0.25])
+    assert (x * y * s_hi * s_lo)[0] == 0.0
+    assert cl.scaled_act(s_hi, s_lo, x, y).tolist() == [1.0, 0.09375]
+    assert cl.scaled_act(s_hi, s_lo, x, y, y).tolist() == [2.0 ** -100, 0.046875]
+
+
+@pytest.mark.parametrize("topology", ["classic", "simplified"])
+def test_a_nearly_forced_row_keeps_its_posterior(topology):
+    # row 98 of chip_smoke.py's V=128 batch (seed 0): 245 labels over 253
+    # frames without repeats.  At window 8 some lanes' mantissas sit near
+    # 2^-126 of their frames in both scans, and the float32 product of the
+    # two underflowed: 0.06 of frame 136's posterior went to the blank
+    import chip_smoke
+
+    labels, logits, lab_len, logit_len = (
+        t[98:99] for t in chip_smoke.make_inputs(torch, 0, torch.device("cpu"),
+                                                  vocab=128))
+    loss64, d64 = chip_smoke.pure_float64(labels, logits, lab_len, logit_len, topology)
+    step = chip_smoke.make_step(torch, chip_smoke.loss_function(topology), labels)
+    with config_override(use_kernels=True):
+        loss, d = step(logits, lab_len, logit_len)
+    np.testing.assert_allclose(loss.numpy(), loss64.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(d.numpy(), d64.numpy(), atol=1e-5, rtol=0)

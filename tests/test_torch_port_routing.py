@@ -1,0 +1,133 @@
+"""The choice of scheme by what the card's kernels hold.
+
+A training forward streams its residuals only where the streamed kernels'
+shared memory holds the label's lanes, and the guard repairs through the
+log-space kernels only where they hold them; otherwise the residual-free
+scheme and the pure path take over (and give the same values).  The
+shared-memory formulas are Python mirrors of the kernel libraries'
+(``_build.SMEM_BYTES``; ``chip_smoke.py`` holds them against the
+libraries), and CPU tensors are routed by the H100's limit, so these tests
+patch ``_build.SMEM_LIMIT`` to a small one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tf_seq2seq_losses_tpu_torch import api
+from tf_seq2seq_losses_tpu_torch.ops import _build, core
+from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
+from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+CPU = torch.device("cpu")
+
+
+def _widest(name, x=8):
+    return max(lp for lp in range(32, 8192, 32) if _build.fits((name,), lp, x, CPU))
+
+
+def test_the_mirrors_give_the_lanes_measured_on_the_h100():
+    # the widest labels at window 8 that chip_smoke.py phase 1 printed on an
+    # H100 (PR 3), from the libraries' own formulas
+    widest = {"classic_fwd": 3040, "classic_bwd_rf": 2496, "classic_bwd": 1600,
+              "simplified_fwd": 3872, "simplified_bwd_rf": 3200,
+              "simplified_bwd": 2400, "classic_log_bwd": 1568}
+    assert {name: _widest(name) for name in widest} == widest
+    assert _widest("classic_bwd_half") == _widest("classic_bwd")
+    # a one-chunk step with a 2016-lane label: residual-free, pure repair
+    assert not _build.fits(("classic_bwd",), 2016, 8, CPU)
+    assert _build.fits(("classic_fwd", "classic_bwd_rf"), 2016, 8, CPU)
+    assert not _build.fits(("classic_log_fwd", "classic_log_bwd"), 2016, 0, CPU)
+    assert _build.fits(("fused_epilogue",), 2016, 1000, CPU)
+
+
+def _ctx(labels, logits, lab_len, logit_len):
+    lp = torch.log_softmax(torch.tensor(logits), 2)
+    return core.make_context(torch.tensor(labels), lp, torch.tensor(lab_len),
+                             torch.tensor(logit_len), 0)
+
+
+def _case(seed=0, batch=3, max_t=14, vocab=5, width=6):
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(1, vocab, size=(batch, width)).astype(np.int32)
+    logits = rng.normal(size=(batch, max_t, vocab)).astype(np.float32)
+    lengths = np.array([6, 4, 3], np.int32), np.array([14, 12, 9], np.int32)
+    return (labels, logits, *lengths)
+
+
+# At 32 lanes and window 4 the streamed backwards need 3088 (classic) and
+# 2064 (simplified) bytes, the residual-free scans 2448 and 1808 with their
+# forwards under them: these limits leave only the residual-free scheme.
+@pytest.mark.parametrize("topology,limit", [("classic", 2500), ("simplified", 1900)])
+@pytest.mark.parametrize("half", [False, True])
+def test_a_label_the_streamed_kernels_do_not_hold_takes_the_residual_free_scheme(
+        topology, limit, half, monkeypatch):
+    ctx = _ctx(*_case())
+    loss_and_pack, grad = {
+        "classic": (cl.classic_loss_and_pack, cl.classic_gradient_with_loss),
+        "simplified": (cs.simplified_loss_and_pack,
+                       cs.simplified_gradient_with_loss),
+    }[topology]
+    with config_override(window=4, half_stream=half):
+        loss, pack = loss_and_pack(ctx)
+        assert cl.streamed(pack)
+        ref = (loss, *grad(ctx, loss, pack))
+        monkeypatch.setattr(_build, "SMEM_LIMIT", limit)
+        loss, pack = loss_and_pack(ctx)
+        assert isinstance(pack, cl.ChunkPack) and pack.bounds is not None
+        out = (loss, *grad(ctx, loss, pack))
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_the_fused_epilogue_needs_its_kernel_to_hold_the_lanes(monkeypatch):
+    ctx = _ctx(*_case(seed=1))
+    with config_override(fused_epilogue=True):
+        _, pack = cl.classic_loss_and_pack(ctx)
+        assert cl.fused_epilogue_ok(ctx, pack)
+        need = _build.SMEM_BYTES["fused_epilogue"](32, 5)
+        monkeypatch.setattr(_build, "SMEM_LIMIT", need - 1)
+        assert not cl.fused_epilogue_ok(ctx, pack)
+
+
+@pytest.mark.parametrize("topology", ["classic", "simplified"])
+def test_a_label_the_log_kernels_do_not_hold_is_repaired_through_the_pure_path(
+        topology, monkeypatch):
+    labels, logits, lab_len, logit_len = _case(seed=2)
+    # row 1 flushes: at frame 3 token 4, absent from its label, at +100
+    labels[1] = [1, 2, 1, 3, 2, 1]
+    logits[1, 3] = -100.0
+    logits[1, 3, 4] = 100.0
+    fn = {"classic": api.classic_ctc_loss,
+          "simplified": api.simplified_ctc_loss}[topology]
+
+    def step(**cfg):
+        x = torch.tensor(logits, requires_grad=True)
+        with config_override(**cfg):
+            loss = fn(torch.tensor(labels), x, torch.tensor(lab_len),
+                      torch.tensor(logit_len), 0)
+            fin = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
+            fin.sum().backward()
+        return loss.detach(), x.grad
+
+    ctx = _ctx(labels, logits, lab_len, logit_len)
+    assert ll.fits_log_fallback(ctx, topology)
+    calls = []
+    for name in ("classic_log_fwd", "simplified_log_fwd"):
+        real = getattr(ll, name)
+        monkeypatch.setattr(ll, name,
+                            lambda *a, _real=real: calls.append(a) or _real(*a))
+    logspace = step(use_kernels=True)
+    assert calls
+    # under what B5 (4768 bytes at 32 lanes) and B9 (2336) need
+    monkeypatch.setattr(_build, "SMEM_LIMIT", 2000)
+    assert not ll.fits_log_fallback(ctx, topology)
+    calls.clear()
+    pure_repair = step(use_kernels=True)
+    pure = step(use_kernels=False)
+    assert not calls
+    assert torch.isfinite(pure_repair[0][1])
+    for ours in (pure_repair, logspace):
+        np.testing.assert_allclose(ours[0][1].numpy(), pure[0][1].numpy(), atol=2e-4)
+        np.testing.assert_allclose(ours[1].numpy(), pure[1].numpy(), atol=2e-4)

@@ -1,6 +1,7 @@
 // Block-float primitives shared by the lattice kernels (classic_fwd.cu,
-// classic_bwd.cu, classic_bwd_rf.cu, classic_log.cu, simplified_fwd.cu,
-// simplified_bwd.cu, simplified_bwd_rf.cu, simplified_log.cu).
+// classic_bwd.cuh for classic_bwd.cu and classic_bwd_half.cu,
+// classic_bwd_rf.cu, classic_log.cu, simplified_fwd.cu, simplified_bwd.cu,
+// simplified_bwd_rf.cu, simplified_log.cu).
 //
 // Counterparts of the in-kernel helpers of
 // tf_seq2seq_losses_tpu/ops/pallas_lattice.py (_expfield, _pow2, _true_exp,
@@ -65,6 +66,24 @@ __device__ __forceinline__ void act_factor(int fa, int fb, float ebi,
   int h = (si >= 0) ? si / 2 : -((-si + 1) / 2);  // floor(si / 2)
   *s_hi = pow2i(h);
   *s_lo = pow2i(si - h);
+}
+
+// An act: the product of two or three f32 factors (mantissas in their own
+// frames, and transition probabilities) scaled by s_hi * s_lo =
+// 2^(fa + fb - ebi), taken in float64 and rounded once to f32.  A lane far
+// below its window's frame in both scans has mantissas near 2^-126 whose
+// f32 product underflows where the scaled act is a posterior of order one
+// (a nearly forced alignment at V=128 lost 0.06 of a frame's posterior so).
+// The product of two f32 and the powers of two are exact in float64.
+__device__ __forceinline__ float scaled_act(float x, float y, float s_hi,
+                                            float s_lo) {
+  return (float)((double)x * (double)y * ((double)s_hi * (double)s_lo));
+}
+
+__device__ __forceinline__ float scaled_act(float x, float y, float z,
+                                            float s_hi, float s_lo) {
+  return (float)((double)x * (double)y * (double)z *
+                 ((double)s_hi * (double)s_lo));
 }
 
 // -inf-safe logaddexp: lae(-inf, -inf) = -inf.

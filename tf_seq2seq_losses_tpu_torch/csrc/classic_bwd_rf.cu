@@ -223,9 +223,10 @@ __global__ void classic_bwd_rf_kernel(
         const float pt = l == 0 ? 0.0f : dw[l - 1];
         const float pm = pt * nbs[l];
         const float dd = a0w[l] * dc + a1w[l] * dov;
-        const float pd = dd * arr * shi[l] * slo[l];
-        const float ph_n =
-            edge ? 0.0f : a1w[l + 1] * dw[l] * b1n * shi[l + 1] * slo[l + 1];
+        const float pd = scaled_act(dd, arr, shi[l], slo[l]);
+        const float ph_n = edge ? 0.0f
+                                : scaled_act(a1w[l + 1], dw[l], b1n, shi[l + 1],
+                                             slo[l + 1]);
         pc[((size_t)b * tpad + t) * lpad + l] = pd + ph_n;
         const float hc = bl * b0;
         b0s[l] = hc + dc * arr;

@@ -1,5 +1,5 @@
 // Classic CTC alpha scan in block-float probability space (modes "final",
-// "resid" and "bound").
+// "resid", "bound" and "resid1").
 //
 // Replaces tf_seq2seq_losses_tpu/ops/pallas_lattice.py:_classic_fwd_kernel
 // (launched by _classic_fwd_call).  Mode "final" emits the last carry, from
@@ -8,7 +8,13 @@
 // step's mantissas and every window's frames, the residual pack that
 // classic_bwd.cu reads (the streamed training forward); mode "bound" also
 // writes the carry entering each window, [n_windows, B, L] x (a0, a1, e),
-// from which classic_bwd_rf.cu re-expands alpha (the residual-free scheme).
+// from which classic_bwd_rf.cu re-expands alpha (the residual-free scheme);
+// mode "resid1" (the half-stream scheme, config.half_stream) streams only the
+// open mantissas a1 of every step, [B, Tp, L], the frames as mode "resid"
+// does, and a0 at each window's first step in that window's frame,
+// [B, Tp / K, L] (what mode "resid" stores at sa[:, w K, 0]), from which
+// classic_bwd_half.cu rebuilds the window's a0 with the forward's own
+// operations: (1 + 1/K) / 2 of mode resid's residual mantissa bytes.
 // The time block of the residual-free scheme is one window: the TPU's
 // blocks of several windows existed to fill its grid cells.  An optional
 // initial carry (null: unit mass at lane 0) lets a chunk of a long time
@@ -17,9 +23,9 @@
 // What bounds it on the H100: the scan is sequential in time, so one
 // sample's 500 steps are a chain of dependent shared-memory exchanges and
 // barriers; the bytes (the [B, T, L] transition stream in, and in "resid"
-// mode the [B, T, 2, L] residual stream out, in "bound" mode 3 / K floats
-// a cell) would take a few tens of microseconds at full HBM rate.  It is
-// latency-bound.
+// mode the [B, T, 2, L] residual stream out, in "resid1" mode [B, T, L] plus
+// 2 / K a cell, in "bound" mode 3 / K floats a cell) would take a few tens
+// of microseconds at full HBM rate.  It is latency-bound.
 //
 // Design: one CTA per sample, one thread per label lane (a strided lane loop
 // beyond 512 lanes).  The TPU grid's sequential (batch block, time block)
@@ -35,7 +41,7 @@
 
 namespace ctc {
 
-enum FwdMode { kFinal = 0, kResid = 1, kBound = 2 };
+enum FwdMode { kFinal = 0, kResid = 1, kBound = 2, kResid1 = 3 };
 
 struct FwdSmem {
   float *a0, *a1, *sarr, *d, *lm, *nb, *rep, *dcu_w, *blank_w;
@@ -77,8 +83,9 @@ __global__ void classic_fwd_kernel(
     const float* __restrict__ i1,
     const int* __restrict__ ie,
     int tpad, int lpad, int k_win,
-    float* __restrict__ sa,           // [B, Tp, 2, L] (resid)
-    int* __restrict__ saf,            // [B, Tp / K, L] (resid)
+    float* __restrict__ sa,           // [B, Tp, 2, L] (resid); a1 [B, Tp, L] (resid1)
+    int* __restrict__ saf,            // [B, Tp / K, L] (resid, resid1)
+    float* __restrict__ a0w,          // [B, Tp / K, L] a0 opening a window (resid1)
     float* __restrict__ bd0,          // [Tp / K, B, L] carry entering a window (bound)
     float* __restrict__ bd1,
     int* __restrict__ bde,
@@ -148,7 +155,9 @@ __global__ void classic_fwd_kernel(
       const int f_src = l == 0 ? -kEBig : s.f[l - 1];
       s.sarr[l] = pow2i(f_src - f);
       s.e[l] = f;
-      if (kMode == kResid) saf[((size_t)b * n_win_all + w) * lpad + l] = f;
+      const size_t ow = ((size_t)b * n_win_all + w) * lpad + l;
+      if (kMode == kResid || kMode == kResid1) saf[ow] = f;
+      if (kMode == kResid1) a0w[ow] = s.a0[l];
     }
     for (int kk = 0; kk < kend; ++kk) {
       const int t = t0 + kk;
@@ -161,6 +170,7 @@ __global__ void classic_fwd_kernel(
           sa[o] = a0;
           sa[o + lpad] = a1;
         }
+        if (kMode == kResid1) sa[((size_t)b * tpad + t) * lpad + l] = a1;
         const float dc = dw[l] * s.lm[l];
         const float dov = dc * s.rep[l];
         dnow[l] = a0 * dc + a1 * dov;
@@ -197,15 +207,15 @@ template <int kMode>
 void launch_fwd(const float* blank, const float* dcu, const float* lm,
                 const float* nb, const float* rep, const int* lens,
                 const float* i0, const float* i1, const int* ie, int batch,
-                int tpad, int lpad, int k_win, float* sa, int* saf, float* bd0,
-                float* bd1, int* bde, float* f0, float* f1, int* fe,
+                int tpad, int lpad, int k_win, float* sa, int* saf, float* a0w,
+                float* bd0, float* bd1, int* bde, float* f0, float* f1, int* fe,
                 cudaStream_t st) {
   const size_t smem = fwd_smem_bytes(lpad, k_win);
   cudaFuncSetAttribute(classic_fwd_kernel<kMode>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   classic_fwd_kernel<kMode><<<batch, block_threads(lpad), smem, st>>>(
       blank, dcu, lm, nb, rep, lens, i0, i1, ie, tpad, lpad, k_win, sa, saf,
-      bd0, bd1, bde, f0, f1, fe);
+      a0w, bd0, bd1, bde, f0, f1, fe);
 }
 
 }  // namespace ctc
@@ -216,26 +226,30 @@ size_t ctc_classic_fwd_smem_bytes(int lpad, int k_win) {
   return ctc::fwd_smem_bytes(lpad, k_win);
 }
 
-// mode: 0 final, 1 resid, 2 bound; i0, i1, ie null for the t=0 carry
+// mode: 0 final, 1 resid, 2 bound, 3 resid1; i0, i1, ie null for the t=0 carry
 int ctc_classic_fwd(const float* blank, const float* dcu, const float* lm,
                     const float* nb, const float* rep, const int* lens,
                     const float* i0, const float* i1, const int* ie,
                     int batch, int tpad, int lpad, int k_win, int mode,
-                    float* sa, int* saf, float* bd0, float* bd1, int* bde,
-                    float* f0, float* f1, int* fe, void* stream) {
+                    float* sa, int* saf, float* a0w, float* bd0, float* bd1,
+                    int* bde, float* f0, float* f1, int* fe, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == ctc::kResid) {
+  if (mode == ctc::kResid1) {
+    ctc::launch_fwd<ctc::kResid1>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
+                                  batch, tpad, lpad, k_win, sa, saf, a0w, bd0,
+                                  bd1, bde, f0, f1, fe, st);
+  } else if (mode == ctc::kResid) {
     ctc::launch_fwd<ctc::kResid>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
-                                 batch, tpad, lpad, k_win, sa, saf, bd0, bd1,
-                                 bde, f0, f1, fe, st);
+                                 batch, tpad, lpad, k_win, sa, saf, a0w, bd0,
+                                 bd1, bde, f0, f1, fe, st);
   } else if (mode == ctc::kBound) {
     ctc::launch_fwd<ctc::kBound>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
-                                 batch, tpad, lpad, k_win, sa, saf, bd0, bd1,
-                                 bde, f0, f1, fe, st);
+                                 batch, tpad, lpad, k_win, sa, saf, a0w, bd0,
+                                 bd1, bde, f0, f1, fe, st);
   } else {
     ctc::launch_fwd<ctc::kFinal>(blank, dcu, lm, nb, rep, lens, i0, i1, ie,
-                                 batch, tpad, lpad, k_win, sa, saf, bd0, bd1,
-                                 bde, f0, f1, fe, st);
+                                 batch, tpad, lpad, k_win, sa, saf, a0w, bd0,
+                                 bd1, bde, f0, f1, fe, st);
   }
   return (int)cudaGetLastError();
 }

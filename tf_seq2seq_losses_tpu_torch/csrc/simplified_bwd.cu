@@ -124,7 +124,7 @@ __global__ void simplified_bwd_streamed_kernel(
         const float arr = bn * sarr[l];
         const float d = dgw[o + l];
         pd[((size_t)b * tpad + t0 + kk) * lpad + l] =
-            (saw[o + l] * d) * arr * shi[l] * slo[l];
+            scaled_act(saw[o + l], d, arr, shi[l], slo[l]);
         bnext[l] = bl * bnow[l] + d * arr;
       }
       __syncthreads();

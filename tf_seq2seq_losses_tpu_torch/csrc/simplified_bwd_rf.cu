@@ -172,7 +172,7 @@ __global__ void simplified_bwd_rf_kernel(
         const float arr = bn * sarr[l];
         const float d = dgw[o + l];
         pd[((size_t)b * tpad + t0 + kk) * lpad + l] =
-            (wsb[o + l] * d) * arr * shi[l] * slo[l];
+            scaled_act(wsb[o + l], d, arr, shi[l], slo[l]);
         bnext[l] = bl * bnow[l] + d * arr;
       }
       __syncthreads();

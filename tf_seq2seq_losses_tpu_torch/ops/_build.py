@@ -7,6 +7,11 @@ All sources compile in parallel at first use.  No fast-math flag: the
 log-space kernels need precise ``expf``/``log1pf``.  ``-fmad=false`` keeps
 each multiply and add rounded on its own, as in the plain PyTorch
 versions, so a kernel and its plain version round the same operations.
+
+Each library's ``*_smem_bytes`` formula has a Python mirror in
+:data:`SMEM_BYTES`, so that the host picks a scheme whose kernels hold a
+label's lanes without a card (:func:`fits`); ``chip_smoke.py`` holds every
+mirror against its library.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = (
-    "classic_fwd", "classic_bwd", "classic_bwd_rf", "classic_log",
+    "classic_fwd", "classic_bwd", "classic_bwd_half", "classic_bwd_rf", "classic_log",
     "simplified_fwd", "simplified_bwd", "simplified_bwd_rf", "simplified_log",
+    "fused_epilogue",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,12 +39,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "classic_fwd": {
-        "ctc_classic_fwd": [_P] * 9 + [_I] * 5 + [_P] * 9,
+        "ctc_classic_fwd": [_P] * 9 + [_I] * 5 + [_P] * 10,
         "ctc_classic_fwd_smem_bytes": [_I, _I],
     },
     "classic_bwd": {
         "ctc_classic_bwd_streamed": [_P] * 10 + [_I] * 4 + [_P] * 5,
         "ctc_classic_bwd_smem_bytes": [_I, _I],
+    },
+    "classic_bwd_half": {
+        "ctc_classic_bwd_half": [_P] * 11 + [_I] * 4 + [_P] * 5,
+        "ctc_classic_bwd_half_smem_bytes": [_I, _I],
     },
     "classic_bwd_rf": {
         "ctc_classic_bwd_rf": [_P] * 14 + [_I] * 4 + [_P] * 6,
@@ -68,7 +78,43 @@ _SIGNATURES = {
         "ctc_simplified_log_fwd_smem_bytes": [_I],
         "ctc_simplified_log_bwd_smem_bytes": [_I],
     },
+    "fused_epilogue": {
+        "ctc_fused_dlogits": [_P] * 8 + [_I] * 5 + [_P] * 2,
+        "ctc_fused_epilogue_smem_bytes": [_I, _I],
+    },
 }
+
+_F = _N = 4  # bytes of a float and of an int
+_LOG_CHUNK = 8  # kChunk / kSChunk of the log-space kernels
+
+
+
+def _classic_bwd_bytes(lp: int, k: int) -> int:
+    return _F * (lp * (9 + 3 * k) + k) + _N * 3 * lp  # B3 and B13 alike
+
+
+# Python mirrors of the libraries' ``ctc_<name>_smem_bytes(lpad, x)``: x is
+# the window for the block-float kernels, the vocabulary size for the fused
+# epilogue, and unused by the log-space kernels.
+SMEM_BYTES = {
+    "classic_fwd": lambda lp, k: _F * (lp * (8 + k) + k) + _N * 3 * lp,
+    "classic_bwd": _classic_bwd_bytes,
+    "classic_bwd_half": _classic_bwd_bytes,
+    "classic_bwd_rf": lambda lp, k: _F * (lp * (11 + k) + k) + _N * 4 * lp,
+    "classic_log_fwd": lambda lp, _: _F * (lp * (7 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
+    "classic_log_bwd": lambda lp, _: _F * (lp * (5 + 4 * _LOG_CHUNK) + _LOG_CHUNK),
+    "simplified_fwd": lambda lp, k: _F * (lp * (4 + k) + k) + _N * 3 * lp,
+    "simplified_bwd": lambda lp, k: _F * (lp * (5 + 2 * k) + k) + _N * 3 * lp,
+    "simplified_bwd_rf": lambda lp, k: _F * (lp * (6 + k) + k) + _N * 4 * lp,
+    "simplified_log_fwd": lambda lp, _: _F * (lp * (3 + _LOG_CHUNK) + _LOG_CHUNK),
+    "simplified_log_bwd": lambda lp, _: _F * (lp * (2 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
+    # head[V] and next[L] ints, one staged act row per warp (8 warps), nl
+    "fused_epilogue": lambda lp, v: _N * (v + lp + 1) + _F * 8 * lp,
+}
+
+# Shared memory one CTA may opt into on an H100 (227 KB): the limit that
+# routes CPU tensors, so that their plain versions take the card's schemes.
+SMEM_LIMIT = 232448
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -156,11 +202,26 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
 
 
-def check_smem(nbytes: int, what: str, device) -> None:
-    """Raise a clear error when a kernel's shared memory exceeds the card's."""
+def smem_limit(device) -> int:
+    """Shared memory one CTA may use: the card's for a CUDA device, else
+    :data:`SMEM_LIMIT`."""
     import torch
 
-    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    return SMEM_LIMIT
+
+
+def fits(kernels, lpad: int, x: int, device) -> bool:
+    """Whether every kernel named in ``kernels`` (keys of
+    :data:`SMEM_BYTES`) holds ``lpad`` lanes in one CTA's shared memory."""
+    limit = smem_limit(device)
+    return all(SMEM_BYTES[name](lpad, x) <= limit for name in kernels)
+
+
+def check_smem(nbytes: int, what: str, device) -> None:
+    """Raise a clear error when a kernel's shared memory exceeds the card's."""
+    limit = smem_limit(device)
     if nbytes > limit:
         raise ValueError(
             f"{what}: the label is too long for one CTA per sample "

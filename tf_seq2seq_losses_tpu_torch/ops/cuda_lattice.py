@@ -6,10 +6,13 @@ classic topology:
 
 * ``classic_fwd`` (csrc/classic_fwd.cu) is the block-float alpha scan in
   modes ``"final"`` (the final carry), ``"resid"`` (also streams the
-  residual pack) and ``"bound"`` (also writes the carry entering each
-  window), from the standard t=0 carry or a given one;
+  residual pack), ``"resid1"`` (also streams the half-stream pack: ``a1``
+  per step, ``a0`` per window) and ``"bound"`` (also writes the carry
+  entering each window), from the standard t=0 carry or a given one;
 * ``classic_bwd_streamed`` (csrc/classic_bwd.cu) is the beta scan over the
   streamed residuals, emitting the combined, loss-normalised act ``pc``;
+* ``classic_bwd_half`` (csrc/classic_bwd_half.cu) is the same scan over the
+  half-stream pack, rebuilding each window's ``a0`` first;
 * ``classic_bwd`` (csrc/classic_bwd_rf.cu) is the residual-free beta scan:
   it re-expands alpha over each window from its boundary carry and emits
   the same ``pc``, from a given beta carry or the standard one.
@@ -18,12 +21,14 @@ The time axis, padded to whole windows, runs in equal chunks of at most
 ``config.chunk_time`` steps (:func:`chunk_plan`), each chunk starting from
 the carry the previous one left, so ``[B, T, L]`` tensors only ever exist
 one chunk wide.  Forward-only calls scan the chunks in mode ``"final"``.
-A training step streams residuals when the axis is one chunk and
-``config.stream_residuals`` holds (B2, then B3); otherwise it keeps the
-chunk-initial carries, and the backward walks the chunks last to first,
-regenerating each chunk's transitions and window boundaries (mode
-``"bound"``) and chaining the beta carry (the residual-free scheme; on one
-chunk the forward itself runs in mode ``"bound"``).
+A training step streams residuals when the axis is one chunk,
+``config.stream_residuals`` holds and the streamed kernels' shared memory
+holds the label's lanes (B2, then B3; with ``config.half_stream``, B13's
+forward and backward); otherwise it keeps the chunk-initial carries, and
+the backward walks the chunks last to first, regenerating each chunk's
+transitions and window boundaries (mode ``"bound"``) and chaining the beta
+carry (the residual-free scheme; on one chunk the forward itself runs in
+mode ``"bound"``).
 
 The simplified topology's kernels (B6, B7, B11) live in
 ``cuda_simplified.py``, which shares this module's geometry, block-float
@@ -42,7 +47,10 @@ multiple of the window, which is also the residual-free scheme's time block.
 
 The token scatter of the acts (``einsum('btl,blv->btv', pc, ohlm)`` in the
 JAX package, outside any kernel there) is :func:`act_scatter`, a
-``torch.bmm`` in float64, one chunk at a time.
+``torch.bmm`` in float64, one chunk at a time.  On the streamed scheme,
+with ``config.fused_epilogue``, ``fused_dlogits`` (csrc/fused_epilogue.cu,
+kernel B12) scatters, assembles the gradient and applies the log-softmax
+cotangent in one pass instead, for either topology.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
 from tf_seq2seq_losses_tpu_torch.utils.config import get_config
@@ -153,24 +162,36 @@ def classic_transitions(ctx: CtcContext, lpad: int, t0: int, span: int):
     return blank, dcu
 
 
-def act_scatter(ctx: CtcContext, pc: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
-    """Token sums of the acts of some steps, ``[B, steps, V]`` f32:
-    ``sums[b, t, v]`` adds ``pc[b, t, l]`` over the lanes
-    ``l <= label_length`` that hold token v.
+def lane_tokens(ctx: CtcContext, lpad: int) -> torch.Tensor:
+    """The token of each lane, ``[B, lpad]`` int32 (0 on padded lanes)."""
+    batch, lp1 = ctx.label.shape
+    out = torch.zeros((batch, lpad), dtype=torch.int32, device=ctx.label.device)
+    out[:, :lp1] = ctx.label
+    return out
+
+
+def token_sums(acts: torch.Tensor, tokens: torch.Tensor, lm: torch.Tensor,
+               num_tokens: int) -> torch.Tensor:
+    """``sums[b, t, v]``, the acts ``acts[b, t, l]`` of the lanes with
+    ``lm[b, l] = 1`` and ``tokens[b, l] = v``, ``[B, steps, V]`` f32.
 
     A ``torch.bmm`` against the label one-hot, in float64: its products are
     exact and its sums round once to float32 whatever the caller's TF32
-    setting (a float32 product under TF32 rounds ``pc`` to an 11-bit
+    setting (a float32 product under TF32 rounds the acts to an 11-bit
     mantissa, 5e-4 relative), and it is deterministic, which an atomic
     ``scatter_add_`` is not (clean rows stay bit for bit across batches)."""
-    batch, lp1 = ctx.label.shape
-    num_tokens = ctx.logproba.shape[2]
-    lpad = pc.shape[2]
-    idx = torch.zeros((batch, lpad, 1), dtype=torch.int64, device=ctx.label.device)
-    idx[:, :lp1, 0] = ctx.label
-    onehot = torch.zeros((batch, lpad, num_tokens), dtype=torch.float64, device=pc.device)
-    onehot.scatter_(2, idx, lm[:, :, None].to(torch.float64))
-    return torch.bmm(pc.to(torch.float64), onehot).to(torch.float32)
+    batch, lpad = tokens.shape
+    onehot = torch.zeros((batch, lpad, num_tokens), dtype=torch.float64,
+                         device=acts.device)
+    onehot.scatter_(2, tokens.to(torch.int64)[:, :, None],
+                    lm[:, :, None].to(torch.float64))
+    return torch.bmm(acts.to(torch.float64), onehot).to(torch.float32)
+
+
+def act_scatter(ctx: CtcContext, pc: torch.Tensor, lm: torch.Tensor) -> torch.Tensor:
+    """Token sums (:func:`token_sums`) of the acts of some steps over the
+    lanes ``l < label_length``, ``[B, steps, V]`` f32."""
+    return token_sums(pc, lane_tokens(ctx, pc.shape[2]), lm, ctx.logproba.shape[2])
 
 
 def scatter_chunk(ctx: CtcContext, sums, acts, lm, t0: int) -> None:
@@ -232,6 +253,16 @@ def _open_window(mants, e, k_win: int, forward: bool):
     return [m * r for m in mants], f, s_arr
 
 
+def scaled_act(s_hi, s_lo, *factors):
+    """An act: the product of ``factors`` scaled by ``s_hi * s_lo``, in
+    float64, rounded once to float32 (``scaled_act`` of csrc/blockfloat.cuh:
+    an f32 product of mantissas far below their frames underflows)."""
+    out = factors[0].double()
+    for f in factors[1:]:
+        out = out * f.double()
+    return (out * (s_hi.double() * s_lo.double())).float()
+
+
 def _act_factor(fa, fb, ebi):
     s = fa.to(torch.float32) + fb.to(torch.float32) - ebi[:, None]
     s = s.clamp(-252.0, 252.0).to(torch.int32)
@@ -290,6 +321,22 @@ def carry_pointers(carry, states: int, shape, name: str, device):
     return tuple(t.data_ptr() for t in (*mants, e))
 
 
+def check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win: int):
+    """Check the inputs that every classic block-float scan takes (CUDA
+    tensors); returns ``(batch, tpad, lpad, device)``."""
+    batch, tpad, lpad = dcu.shape
+    dev = dcu.device
+    if tpad % k_win:
+        raise ValueError(f"padded T {tpad} is not a multiple of the window {k_win}")
+    f32 = torch.float32
+    check_tensor(blank, (batch, tpad), f32, "blank", dev)
+    check_tensor(dcu, (batch, tpad, lpad), f32, "dcu", dev)
+    for name, t in (("lm", lm), ("nb", nb), ("rep", rep)):
+        check_tensor(t, (batch, lpad), f32, name, dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    return batch, tpad, lpad, dev
+
+
 # ---------------------------------------------------------------------------
 # kernel B1/B2/B10 forward: block-float alpha scan
 # ---------------------------------------------------------------------------
@@ -314,9 +361,13 @@ def classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init
     else:
         a0, a1, e = (t.clone() for t in init)
     n_w = tpad // k_win
+    if mode in ("resid", "resid1"):
+        saf = torch.zeros((batch, n_w, lpad), dtype=torch.int32, device=device)
     if mode == "resid":
         sa = torch.zeros((batch, tpad, 2, lpad), dtype=torch.float32, device=device)
-        saf = torch.zeros((batch, n_w, lpad), dtype=torch.int32, device=device)
+    if mode == "resid1":
+        sa1 = torch.zeros((batch, tpad, lpad), dtype=torch.float32, device=device)
+        a0w = torch.zeros((batch, n_w, lpad), dtype=torch.float32, device=device)
     if mode == "bound":
         bd0 = torch.empty((n_w, batch, lpad), dtype=torch.float32, device=device)
         bd1 = torch.empty_like(bd0)
@@ -335,32 +386,40 @@ def classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init
         a0 = torch.where(act, m0, a0)
         a1 = torch.where(act, m1, a1)
         e = torch.where(act, f, e)
-        if mode == "resid":
+        if mode in ("resid", "resid1"):
             saf[:, w] = torch.where(act, f, torch.zeros_like(f))
+        if mode == "resid1":
+            a0w[:, w] = torch.where(act, a0, torch.zeros_like(a0))
         for t in range(t0, min(t0 + k_win, max_len)):
             run = t < lens_c
             if mode == "resid":
                 sa[:, t, 0] = torch.where(run, a0, torch.zeros_like(a0))
                 sa[:, t, 1] = torch.where(run, a1, torch.zeros_like(a1))
+            if mode == "resid1":
+                sa1[:, t] = torch.where(run, a1, torch.zeros_like(a1))
             n0, n1 = _classic_step(a0, a1, blank[:, t], dcu[:, t], lm, nb, rep, s_arr)
             a0 = torch.where(run, n0, a0)
             a1 = torch.where(run, n1, a1)
     if mode == "resid":
         return sa, saf, a0, a1, e
+    if mode == "resid1":
+        return sa1, saf, a0w, a0, a1, e
     if mode == "bound":
         return bd0, bd1, bde, a0, a1, e
     return a0, a1, e
 
 
-_FWD_MODES = {"final": 0, "resid": 1, "bound": 2}
+_FWD_MODES = {"final": 0, "resid": 1, "bound": 2, "resid1": 3}
 
 
 def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None):
     """Block-float alpha scan from ``init`` (``(a0, a1, e)`` [B, L], None
     for the t=0 carry).  ``mode="final"``: ``(f0, f1, fe)``;
     ``mode="resid"``: ``(sa [B, Tp, 2, L], saf [B, Tp/K, L], f0, f1, fe)``;
-    ``mode="bound"``: ``(b0, b1, be [Tp/K, B, L], f0, f1, fe)``, the carry
-    entering each window.
+    ``mode="resid1"``: ``(a1 [B, Tp, L], saf, a0w [B, Tp/K, L], f0, f1,
+    fe)``, ``a0w`` the closed mantissas at each window's first step, in its
+    frame (``sa[:, w K, 0]`` of mode resid); ``mode="bound"``: ``(b0, b1,
+    be [Tp/K, B, L], f0, f1, fe)``, the carry entering each window.
 
     CUDA tensors launch csrc/classic_fwd.cu; CPU tensors run
     :func:`classic_fwd_plain`."""
@@ -370,18 +429,8 @@ def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None)
         return classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win, mode, init)
     if dcu.device.type != "cuda":
         raise ValueError(f"classic_fwd runs on CUDA or CPU tensors, got {dcu.device}")
-    from tf_seq2seq_losses_tpu_torch.ops import _build
-
-    batch, tpad, lpad = dcu.shape
-    dev = dcu.device
-    if tpad % k_win:
-        raise ValueError(f"padded T {tpad} is not a multiple of the window {k_win}")
+    batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     f32 = torch.float32
-    check_tensor(blank, (batch, tpad), f32, "blank", dev)
-    check_tensor(dcu, (batch, tpad, lpad), f32, "dcu", dev)
-    for name, t in (("lm", lm), ("nb", nb), ("rep", rep)):
-        check_tensor(t, (batch, lpad), f32, name, dev)
-    check_tensor(lens, (batch,), torch.int32, "lens", dev)
     init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
     lib = _build.lib("classic_fwd")
     _build.check_smem(lib.ctc_classic_fwd_smem_bytes(lpad, k_win), "classic_fwd", dev)
@@ -389,22 +438,25 @@ def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None)
     f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
     f1 = torch.empty_like(f0)
     fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
-    extra = ()
-    if mode == "resid":
-        extra = (torch.empty((batch, tpad, 2, lpad), dtype=f32, device=dev),
+    extra, resid, bd = (), [None] * 3, [None] * 3
+    if mode.startswith("resid"):
+        mants = (2, lpad) if mode == "resid" else (lpad,)
+        extra = (torch.empty((batch, tpad, *mants), dtype=f32, device=dev),
                  torch.empty((batch, n_w, lpad), dtype=torch.int32, device=dev))
+        if mode == "resid1":
+            extra += (torch.empty((batch, n_w, lpad), dtype=f32, device=dev),)
+        resid[:len(extra)] = (t.data_ptr() for t in extra)
     elif mode == "bound":
         extra = (torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
                  torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
                  torch.empty((n_w, batch, lpad), dtype=torch.int32, device=dev))
-    sa, saf = (t.data_ptr() for t in extra) if mode == "resid" else (None, None)
-    bd = [t.data_ptr() for t in extra] if mode == "bound" else [None] * 3
+        bd = [t.data_ptr() for t in extra]
     with torch.cuda.device(dev):
         err = lib.ctc_classic_fwd(
             blank.data_ptr(), dcu.data_ptr(), lm.data_ptr(),
             nb.data_ptr(), rep.data_ptr(), lens.data_ptr(), *init_ptrs,
             batch, tpad, lpad, k_win, _FWD_MODES[mode],
-            sa, saf, *bd, f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
+            *resid, *bd, f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "classic_fwd")
@@ -454,8 +506,8 @@ def _classic_beta_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
             a0 = sa[:, t, 0]
             a1 = sa[:, t, 1]
             d = a0 * dc + a1 * dov
-            pd = d * arr * s_hi * s_lo
-            ph = a1 * pt * b1 * s_hi * s_lo
+            pd = scaled_act(s_hi, s_lo, d, arr)
+            ph = scaled_act(s_hi, s_lo, a1, pt, b1)
             pc[:, t] = torch.where(run, pd + shift_lanes(ph, -1, 0.0), torch.zeros_like(pd))
             hc = blank[:, t, None] * b0
             n0 = hc + dc * arr
@@ -486,45 +538,101 @@ def classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
         raise ValueError(
             f"classic_bwd_streamed runs on CUDA or CPU tensors, got {dcu.device}"
         )
-    from tf_seq2seq_losses_tpu_torch.ops import _build
+    batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
+    check_tensor(sa, (batch, tpad, 2, lpad), torch.float32, "sa", dev)
+    out = _launch_beta("classic_bwd", "ctc_classic_bwd_streamed",
+                       (blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf), k_win)
+    classic_bwd_streamed.launches += 1
+    return out
 
+
+classic_bwd_streamed.launches = 0
+
+
+def _launch_beta(library: str, entry: str, args, k_win: int):
+    """Launch a beta scan over residuals whose arguments end with ``(lab_len,
+    ebi, residuals..., saf[, a0w])`` after the transitions, masks and
+    lengths: ``(pc [B, Tp, L], b0, b1, be)``."""
+    blank, dcu, lm, nb, rep, lens, lab_len, ebi, _resid, saf, *_ = args
     batch, tpad, lpad = dcu.shape
     dev = dcu.device
-    if tpad % k_win:
-        raise ValueError(f"padded T {tpad} is not a multiple of the window {k_win}")
     f32 = torch.float32
-    check_tensor(blank, (batch, tpad), f32, "blank", dev)
-    check_tensor(dcu, (batch, tpad, lpad), f32, "dcu", dev)
-    for name, t in (("lm", lm), ("nb", nb), ("rep", rep)):
-        check_tensor(t, (batch, lpad), f32, name, dev)
-    check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
     check_tensor(ebi, (batch,), f32, "ebi", dev)
-    check_tensor(sa, (batch, tpad, 2, lpad), f32, "sa", dev)
     check_tensor(saf, (batch, tpad // k_win, lpad), torch.int32, "saf", dev)
-    lib = _build.lib("classic_bwd")
-    _build.check_smem(
-        lib.ctc_classic_bwd_smem_bytes(lpad, k_win), "classic_bwd_streamed", dev
-    )
+    lib = _build.lib(library)
+    _build.check_smem(getattr(lib, f"ctc_{library}_smem_bytes")(lpad, k_win), library,
+                      dev)
     pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
     f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
     f1 = torch.empty_like(f0)
     fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.ctc_classic_bwd_streamed(
-            blank.data_ptr(), dcu.data_ptr(), lm.data_ptr(),
-            nb.data_ptr(), rep.data_ptr(), lens.data_ptr(),
-            lab_len.data_ptr(), ebi.data_ptr(), sa.data_ptr(), saf.data_ptr(),
-            batch, tpad, lpad, k_win,
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), batch, tpad, lpad, k_win,
             pc.data_ptr(), f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(err, "classic_bwd_streamed")
-    classic_bwd_streamed.launches += 1
+    _build.check(err, entry)
     return pc, f0, f1, fe
 
 
-classic_bwd_streamed.launches = 0
+# ---------------------------------------------------------------------------
+# kernel B13: the half-stream scheme's beta scan
+# ---------------------------------------------------------------------------
+
+
+def _classic_rebuild_plain(blank, a1, a0w, lens, k_win: int):
+    """The residual pack ``sa`` of mode resid from that of mode resid1: each
+    window's ``a0`` rebuilt from its first step with the forward's own
+    ``a0' = (a0 + a1) * blank``."""
+    batch, tpad, lpad = a1.shape
+    sa = torch.zeros((batch, tpad, 2, lpad), dtype=torch.float32, device=a1.device)
+    sa[:, :, 1] = a1
+    lens_c = lens.to(torch.int64)[:, None]
+    max_len = int(lens.max()) if batch else 0
+    for w in range(-(-max_len // k_win)):
+        a0 = a0w[:, w]
+        for t in range(w * k_win, min((w + 1) * k_win, max_len)):
+            sa[:, t, 0] = torch.where(t < lens_c, a0, torch.zeros_like(a0))
+            a0 = (a0 + a1[:, t]) * blank[:, t, None]
+    return sa
+
+
+def classic_bwd_half_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w,
+                           k_win: int):
+    """Plain version of ``classic_bwd_half``: the streamed beta scan over the
+    residuals that the half-stream pack rebuilds to."""
+    sa = _classic_rebuild_plain(blank, a1, a0w, lens, k_win)
+    return _classic_beta_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
+                               k_win)
+
+
+def classic_bwd_half(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w,
+                     k_win: int):
+    """Beta scan over the half-stream pack of ``classic_fwd`` mode resid1
+    (``a1`` [B, Tp, L], ``saf`` and ``a0w`` [B, Tp/K, L]): ``(pc [B, Tp, L],
+    b0, b1, be)``, those of ``classic_bwd_streamed`` on mode resid's pack
+    bit for bit.
+
+    CUDA tensors launch csrc/classic_bwd_half.cu; CPU tensors run
+    :func:`classic_bwd_half_plain`."""
+    if dcu.device.type == "cpu":
+        return classic_bwd_half_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1,
+                                      saf, a0w, k_win)
+    if dcu.device.type != "cuda":
+        raise ValueError(
+            f"classic_bwd_half runs on CUDA or CPU tensors, got {dcu.device}")
+    batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
+    check_tensor(a1, (batch, tpad, lpad), torch.float32, "a1", dev)
+    check_tensor(a0w, (batch, tpad // k_win, lpad), torch.float32, "a0w", dev)
+    args = (blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w)
+    out = _launch_beta("classic_bwd_half", "ctc_classic_bwd_half", args, k_win)
+    classic_bwd_half.launches += 1
+    return out
+
+
+classic_bwd_half.launches = 0
 
 
 def _classic_reexpand_plain(blank, dcu, lm, nb, rep, lens, bd0, bd1, bde, k_win: int):
@@ -573,19 +681,9 @@ def classic_bwd(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
                                  bd0, bd1, bde, k_win, init)
     if dcu.device.type != "cuda":
         raise ValueError(f"classic_bwd runs on CUDA or CPU tensors, got {dcu.device}")
-    from tf_seq2seq_losses_tpu_torch.ops import _build
-
-    batch, tpad, lpad = dcu.shape
-    dev = dcu.device
-    if tpad % k_win:
-        raise ValueError(f"padded T {tpad} is not a multiple of the window {k_win}")
+    batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     f32 = torch.float32
     n_w = tpad // k_win
-    check_tensor(blank, (batch, tpad), f32, "blank", dev)
-    check_tensor(dcu, (batch, tpad, lpad), f32, "dcu", dev)
-    for name, t in (("lm", lm), ("nb", nb), ("rep", rep)):
-        check_tensor(t, (batch, lpad), f32, name, dev)
-    check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
     check_tensor(ebi, (batch,), f32, "ebi", dev)
     check_tensor(bd0, (n_w, batch, lpad), f32, "bd0", dev)
@@ -631,6 +729,37 @@ class StreamPack(NamedTuple):
     sa: torch.Tensor
     saf: torch.Tensor
     loss: torch.Tensor
+
+
+class HalfPack(NamedTuple):
+    """Training forward's pack of the half-stream scheme (``half_stream``,
+    one chunk): the prepared kernel inputs, the open mantissas ``a1`` of
+    every step, the window frames ``saf`` and the closed mantissas ``a0w``
+    at each window's first step (``classic_fwd`` mode resid1), and the
+    forward's loss."""
+
+    inputs: tuple
+    a1: torch.Tensor
+    saf: torch.Tensor
+    a0w: torch.Tensor
+    loss: torch.Tensor
+
+
+def streamed(pack) -> bool:
+    """Whether ``pack`` is of a streamed scheme (one chunk; the acts come
+    from one beta scan over residuals)."""
+    return isinstance(pack, (StreamPack, HalfPack))
+
+
+def streams_residuals(ctx: CtcContext, n_chunks: int, kernels) -> bool:
+    """Whether a training forward takes a streamed scheme:
+    ``stream_residuals``, a time axis of one chunk, and ``kernels`` (keys of
+    ``_build.SMEM_BYTES``) whose shared memory holds the label's lanes.
+    Otherwise it takes the residual-free scheme, whose kernels hold more."""
+    if not (get_config().stream_residuals and n_chunks == 1):
+        return False
+    _, lpad, k_win = geometry(ctx)
+    return _build.fits(kernels, lpad, k_win, ctx.logproba.device)
 
 
 class ChunkPack(NamedTuple):
@@ -703,22 +832,26 @@ def classic_loss_fast(ctx: CtcContext) -> torch.Tensor:
 
 
 def classic_loss_and_pack(ctx: CtcContext):
-    """Training forward: ``(fast loss, pack)``.  One chunk with
-    ``stream_residuals``: kernel B2, and a :class:`StreamPack` (the port's
+    """Training forward: ``(fast loss, pack)``.  The streamed scheme where
+    :func:`streams_residuals` holds: kernel B2 and a :class:`StreamPack` (the port's
     own residual layout, which keeps the prepared transitions: ``dcu`` is
-    half the size of ``sa``).  Otherwise the residual-free scheme: kernel
-    B1 in mode bound on one chunk, else in mode final per chunk, and a
-    :class:`ChunkPack`."""
+    half the size of ``sa``), or with ``half_stream`` kernel B13's forward
+    (mode resid1) and a :class:`HalfPack`.  Otherwise the residual-free
+    scheme: kernel B1 in mode bound on one chunk, else in mode final per
+    chunk, and a :class:`ChunkPack`."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0:
         return classic_mod.loss(ctx, classic_mod.alpha(ctx)), None
     n_chunks, chunk_t = chunk_plan(ctx)
-    if get_config().stream_residuals and n_chunks == 1:
+    half = get_config().half_stream
+    scan = "classic_bwd_half" if half else "classic_bwd"
+    if streams_residuals(ctx, n_chunks, ("classic_fwd", scan)):
         inputs = kernel_inputs(ctx)
         blank, dcu, lm, nb, rep, lens, lab_len, k_win = inputs
-        sa, saf, f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, "resid")
+        mode = "resid1" if half else "resid"
+        *resid, f0, f1, fe = classic_fwd(blank, dcu, lm, nb, rep, lens, k_win, mode)
         loss = pick_loss(f0 + f1, fe, lab_len)
-        return loss, StreamPack(inputs, sa, saf, loss)
+        return loss, (HalfPack if half else StreamPack)(inputs, *resid, loss)
     lpad, k_win, lm, nb, rep, lens, lab_len = _lane_inputs(ctx)
     if n_chunks == 1:
         blank, dcu, lens_c = _chunk(ctx, 0, chunk_t, lpad, lens)
@@ -737,18 +870,23 @@ def classic_loss_and_pack(ctx: CtcContext):
     return loss, ChunkPack(carries, None, loss)
 
 
-def grad_direct_assemble(ctx: CtcContext, sums, loss_for_mask, scale):
-    """Probability-space gradient from the token-scattered acts:
-    ``-grad = scale * sums`` for non-blank tokens, the blank column from
-    the posterior identity ``sum_v -grad = 1``; infeasible samples and steps
-    past logit_length are exactly zero."""
-    num_tokens = ctx.logproba.shape[2]
+def neg_posterior(sums, scale, blank_index):
+    """``-grad`` in probability space from the token sums of the acts:
+    ``scale * sums`` for the non-blank tokens, the blank column from the
+    posterior identity ``sum_v -grad = 1`` (clamped at 0 under rounding)."""
     neg_nb = scale[:, None, None] * sums
-    token_is_blank = torch.arange(num_tokens, device=sums.device) == ctx.blank_index
+    token_is_blank = torch.arange(sums.shape[2], device=sums.device) == blank_index
     zero = torch.zeros_like(neg_nb)
     s = torch.sum(torch.where(token_is_blank, zero, neg_nb), dim=2, keepdim=True)
-    neg = torch.where(token_is_blank, torch.clamp(1.0 - s, min=0.0), neg_nb)
-    grad = -neg
+    return torch.where(token_is_blank, torch.clamp(1.0 - s, min=0.0), neg_nb)
+
+
+def grad_direct_assemble(ctx: CtcContext, sums, loss_for_mask, scale):
+    """Probability-space gradient ``-neg_posterior`` from the
+    token-scattered acts; infeasible samples and steps past logit_length are
+    exactly zero."""
+    grad = -neg_posterior(sums, scale, ctx.blank_index)
+    zero = torch.zeros_like(grad)
     grad = torch.where(torch.isposinf(loss_for_mask)[:, None, None], zero, grad)
     return torch.where(ctx.logit_length_mask[:, :, None], grad, zero)
 
@@ -763,10 +901,11 @@ def _empty_gradient(ctx: CtcContext, loss, pure_loss):
 
 def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     """Block-float gradient w.r.t. log-probabilities: ``(grad [B, T, V],
-    fast loss [B])``, by the scheme of the pack (a :class:`StreamPack`:
-    kernel B3; a :class:`ChunkPack`: kernel B10 per chunk, last to first),
-    then the act scatter and the assembly.  The fast loss comes from the
-    beta carry and is the guard's flush signal."""
+    fast loss [B])``, by the scheme of the pack (a :class:`StreamPack` or
+    :class:`HalfPack`: :func:`classic_streamed_acts`; a :class:`ChunkPack`:
+    kernel B10 per chunk, last to first), then the act scatter and the
+    assembly.  The fast loss comes from the beta carry and is the guard's
+    flush signal."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0:
         return _empty_gradient(
@@ -774,14 +913,8 @@ def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
         )
     if pack is None:
         _, pack = classic_loss_and_pack(ctx)
-    if isinstance(pack, StreamPack):
-        blank, dcu, lm, nb, rep, lens, lab_len, k_win = pack.inputs
-        ebi = ebi_from_loss(pack.loss)
-        pc, f0, _f1, fe = classic_bwd_streamed(
-            blank, dcu, lm, nb, rep, lens, lab_len, ebi, pack.sa, pack.saf, k_win
-        )
-        sums = act_scatter(ctx, pc[:, :num_t], lm)
-        return gradient_from_beta_carry(ctx, sums, pack.loss, ebi, f0[:, 0], fe[:, 0])
+    if streamed(pack):
+        return streamed_gradient(ctx, *classic_streamed_acts(ctx, pack))
     n_chunks, chunk_t = chunk_plan(ctx)
     lpad, k_win, lm, nb, rep, lens, lab_len = _lane_inputs(ctx)
     ebi = ebi_from_loss(pack.loss)
@@ -840,10 +973,10 @@ def beta_carry_loss(fwd_loss, beta0, beta0_e, n_steps):
     return torch.where(damaged, torch.full_like(loss, float("inf")), loss)
 
 
-def gradient_from_beta_carry(ctx: CtcContext, sums, fwd_loss, ebi, beta0, beta0_e):
-    """``(grad [B, T, V], fast loss [B])`` from the token sums of a beta
-    scan's acts and the mantissa and exponent of its final carry at lane 0.
-    The fast loss (:func:`beta_carry_loss`) is the guard's flush signal."""
+def beta_carry_scale(ctx: CtcContext, fwd_loss, ebi, beta0, beta0_e):
+    """``(fast loss [B], act scale [B])`` from the mantissa and exponent of
+    a beta scan's final carry at lane 0.  The fast loss
+    (:func:`beta_carry_loss`) is the guard's flush signal."""
     beta0_e = beta0_e.to(torch.float32)
     fast_loss = beta_carry_loss(fwd_loss, beta0, beta0_e, ctx.logit_length)
     # The acts were scaled by 2^-ebi; the posterior scale is
@@ -853,4 +986,124 @@ def gradient_from_beta_carry(ctx: CtcContext, sums, fwd_loss, ebi, beta0, beta0_
     scale = torch.where(
         torch.isfinite(fast_loss), torch.exp2(ebi - beta0_e) / beta0, torch.exp2(ebi)
     )
+    return fast_loss, scale
+
+
+def gradient_from_beta_carry(ctx: CtcContext, sums, fwd_loss, ebi, beta0, beta0_e):
+    """``(grad [B, T, V], fast loss [B])`` from the token sums of a beta
+    scan's acts and its final carry at lane 0 (:func:`beta_carry_scale`)."""
+    fast_loss, scale = beta_carry_scale(ctx, fwd_loss, ebi, beta0, beta0_e)
     return grad_direct_assemble(ctx, sums, fast_loss, scale), fast_loss
+
+
+# ---------------------------------------------------------------------------
+# the streamed scheme's acts and assembly steps; kernel B12
+# ---------------------------------------------------------------------------
+
+
+def classic_streamed_acts(ctx: CtcContext, pack):
+    """The acts step of the streamed scheme: ``(acts [B, Tp, L], lm, fast
+    loss [B], act scale [B])`` from kernel B3 (a :class:`StreamPack`) or B13
+    (a :class:`HalfPack`)."""
+    blank, dcu, lm, nb, rep, lens, lab_len, k_win = pack.inputs
+    ebi = ebi_from_loss(pack.loss)
+    if isinstance(pack, HalfPack):
+        pc, f0, _f1, fe = classic_bwd_half(blank, dcu, lm, nb, rep, lens, lab_len, ebi,
+                                           pack.a1, pack.saf, pack.a0w, k_win)
+    else:
+        pc, f0, _f1, fe = classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len,
+                                               ebi, pack.sa, pack.saf, k_win)
+    return (pc, lm, *beta_carry_scale(ctx, pack.loss, ebi, f0[:, 0], fe[:, 0]))
+
+
+def streamed_gradient(ctx: CtcContext, acts, lm, fast_loss, scale):
+    """The assembly step of the streamed scheme, unfused: ``(grad [B, T, V],
+    fast loss)`` through the act scatter."""
+    sums = act_scatter(ctx, acts[:, :ctx.logproba.shape[1]], lm)
+    return grad_direct_assemble(ctx, sums, fast_loss, scale), fast_loss
+
+
+def fused_epilogue_ok(ctx: CtcContext, pack) -> bool:
+    """Whether the logits cotangent takes the fused epilogue (kernel B12):
+    ``fused_epilogue`` on, a pack of the streamed scheme, and a B12 whose
+    shared memory holds the label's lanes and the vocabulary."""
+    if not (get_config().fused_epilogue and streamed(pack)):
+        return False
+    lpad = geometry(ctx)[1]
+    return _build.fits(("fused_epilogue",), lpad, ctx.logproba.shape[2],
+                       ctx.logproba.device)
+
+
+def streamed_dlogits(ctx: CtcContext, d_loss, acts, lm, fast_loss, scale):
+    """The assembly step of the streamed scheme fused with the log-softmax
+    cotangent (kernel B12): ``(d_logits [B, T, V], fast loss)``.  Rows
+    whose fast loss is not finite are exactly 0, as in the JAX package's
+    fused epilogue (the guard recomputes the flushed ones)."""
+    num_t = ctx.logproba.shape[1]
+    lens = torch.where(torch.isfinite(fast_loss), ctx.logit_length.clamp(0, num_t),
+                       torch.zeros_like(ctx.logit_length)).to(torch.int32)
+    out = fused_dlogits(acts, lane_tokens(ctx, acts.shape[2]), lm, scale,
+                        d_loss.to(torch.float32).contiguous(), lens,
+                        ctx.logproba.contiguous(), ctx.blank_index)
+    return out, fast_loss
+
+
+def fused_dlogits_plain(acts, labels, lm, scale, d_loss, lens, logproba, blank):
+    """Plain version of ``fused_dlogits``."""
+    batch, num_t, num_tokens = logproba.shape
+    sums = token_sums(acts[:, :num_t], labels, lm, num_tokens)
+    neg = neg_posterior(sums, scale, blank)
+    out = d_loss[:, None, None] * (torch.exp(logproba) - neg)
+    valid = torch.arange(num_t, device=logproba.device)[None, :] < lens[:, None]
+    return torch.where(valid[:, :, None], out, torch.zeros_like(out))
+
+
+def fused_dlogits(acts, labels, lm, scale, d_loss, lens, logproba, blank):
+    """``d_logits [B, T, V]`` from the acts ``[B, Tp, L]`` of a streamed
+    beta scan: per row ``d_loss * (exp(logproba) - neg)``, ``neg`` the
+    :func:`neg_posterior` of the token sums (:func:`token_sums` of the
+    lanes' tokens ``labels`` [B, L] int32 under the mask ``lm``) at the act
+    scale ``scale`` [B]; exactly 0 at ``t >= lens`` [B] int32.  ``blank`` is
+    the blank index (an int or a 0-d tensor).
+
+    CUDA tensors launch csrc/fused_epilogue.cu; CPU tensors run
+    :func:`fused_dlogits_plain`."""
+    if acts.device.type == "cpu":
+        return fused_dlogits_plain(acts, labels, lm, scale, d_loss, lens, logproba,
+                                   blank)
+    if acts.device.type != "cuda":
+        raise ValueError(
+            f"fused_dlogits runs on CUDA or CPU tensors, got {acts.device}")
+    batch, num_t, num_tokens = logproba.shape
+    _, tpad, lpad = acts.shape
+    dev = acts.device
+    f32 = torch.float32
+    if num_t > tpad:
+        raise ValueError(f"acts cover {tpad} steps, fewer than the {num_t} of logproba")
+    if batch > 65535:
+        raise ValueError(f"fused_dlogits takes at most 65535 samples, got {batch}")
+    check_tensor(acts, (batch, tpad, lpad), f32, "acts", dev)
+    check_tensor(labels, (batch, lpad), torch.int32, "labels", dev)
+    check_tensor(lm, (batch, lpad), f32, "lm", dev)
+    for name, t in (("scale", scale), ("d_loss", d_loss)):
+        check_tensor(t, (batch,), f32, name, dev)
+    check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    check_tensor(logproba, (batch, num_t, num_tokens), f32, "logproba", dev)
+    blank_t = torch.as_tensor(blank, device=dev).to(torch.int32).reshape(1)
+    lib = _build.lib("fused_epilogue")
+    _build.check_smem(lib.ctc_fused_epilogue_smem_bytes(lpad, num_tokens),
+                      "fused_dlogits", dev)
+    out = torch.empty((batch, num_t, num_tokens), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ctc_fused_dlogits(
+            acts.data_ptr(), labels.data_ptr(), lm.data_ptr(), scale.data_ptr(),
+            d_loss.data_ptr(), lens.data_ptr(), logproba.data_ptr(), blank_t.data_ptr(),
+            batch, num_t, tpad, lpad, num_tokens, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "fused_dlogits")
+    fused_dlogits.launches += 1
+    return out
+
+
+fused_dlogits.launches = 0

@@ -19,7 +19,9 @@ shares:
 The time axis runs in chunks as on the classic path (see
 ``cuda_lattice.py``): forward-only calls scan them in mode ``"final"``; a
 training step streams residuals on one chunk when ``stream_residuals``
-holds, and otherwise takes the residual-free scheme.  CUDA tensors launch
+holds and B6 and B7 hold the label's lanes, and otherwise takes the
+residual-free scheme.  ``config.half_stream`` does not apply: the carry
+has one state.  CUDA tensors launch
 the kernels; CPU tensors run the plain versions (same window schedule,
 same subnormal rule).  The simplified act is ``pd`` alone: a non-blank
 token is emitted only by a diagonal step, so there is no horizontal ``ph``
@@ -36,13 +38,14 @@ from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     ChunkPack,
     StreamPack,
     _act_factor,
+    scaled_act,
     _empty_gradient,
     _flush_subnormal,
     _open_window,
     _pad_mask,
     _steps,
-    act_scatter,
     alpha_init,
+    beta_carry_scale,
     beta_init,
     carry_pointers,
     check_tensor,
@@ -56,8 +59,9 @@ from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     pick_loss,
     scatter_chunk,
     shift_lanes,
+    streamed_gradient,
+    streams_residuals,
 )
-from tf_seq2seq_losses_tpu_torch.utils.config import get_config
 
 
 def simplified_transitions(ctx: CtcContext, lpad: int, t0: int, span: int):
@@ -227,7 +231,7 @@ def _simplified_beta_plain(blank, dg, lens, lab_len, ebi, sa, saf, k_win: int,
             run = t < lens_c
             arr = shift_lanes(b, -1, 0.0) * s_arr
             dg_t = dg[:, t]
-            p = (sa[:, t] * dg_t) * arr * s_hi * s_lo
+            p = scaled_act(s_hi, s_lo, sa[:, t], dg_t, arr)
             pd[:, t] = torch.where(run, p, torch.zeros_like(p))
             b = torch.where(run, blank[:, t, None] * b + dg_t * arr, b)
     return pd, b, e
@@ -425,7 +429,7 @@ def simplified_loss_and_pack(ctx: CtcContext):
     if batch == 0 or num_t == 0:
         return _pure_loss(ctx), None
     n_chunks, chunk_t = chunk_plan(ctx)
-    if get_config().stream_residuals and n_chunks == 1:
+    if streams_residuals(ctx, n_chunks, ("simplified_fwd", "simplified_bwd")):
         inputs = simplified_kernel_inputs(ctx)
         blank, dg, _lm, lens, lab_len, k_win = inputs
         sa, saf, f, fe = simplified_fwd(blank, dg, lens, k_win, "resid")
@@ -447,6 +451,17 @@ def simplified_loss_and_pack(ctx: CtcContext):
     return loss, ChunkPack(carries, None, loss)
 
 
+def simplified_streamed_acts(ctx: CtcContext, pack):
+    """The acts step of the streamed scheme (kernel B7): ``(acts [B, Tp,
+    L], lm, fast loss [B], act scale [B])``, as
+    ``cuda_lattice.classic_streamed_acts`` gives them."""
+    blank, dg, lm, lens, lab_len, k_win = pack.inputs
+    ebi = ebi_from_loss(pack.loss)
+    pd, f, fe = simplified_bwd_streamed(blank, dg, lens, lab_len, ebi, pack.sa,
+                                        pack.saf, k_win)
+    return (pd, lm, *beta_carry_scale(ctx, pack.loss, ebi, f[:, 0], fe[:, 0]))
+
+
 def simplified_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     """Block-float gradient w.r.t. log-probabilities: ``(grad [B, T, V],
     fast loss [B])``, by the scheme of the pack (kernel B7, or kernel B11
@@ -457,12 +472,7 @@ def simplified_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     if pack is None:
         _, pack = simplified_loss_and_pack(ctx)
     if isinstance(pack, StreamPack):
-        blank, dg, lm, lens, lab_len, k_win = pack.inputs
-        ebi = ebi_from_loss(pack.loss)
-        pd, f, fe = simplified_bwd_streamed(blank, dg, lens, lab_len, ebi, pack.sa,
-                                            pack.saf, k_win)
-        sums = act_scatter(ctx, pd[:, :num_t], lm)
-        return gradient_from_beta_carry(ctx, sums, pack.loss, ebi, f[:, 0], fe[:, 0])
+        return streamed_gradient(ctx, *simplified_streamed_acts(ctx, pack))
     n_chunks, chunk_t = chunk_plan(ctx)
     lpad, k_win, lm, lens, lab_len = _lane_inputs(ctx)
     ebi = ebi_from_loss(pack.loss)

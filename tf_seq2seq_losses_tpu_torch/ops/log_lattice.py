@@ -12,14 +12,16 @@ Counterpart of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
 
 Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
 kernels; CPU tensors run the plain versions.  These kernels serve a time
-axis of one chunk only (a rare repair needs no chunked scan): beyond
-``config.chunk_time`` the repair takes the pure path.
+axis of one chunk only (a rare repair needs no chunked scan), and labels
+whose lanes their shared memory holds: beyond either the repair takes the
+pure path (:func:`fits_log_fallback`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
 from tf_seq2seq_losses_tpu_torch.ops import core as core_mod
 from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
@@ -65,9 +67,19 @@ def _log_gather_level(ctx: CtcContext, tpad: int, lpad: int):
     return blank_l, dc_l, pt_l
 
 
-def fits_log_fallback(ctx: CtcContext) -> bool:
-    """The log kernels run on one chunk: window-padded T within chunk_time."""
-    return ctx.logproba.shape[1] > 0 and chunk_plan(ctx)[0] == 1
+_LOG_KERNELS = {"classic": ("classic_log_fwd", "classic_log_bwd"),
+                "simplified": ("simplified_log_fwd", "simplified_log_bwd")}
+
+
+def fits_log_fallback(ctx: CtcContext, topology: str = "classic") -> bool:
+    """The log kernels of ``topology`` repair ``ctx``: its window-padded T
+    is one chunk (within chunk_time), and both kernels' shared memory holds
+    its label's lanes (the loss and the gradient of a repaired row come
+    from one path)."""
+    if ctx.logproba.shape[1] == 0 or chunk_plan(ctx)[0] != 1:
+        return False
+    lpad = geometry(ctx)[1]
+    return _build.fits(_LOG_KERNELS[topology], lpad, 0, ctx.logproba.device)
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +128,6 @@ def classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
         return classic_log_fwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, mode)
     if dc_l.device.type != "cuda":
         raise ValueError(f"classic_log_fwd runs on CUDA or CPU tensors, got {dc_l.device}")
-    from tf_seq2seq_losses_tpu_torch.ops import _build
-
     batch, tpad, lpad = dc_l.shape
     dev = dc_l.device
     f32 = torch.float32
@@ -203,8 +213,6 @@ def classic_log_bwd(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
         )
     if dc_l.device.type != "cuda":
         raise ValueError(f"classic_log_bwd runs on CUDA or CPU tensors, got {dc_l.device}")
-    from tf_seq2seq_losses_tpu_torch.ops import _build
-
     batch, tpad, lpad = dc_l.shape
     dev = dc_l.device
     f32 = torch.float32
@@ -387,8 +395,6 @@ def simplified_log_fwd(blank_l, dg_l, lens, mode: str):
         raise ValueError(
             f"simplified_log_fwd runs on CUDA or CPU tensors, got {dg_l.device}"
         )
-    from tf_seq2seq_losses_tpu_torch.ops import _build
-
     batch, tpad, lpad = dg_l.shape
     dev = dg_l.device
     f32 = torch.float32
@@ -451,8 +457,6 @@ def simplified_log_bwd(blank_l, dg_l, lens, lab_len, loss, sa):
         raise ValueError(
             f"simplified_log_bwd runs on CUDA or CPU tensors, got {dg_l.device}"
         )
-    from tf_seq2seq_losses_tpu_torch.ops import _build
-
     batch, tpad, lpad = dg_l.shape
     dev = dg_l.device
     f32 = torch.float32
@@ -499,7 +503,7 @@ def _pick_single_log_loss(f, label_length):
 def simplified_loss_exact(ctx: CtcContext) -> torch.Tensor:
     """Exact simplified loss through the log-space kernel B8 (mode final)."""
     batch, num_t, _ = ctx.logproba.shape
-    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
+    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx, "simplified"):
         return simplified_mod.loss(ctx, simplified_mod.alpha(ctx))
     blank_l, dg_l, _lm, lens, lab_len = simplified_log_inputs(ctx)
     f = simplified_log_fwd(blank_l, dg_l, lens, "final")
@@ -510,7 +514,7 @@ def simplified_loss_and_gradient_log_exact(ctx: CtcContext):
     """``(exact loss, exact log(-grad))`` through B8 (mode resid) and B9:
     one alpha scan yields both."""
     batch, num_t, _ = ctx.logproba.shape
-    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
+    if batch == 0 or num_t == 0 or not fits_log_fallback(ctx, "simplified"):
         return _pure_loss_and_gradient_log(simplified_mod, ctx)
     blank_l, dg_l, lm, lens, lab_len = simplified_log_inputs(ctx)
     sa, f = simplified_log_fwd(blank_l, dg_l, lens, "resid")

@@ -14,7 +14,8 @@ control-flow structure that served it there:
 * ``flushed = isposinf(fast_loss) & feasible``;
 * every flushed row is recomputed, in rounds of ``repair_bucket2`` rows,
   through the log-space kernels (``log_fallback``; a time axis of one
-  chunk only) or the pure path, and scattered back;
+  chunk and a label whose lanes they hold) or the pure path, and
+  scattered back;
 * clean rows keep their fast values bit for bit;
 * NaN inputs flow through (NaN is not +inf).
 
@@ -104,15 +105,18 @@ class Topology:
     repairs the kernel path's flushed rows.
 
     ``pure`` is the pure log-space module (``alpha``, ``beta``, ``gamma``,
-    ``combine``, ``loss``); ``loss_fast``, ``loss_and_pack`` and
-    ``gradient_with_loss`` are the block-float kernel path;
+    ``combine``, ``loss``); ``loss_fast``, ``loss_and_pack``,
+    ``gradient_with_loss`` and ``streamed_acts`` (the acts step of the
+    streamed scheme, which the fused epilogue B12 assembles) are the
+    block-float kernel path;
     ``loss_exact`` and ``loss_and_gradient_log_exact`` the exact log-space
     kernels that repair it; ``feasible`` gives the rows whose loss is
     finite by their lengths.
     """
 
     def __init__(self, name, pure, feasible, loss_fast, loss_and_pack,
-                 gradient_with_loss, loss_exact, loss_and_gradient_log_exact):
+                 gradient_with_loss, streamed_acts, loss_exact,
+                 loss_and_gradient_log_exact):
         self.name = name
         self.alpha = pure.alpha
         self.beta = pure.beta
@@ -123,6 +127,7 @@ class Topology:
         self._loss_fast = loss_fast
         self._loss_and_pack = loss_and_pack
         self._gradient_with_loss = gradient_with_loss
+        self._streamed_acts = streamed_acts
         self._loss_exact = loss_exact
         self._loss_and_gradient_log_exact = loss_and_gradient_log_exact
 
@@ -168,7 +173,11 @@ class Topology:
 
     def dlogits_fast(self, ctx: CtcContext, d_loss, pack=None):
         """Logits cotangent ``d_loss * (grad + softmax * valid)`` on the
-        kernel path (the backward kernel), guarded at the d_logits level."""
+        kernel path (the backward kernel), guarded at the d_logits level.
+        With ``fused_epilogue`` and a pack of the streamed scheme, kernel
+        B12 assembles it from the acts in one pass
+        (``cuda_lattice.fused_epilogue_ok``); the rows the guard repairs
+        are composed unfused either way."""
 
         def pure(c, dl):
             loss = self.pure_loss(c)
@@ -178,8 +187,12 @@ class Topology:
             loss, grad_log = self._loss_and_gradient_log_exact(c)
             return compose_dlogits(c, -torch.exp(grad_log), loss, dl)
 
-        grad, fast_loss = self._gradient_with_loss(ctx, None, pack)
-        fast = compose_dlogits(ctx, grad, fast_loss, d_loss)
+        if _kernels.fused_epilogue_ok(ctx, pack):
+            fast, fast_loss = _kernels.streamed_dlogits(
+                ctx, d_loss, *self._streamed_acts(ctx, pack))
+        else:
+            grad, fast_loss = self._gradient_with_loss(ctx, None, pack)
+            fast = compose_dlogits(ctx, grad, fast_loss, d_loss)
         return _guarded(
             fast, exact, pure, fast_loss, self.feasible(ctx), ctx, aux=d_loss
         )
@@ -190,6 +203,7 @@ CLASSIC = Topology(
     loss_fast=_kernels.classic_loss_fast,
     loss_and_pack=_kernels.classic_loss_and_pack,
     gradient_with_loss=_kernels.classic_gradient_with_loss,
+    streamed_acts=_kernels.classic_streamed_acts,
     loss_exact=_log.classic_loss_exact,
     loss_and_gradient_log_exact=_log.classic_loss_and_gradient_log_exact,
 )
@@ -198,6 +212,7 @@ SIMPLIFIED = Topology(
     loss_fast=_skernels.simplified_loss_fast,
     loss_and_pack=_skernels.simplified_loss_and_pack,
     gradient_with_loss=_skernels.simplified_gradient_with_loss,
+    streamed_acts=_skernels.simplified_streamed_acts,
     loss_exact=_log.simplified_loss_exact,
     loss_and_gradient_log_exact=_log.simplified_loss_and_gradient_log_exact,
 )

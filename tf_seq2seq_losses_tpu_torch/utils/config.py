@@ -29,9 +29,22 @@ class KernelConfig:
     one kernel launch scans; a longer axis runs in equal chunks, each a
     whole number of windows, chaining the lattice carry from chunk to chunk.
     ``stream_residuals``: the training forward streams per-step alpha
-    residuals ``[B, T, L]`` for the backward (single-chunk geometry only);
-    off, or beyond one chunk, the backward re-expands alpha from per-window
+    residuals ``[B, T, L]`` for the backward (single-chunk geometry only,
+    and only where the streamed kernels' shared memory holds the label's
+    lanes); otherwise the backward re-expands alpha from per-window
     boundary carries (the residual-free scheme).
+    ``half_stream``: the classic topology's streamed one-chunk scheme
+    keeps only the open-state mantissas ``a1`` per step, with the closed
+    state ``a0`` at each window's first step; the backward rebuilds ``a0``
+    with ``a0' = (a0 + a1) * blank``, as the forward computed it, so the
+    gradient is the fully streamed one's bit for bit.  The simplified carry
+    has one state and nothing to halve: it ignores this knob, as the
+    residual-free and chunked schemes do.
+    ``fused_epilogue``: on the streamed one-chunk scheme of either
+    topology, the act scatter, the gradient assembly and the log-softmax
+    cotangent run as one kernel that writes ``d_logits``.  The JAX gate's
+    ``num_tokens % 128 == 0`` clause was a TPU lane rule; the CUDA kernel
+    takes any vocabulary that its shared memory holds.
     ``guard``: recompute feasible rows whose fast loss flushed to +inf.
     ``repair_bucket2``: rows per exact repair round of the guard.
     ``log_fallback``: repair through the log-space kernels (else through
@@ -42,6 +55,8 @@ class KernelConfig:
     window: int = 8
     chunk_time: int = 512
     stream_residuals: bool = True
+    half_stream: bool = False
+    fused_epilogue: bool = False
     guard: bool = True
     repair_bucket2: int = 32
     log_fallback: bool = True
@@ -51,7 +66,8 @@ class KernelConfig:
             raise ValueError(
                 f"use_kernels must be None, True or False, got {self.use_kernels!r}"
             )
-        for name in ("stream_residuals", "guard", "log_fallback"):
+        for name in ("stream_residuals", "half_stream", "fused_epilogue", "guard",
+                     "log_fallback"):
             if not isinstance(getattr(self, name), bool):
                 raise ValueError(
                     f"{name} must be a bool, got {getattr(self, name)!r}"
@@ -70,8 +86,6 @@ class KernelConfig:
 # Knobs of the JAX KernelConfig whose code paths the port does not have yet:
 # field -> (the default this port implements, ROADMAP item).
 _UNPORTED = {
-    "half_stream": (False, "B13 (half-stream scheme)"),
-    "fused_epilogue": (False, "B12 (fused d_logits epilogue)"),
     "guard_struct": ("while", "A7 (cond-lattice guard structure)"),
 }
 
@@ -114,8 +128,9 @@ def config_from_reference(fields: dict) -> KernelConfig:
     The loss has no learned parameters; its behaviour is fixed by this
     config, so carrying it across is what reproduces the reference run.
 
-    Mapped: ``window``, ``chunk_time``, ``stream_residuals``, ``guard``,
-    ``repair_bucket2`` and ``log_fallback``; ``use_pallas`` is dropped,
+    Mapped: ``window``, ``chunk_time``, ``stream_residuals``,
+    ``half_stream``, ``fused_epilogue``, ``guard``, ``repair_bucket2`` and
+    ``log_fallback``; ``use_pallas`` is dropped,
     since the port picks its path from the tensor's device (see
     ``KernelConfig.use_kernels``).
 
@@ -127,8 +142,7 @@ def config_from_reference(fields: dict) -> KernelConfig:
     always repairs every flushed row in rounds of ``repair_bucket2``).
 
     Raises ``NotImplementedError`` for an unported knob off its default
-    (``half_stream=True``, ``fused_epilogue=True``,
-    ``guard_struct="cond"``) and ``ValueError`` for an unknown field or
+    (``guard_struct="cond"``) and ``ValueError`` for an unknown field or
     enum value.
     """
     known = set(_UNPORTED) | set(_DROPPED) | {
@@ -140,8 +154,8 @@ def config_from_reference(fields: dict) -> KernelConfig:
     _check_unported(fields)
     kw = {
         name: fields[name]
-        for name in ("window", "chunk_time", "stream_residuals", "guard",
-                     "repair_bucket2", "log_fallback")
+        for name in ("window", "chunk_time", "stream_residuals", "half_stream",
+                     "fused_epilogue", "guard", "repair_bucket2", "log_fallback")
         if name in fields
     }
     return KernelConfig(**kw)
