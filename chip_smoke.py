@@ -22,9 +22,14 @@ simplified):
    B3's acts and beta carry, bit for bit.  B12 runs at batch 8, blank 3,
    V = 32, 128 and 1000 (atol 1e-6).  The residual-free modes (B10, B11:
    forward modes bound and final from a carry, backward from a beta carry)
-   run at the headline shape and chunk by chunk over T=1500, labels
-   [8, 600], in 3 and in 24 chunks, each chunk from the carries the
-   previous chunk's kernels left;
+   run at the headline shape, at each batch-8 geometry above and at window
+   3 (where a window's blank row is not 16-byte aligned), and chunk by
+   chunk over T=1500, labels [8, 600], in 3 and in 24 chunks, each chunk
+   from the carries the previous chunk's kernels left; their backwards
+   must give the plain version's acts and beta carry bit for bit, also
+   from random carries with every lane live, at a label for every
+   lanes-per-thread instantiation (``rf_lane_cases``: up to the widest
+   label at window 8, then at window 1) and at window 3;
 3. the main path, with TF32 allowed for float32 matrix products as
    training scripts on an H100 commonly set it: ``classic_ctc_loss`` (then
    ``simplified_ctc_loss``) forward plus ``.backward()``, then a
@@ -606,15 +611,95 @@ def compare_rf_kernels(ctx, topology):
         args = ops.chunk(c, chunk_t)
         bounds = ops.fwd(*args, k_win, "bound", **cl.init_kw(carries[c]))[:s + 1]
         b_args = (*args, ops.lab_len, ebi, *bounds, k_win, beta)
-        b_k = ops.bwd(*b_args)
-        b_p = ops.bwd_plain(*b_args)
-        agree(b_k[0], b_p[0], 0.0, 1e-5, f"{bwd_name} acts vs plain, chunk {c}")
-        err = max(max_err(b_k[0], b_p[0]),
-                  agree_carry(b_k[1:], b_p[1:], f"{bwd_name} beta carry, chunk {c}"))
+        err, b_k = same_bwd(ops, b_args, f"{bwd_name}, chunk {c}")
         errs[bwd_name] = max(errs[bwd_name], err)
         beta = b_k[1:]
         last = dict(fwd=(*args, k_win), bwd=b_args)
     return errs, last
+
+
+def same_bwd(ops, b_args, what):
+    """Run a residual-free backward and its plain version on ``b_args`` and
+    require the acts and the beta carry bit for bit; returns the largest
+    error (0.0) and the kernel's outputs."""
+    import torch
+
+    b_k, b_p = ops.bwd(*b_args), ops.bwd_plain(*b_args)
+    check(all(torch.equal(a, b) for a, b in zip(b_k, b_p)),
+          f"{what}: acts and beta carry bit for bit the plain version's "
+          f"(max abs err {max(max_err(a, b) for a, b in zip(b_k, b_p)):.3g})")
+    return max(max_err(a, b) for a, b in zip(b_k, b_p)), b_k
+
+
+def random_carry(torch, gen, states, batch, lpad, dev):
+    """A block-float carry with every lane live: mantissas in [0.5, 1), one
+    in ten zero, exponents in [-30, 30)."""
+    def mant():
+        m = 0.5 + 0.5 * torch.rand((batch, lpad), generator=gen)
+        return torch.where(torch.rand((batch, lpad), generator=gen) < 0.1, 0.0, m)
+
+    e = torch.randint(-30, 30, (batch, lpad), generator=gen, dtype=torch.int32)
+    return tuple(t.to(dev) for t in (*[mant() for _ in range(states)], e))
+
+
+def rf_lane_cases(dev) -> list:
+    """``[(window, label width)]``: a label for every lanes-per-thread
+    instantiation of B10 and B11 (512 threads, lanes t + j * threads): at
+    window 8 up to the widest label it holds, then at window 1, where the
+    lanes reach their most.  Each instantiation's widest lane count is
+    taken, so the widest label at windows 8 and 1 is among them."""
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    cases = {}
+    for topology, lib in (("classic", "classic_bwd_rf"), ("simplified",
+                                                            "simplified_bwd_rf")):
+        done, out = 0, []
+        for window in (8, 1):
+            widest = max(lp for lp in range(32, 8192, 32)
+                         if _build.fits((lib,), lp, window, dev))
+            for lpt in range(done + 1, -(-widest // 512) + 1):
+                out.append((window, min(512 * lpt, widest) - 1))
+            done = max(done, -(-widest // 512))
+        cases[topology] = out
+    return cases
+
+
+def compare_rf_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
+    """Hold B10 and B11 against their plain versions bit for bit with every
+    lane live, at each ``(window, label width)`` of ``cases[topology]``:
+    labels of their full width (``label_length`` the width), the alpha
+    boundaries of B1/B6 mode bound from a random carry, and a random beta
+    carry entering the span, as a chunk of a long utterance would see them.
+    Returns the largest error of each backward (0.0)."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    gen = torch.Generator().manual_seed(seed)
+    errs = {}
+    for topology, widths in cases.items():
+        for window, width in widths:
+            labels, logits, _, logit_length = make_inputs(
+                torch, seed + width, dev, batch=batch, label_width=width, max_t=max_t,
+                infeasible=False)
+            full = torch.full_like(logit_length, width)
+            with config_override(window=window):
+                ctx = core.make_context(labels, logit_to_logproba(logits, 2), full,
+                                        logit_length, 0)
+                ops = rf_ops(ctx, topology)
+                n_chunks, chunk_t = cl.chunk_plan(ctx)
+                args = ops.chunk(0, n_chunks * chunk_t)
+                lpad = args[1].shape[2]
+                alpha = random_carry(torch, gen, ops.states, batch, lpad, dev)
+                bounds = ops.fwd(*args, window, "bound", init=alpha)[:ops.states + 1]
+                beta = random_carry(torch, gen, ops.states, batch, lpad, dev)
+                ebi = -torch.randint(0, 60, (batch,), generator=gen).float().to(dev)
+                b_args = (*args, ops.lab_len, ebi, *bounds, window, beta)
+                err, _ = same_bwd(ops, b_args, f"{topology}_bwd at window {window}, "
+                                  f"{lpad} lanes, from random carries")
+            errs[f"{topology}_bwd"] = max(errs.get(f"{topology}_bwd", 0.0), err)
+    return errs
 
 
 def kernel_counters() -> dict:
@@ -1237,14 +1322,26 @@ def run(seed: int, dev) -> dict:
     extra = {}
     wide = make_inputs(torch, seed + 2, dev, batch=8, label_width=600)
     extra["labels [8, 600]"] = compare_all(
-        core.make_context(wide[0], logit_to_logproba(wide[1], 2), *wide[2:], 0))[0]
+        core.make_context(wide[0], logit_to_logproba(wide[1], 2), *wide[2:], 0),
+        rf=True)[0]
     small_ctx = core.make_context(small[0], logit_to_logproba(small[1], 2), *small[2:], 0)
-    for window in (1, 16):
+    # window 3: the blank row of a window is not 16-byte aligned
+    for window in (1, 3, 16):
         with config_override(window=window):
-            extra[f"window {window}"] = compare_all(small_ctx)[0]
+            extra[f"window {window}"] = compare_all(small_ctx, rf=True)[0]
     rep_labels = 1 + small[0] % 2
     extra["blank 3, labels over {1, 2}"] = compare_all(core.make_context(
-        rep_labels, logit_to_logproba(small[1], 2), *small[2:], 3))[0]
+        rep_labels, logit_to_logproba(small[1], 2), *small[2:], 3), rf=True)[0]
+    # B10 and B11 with every lane live: a label for each lanes-per-thread
+    # instantiation, and window 3, from random carries
+    lane_cases = rf_lane_cases(dev)
+    key = "B10/B11 from random carries, (window, width) " + json.dumps(lane_cases)
+    extra[key] = compare_rf_lanes(torch, dev, seed, lane_cases)
+    extra["B10/B11 from random carries at window 3"] = compare_rf_lanes(
+        torch, dev, seed, {"classic": [(3, 999)], "simplified": [(3, 999)]}, max_t=40)
+    for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"]):
+        for name, e in name_errs.items():
+            errs[name] = max(errs[name], e)
     # the residual-free kernels over several chunks, each from the carries
     # the previous chunk's kernels left: T=1500, labels [8, 600]
     multi = make_inputs(torch, seed + 3, dev, batch=8, label_width=600, max_t=1500)
@@ -1261,7 +1358,8 @@ def run(seed: int, dev) -> dict:
     sync()
     worst = {name: float(f"{max(e.values()):.3g}") for name, e in extra.items()}
     log("phase 2 kernel vs plain on the card: ok, max abs err at the headline "
-        "shape (the residual-free modes: also over the chunks of T 1500; "
+        "shape (the residual-free modes: also over the chunks of T 1500, the "
+        "backwards also from random carries at every lanes-per-thread count; "
         "fused_dlogits: at batch 8, blank 3, V = 32, 128 and 1000) "
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
         + "; worst over the kernels at batch 8: " + json.dumps(worst)

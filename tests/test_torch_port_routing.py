@@ -29,10 +29,10 @@ def _widest(name, x=8):
 
 
 def test_the_mirrors_give_the_lanes_measured_on_the_h100():
-    # the widest labels at window 8 that chip_smoke.py phase 1 printed on an
-    # H100 (PR 3), from the libraries' own formulas
-    widest = {"classic_fwd": 3040, "classic_bwd_rf": 2496, "classic_bwd": 1600,
-              "simplified_fwd": 3872, "simplified_bwd_rf": 3200,
+    # the widest labels at window 8 that chip_smoke.py phase 1 prints on an
+    # H100, from the libraries' own formulas
+    widest = {"classic_fwd": 3040, "classic_bwd_rf": 3040, "classic_bwd": 1600,
+              "simplified_fwd": 3872, "simplified_bwd_rf": 3616,
               "simplified_bwd": 2400, "classic_log_bwd": 1568}
     assert {name: _widest(name) for name in widest} == widest
     assert _widest("classic_bwd_half") == _widest("classic_bwd")
@@ -41,6 +41,33 @@ def test_the_mirrors_give_the_lanes_measured_on_the_h100():
     assert _build.fits(("classic_fwd", "classic_bwd_rf"), 2016, 8, CPU)
     assert not _build.fits(("classic_log_fwd", "classic_log_bwd"), 2016, 0, CPU)
     assert _build.fits(("fused_epilogue",), 2016, 1000, CPU)
+
+
+# The residual-free backwards' shared memory before their redesign: every
+# per-lane value in shared memory and one staged window of transitions.
+_UNSTAGED_BYTES = {
+    "classic_bwd_rf": lambda lp, k: 4 * (lp * (11 + k) + k) + 4 * 4 * lp,
+    "simplified_bwd_rf": lambda lp, k: 4 * (lp * (6 + k) + k) + 4 * 4 * lp,
+}
+
+
+@pytest.mark.parametrize("window", [1, 8, 16])
+@pytest.mark.parametrize("name", sorted(_UNSTAGED_BYTES))
+def test_the_staged_scans_hold_at_least_the_lanes_of_the_unstaged_ones(name, window):
+    # their staging ring costs shared memory that the lanes held in
+    # registers give back: no label that took the residual-free scheme
+    # before may start raising
+    before = max(lp for lp in range(32, 8192, 32)
+                 if _UNSTAGED_BYTES[name](lp, window) <= _build.SMEM_LIMIT)
+    assert _widest(name, window) >= before
+    assert _widest(name, 8) >= {"classic_bwd_rf": 2496, "simplified_bwd_rf": 3200}[name]
+
+
+def test_the_staged_scans_need_aligned_rows():
+    x = torch.zeros(65)
+    cl.check_aligned((("x", x[:64]),), "classic_bwd")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cl.check_aligned((("x", x[1:]),), "classic_bwd")
 
 
 def _ctx(labels, logits, lab_len, logit_len):
@@ -58,7 +85,7 @@ def _case(seed=0, batch=3, max_t=14, vocab=5, width=6):
 
 
 # At 32 lanes and window 4 the streamed backwards need 3088 (classic) and
-# 2064 (simplified) bytes, the residual-free scans 2448 and 1808 with their
+# 2064 (simplified) bytes, the residual-free scans 2008 and 1624 with their
 # forwards under them: these limits leave only the residual-free scheme.
 @pytest.mark.parametrize("topology,limit", [("classic", 2500), ("simplified", 1900)])
 @pytest.mark.parametrize("half", [False, True])

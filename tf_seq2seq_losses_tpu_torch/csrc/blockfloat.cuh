@@ -86,6 +86,22 @@ __device__ __forceinline__ float scaled_act(float x, float y, float z,
                  ((double)s_hi * (double)s_lo));
 }
 
+// The same acts with the scale s_hi * s_lo taken once (act_scale, exact:
+// a power of two), for a scan that reuses it over a window: the same bits,
+// two float64 conversions and a multiply fewer an act.
+__device__ __forceinline__ double act_scale(float s_hi, float s_lo) {
+  return (double)s_hi * (double)s_lo;
+}
+
+__device__ __forceinline__ float scaled_act_by(float x, float y, double s) {
+  return (float)((double)x * (double)y * s);
+}
+
+__device__ __forceinline__ float scaled_act_by(float x, float y, float z,
+                                               double s) {
+  return (float)((double)x * (double)y * (double)z * s);
+}
+
 // -inf-safe logaddexp: lae(-inf, -inf) = -inf.
 __device__ __forceinline__ float lae(float x, float y) {
   float m = fmaxf(x, y);

@@ -85,8 +85,9 @@ _SIGNATURES = {
 }
 
 _F = _N = 4  # bytes of a float and of an int
+_BAR = 8  # bytes of an mbarrier
 _LOG_CHUNK = 8  # kChunk / kSChunk of the log-space kernels
-
+_SPARE_ROWS = 2  # kSpareRows of the residual-free scans' staging ring
 
 
 def _classic_bwd_bytes(lp: int, k: int) -> int:
@@ -100,12 +101,16 @@ SMEM_BYTES = {
     "classic_fwd": lambda lp, k: _F * (lp * (8 + k) + k) + _N * 3 * lp,
     "classic_bwd": _classic_bwd_bytes,
     "classic_bwd_half": _classic_bwd_bytes,
-    "classic_bwd_rf": lambda lp, k: _F * (lp * (11 + k) + k) + _N * 4 * lp,
+    # a ring of k + spare staged rows, a blank row per window slot, an
+    # mbarrier per ring row and one for the boundary rows
+    "classic_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 9) + 2 * k)
+                                     + _BAR * (k + _SPARE_ROWS + 1)),
     "classic_log_fwd": lambda lp, _: _F * (lp * (7 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
     "classic_log_bwd": lambda lp, _: _F * (lp * (5 + 4 * _LOG_CHUNK) + _LOG_CHUNK),
     "simplified_fwd": lambda lp, k: _F * (lp * (4 + k) + k) + _N * 3 * lp,
     "simplified_bwd": lambda lp, k: _F * (lp * (5 + 2 * k) + k) + _N * 3 * lp,
-    "simplified_bwd_rf": lambda lp, k: _F * (lp * (6 + k) + k) + _N * 4 * lp,
+    "simplified_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 6) + 2 * k)
+                                        + _BAR * (k + _SPARE_ROWS + 1)),
     "simplified_log_fwd": lambda lp, _: _F * (lp * (3 + _LOG_CHUNK) + _LOG_CHUNK),
     "simplified_log_bwd": lambda lp, _: _F * (lp * (2 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
     # head[V] and next[L] ints, one staged act row per warp (8 warps), nl

@@ -321,6 +321,15 @@ def carry_pointers(carry, states: int, shape, name: str, device):
     return tuple(t.data_ptr() for t in (*mants, e))
 
 
+def check_aligned(tensors, what: str) -> None:
+    """Raise unless every tensor of ``tensors`` (pairs of name and tensor)
+    starts on a 16-byte boundary, as a kernel's bulk copies of its rows
+    need."""
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
+
+
 def check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win: int):
     """Check the inputs that every classic block-float scan takes (CUDA
     tensors); returns ``(batch, tpad, lpad, device)``."""
@@ -689,6 +698,8 @@ def classic_bwd(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
     check_tensor(bd0, (n_w, batch, lpad), f32, "bd0", dev)
     check_tensor(bd1, (n_w, batch, lpad), f32, "bd1", dev)
     check_tensor(bde, (n_w, batch, lpad), torch.int32, "bde", dev)
+    check_aligned((("dcu", dcu), ("bd0", bd0), ("bd1", bd1), ("bde", bde)),
+                  "classic_bwd")
     init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
     lib = _build.lib("classic_bwd_rf")
     _build.check_smem(lib.ctc_classic_bwd_rf_smem_bytes(lpad, k_win), "classic_bwd",

@@ -48,6 +48,7 @@ from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     beta_carry_scale,
     beta_init,
     carry_pointers,
+    check_aligned,
     check_tensor,
     chunk_lengths,
     chunk_plan,
@@ -345,6 +346,7 @@ def simplified_bwd(blank, dg, lens, lab_len, ebi, bd, bde, k_win: int, init=None
     check_tensor(ebi, (batch,), f32, "ebi", dev)
     check_tensor(bd, (n_w, batch, lpad), f32, "bd", dev)
     check_tensor(bde, (n_w, batch, lpad), torch.int32, "bde", dev)
+    check_aligned((("dg", dg), ("bd", bd), ("bde", bde)), "simplified_bwd")
     init_ptrs = carry_pointers(init, 1, (batch, lpad), "init", dev)
     lib = _build.lib("simplified_bwd_rf")
     _build.check_smem(

@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time the residual-free beta scans (B10 ``classic_bwd``, B11
+``simplified_bwd``) of one checkout of the repository on one NVIDIA card.
+
+    python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \
+        [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
+
+``--tree`` names the root of a checkout (the repository itself, or an
+older commit unpacked with ``git archive``): its package and its
+``chip_smoke.py`` are imported, and its kernels built, so two commits are
+compared on one card by running this script once for each, in turns.
+Each ``--variant`` rebuilds one kernel library (``LIBRARY`` a key of
+``_build._SOURCES``) from another source with the same C interface, and
+times the scans again with it in place under ``TAG``: a way to time
+modified copies of a kernel, such as one with a phase taken out.
+
+Shapes: the headline (B=256, T=500, V=32, labels [256, 250], one chunk;
+bursts of 20 launches) and one long-T chunk (chunk 1 of 8 at B=256,
+T=4000, labels [256, 2000]: 504 steps, 2016 lanes, from the carry chunk 0
+leaves; bursts of 5), each by CUDA events, the median of 5 bursts, as
+``chip_smoke.py`` times its kernels.  ``--steps`` also times the long-T
+training step of each topology on the host clock (median of 3; the
+simplified one with the guard off, as its row 220 is otherwise repaired
+through the pure path) and its device time by ``torch.profiler``.
+
+Prints one JSON line: the tag, the card's name and power limit, and the
+times in ms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def build_variant(build, library: str, source: Path) -> Path:
+    """Compile ``source`` as the library ``library`` with the package's own
+    flags; returns the shared object's path."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(build._FLAGS).encode())
+    out = build._BUILD_DIR / f"{library}-variant-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # the source may include the package's headers
+        cmd = [build._nvcc(), *build._FLAGS, "-I", str(build._CSRC), "-o", str(out),
+               str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+    return out
+
+
+def scan_args(smoke, torch, dev, max_t: int, chunk: int):
+    """``{topology: kernel arguments}`` of the residual-free backward on
+    chunk ``chunk`` of the inputs ``make_inputs`` gives at ``max_t`` (the
+    headline generator; at T=4000 that of ``benchmarks/long_t.py``)."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    labels, logits, label_length, logit_length = smoke.make_inputs(
+        torch, 0, dev, max_t=max_t, infeasible=max_t == smoke.MAX_T)
+    ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                            logit_length, 0)
+    n_chunks, chunk_t = cl.chunk_plan(ctx)
+    out = {}
+    for topology in ("classic", "simplified"):
+        ops = smoke.rf_ops(ctx, topology)
+        carry, carries = None, []
+        for c in range(n_chunks):
+            carries.append(carry)
+            carry = ops.fwd(*ops.chunk(c, chunk_t), ops.k_win, "final",
+                            **cl.init_kw(carry))
+        ebi = cl.ebi_from_loss(ops.loss(carry))
+        args = ops.chunk(chunk, chunk_t)
+        bounds = ops.fwd(*args, ops.k_win, "bound", **cl.init_kw(carries[chunk]))
+        out[topology] = (ops.bwd, (*args, ops.lab_len, ebi, *bounds[:ops.states + 1],
+                                   ops.k_win, None))
+    return out
+
+
+def long_steps(smoke, torch, dev) -> dict:
+    """Host-clock and device time of each topology's long-T training step."""
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    labels, logits, label_length, logit_length = smoke.make_inputs(
+        torch, 0, dev, max_t=smoke.LONG_T, infeasible=False)
+    out = {}
+    for topology in ("classic", "simplified"):
+        step = smoke.make_step(torch, smoke.loss_function(topology), labels)
+        with config_override(guard=topology == "classic"):
+            host = smoke.host_ms(torch, lambda: step(logits, label_length, logit_length),
+                                 runs=smoke.LONG_RUNS)
+            prof = smoke.profile_step(torch, dev, host,
+                                      lambda: step(logits, label_length, logit_length),
+                                      steps=2)
+        out[f"{topology}_fwd_bwd_step"] = {
+            "host_ms": host, "device_ms": prof.get("device_ms_per_step"),
+            "device_idle_share": prof.get("device_idle_share")}
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", type=Path, required=True)
+    parser.add_argument("--tag", default=None)
+    parser.add_argument("--variant", action="append", default=[],
+                        help="TAG:LIBRARY=FILE.cu")
+    parser.add_argument("--steps", action="store_true")
+    args = parser.parse_args()
+    tree = args.tree.resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_scans.py: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as smoke
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+
+    dev = torch.device("cuda:0")
+    libs = dict(_build.build_all())
+    variants = {}
+    for spec in args.variant:
+        tag, _, rest = spec.partition(":")
+        library, _, source = rest.partition("=")
+        so = build_variant(_build, library, Path(source).resolve())
+        variants.setdefault(tag, {})[library] = _build._bind(library, so)
+    shapes = {"headline": (scan_args(smoke, torch, dev, smoke.MAX_T, 0), 20),
+              "long_t_chunk": (scan_args(smoke, torch, dev, smoke.LONG_T, 1), 5)}
+    times = {}
+    for tag, override in [(args.tag or tree.name, {}), *variants.items()]:
+        _build._libs.clear()
+        _build._libs.update({**libs, **override})
+        row = {}
+        for shape, (per_topology, burst) in shapes.items():
+            for topology, (fn, fargs) in per_topology.items():
+                row[f"{topology}_bwd {shape}"] = smoke.time_ms(
+                    torch, lambda: fn(*fargs), burst=burst)
+        times[tag] = row
+    _build._libs.clear()
+    _build._libs.update(libs)
+    out = {"tree": str(args.tag or tree.name), "card": smoke.card_line(),
+           "ms": times}
+    if args.steps:
+        out["long_t_steps"] = long_steps(smoke, torch, dev)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
