@@ -17,10 +17,15 @@ simplified):
    against its plain PyTorch version on the same inputs: losses rtol 1e-5;
    acts and scaled carries atol 1e-5; block-float residual and carry
    mantissas rtol 1e-5 + atol 1e-6, their exponents exactly; log-space
-   residuals rtol 1e-5 + atol 1e-5; inf patterns equal throughout.  B13's
-   forward (mode resid1) must give mode resid's residuals, and its backward
-   B3's acts and beta carry, bit for bit.  B12 runs at batch 8, blank 3,
-   V = 32, 128 and 1000 (atol 1e-6).  The residual-free modes (B10, B11:
+   residuals rtol 1e-5 + atol 1e-5; inf patterns equal throughout.  The
+   forward scans B1 (modes final, resid, bound, resid1) and B6 (final,
+   resid, bound) must give their plain versions' outputs bit for bit, at
+   every geometry here and also from the standard and a random carry at a
+   label for every lanes-per-thread instantiation (``lane_cases``: up to
+   the widest label at window 8, then at window 1) and at windows 3 and
+   16.  B13's forward (mode resid1) must give mode resid's residuals, and
+   its backward B3's acts and beta carry, bit for bit.  B12 runs at batch
+   8, blank 3, V = 32, 128 and 1000 (atol 1e-6).  The residual-free modes (B10, B11:
    forward modes bound and final from a carry, backward from a beta carry)
    run at the headline shape, at each batch-8 geometry above and at window
    3 (where a window's blank row is not 16-byte aligned), and chunk by
@@ -28,7 +33,7 @@ simplified):
    from the carries the previous chunk's kernels left; their backwards
    must give the plain version's acts and beta carry bit for bit, also
    from random carries with every lane live, at a label for every
-   lanes-per-thread instantiation (``rf_lane_cases``: up to the widest
+   lanes-per-thread instantiation (``lane_cases``: up to the widest
    label at window 8, then at window 1) and at window 3;
 3. the main path, with TF32 allowed for float32 matrix products as
    training scripts on an H100 commonly set it: ``classic_ctc_loss`` (then
@@ -45,7 +50,10 @@ simplified):
    streamed one); at V=128 each topology's fused step and a saturated
    batch through it, then the classic half-stream step fused; a classic
    step on labels [8, 2000] (2016 lanes: the residual-free scheme, and a
-   repair through the pure path);
+   repair through the pure path); for each topology, label arrays wider
+   than the kernels hold (a training step through the pure path, an
+   evaluation call through the forward's mode final where it holds the
+   lanes, else the pure path);
 4. the saturation guard: four rows saturated at the logit scale 1e2 and
    1e10 flush and are repaired through the log-space kernels; rows at
    1e2 match the pure path (loss and d_logits atol 2e-4), rows at 1e10
@@ -69,16 +77,17 @@ simplified):
 7. long T, a path of its own: B=256, T=4000, V=32 from
    ``benchmarks/long_t.py``'s generator (labels [256, 2000], 8 chunks of
    504 steps, 2016 lanes): a training step, an evaluation call and a step
-   with row 2 saturated at 1e2 (the guard repairs it through the pure
-   path: the log-space kernels serve one chunk); launches per call, read
+   with row 2 saturated at 1e2 (12 steps: the guard repairs it on its own
+   time axis, through the log-space kernels where they hold the lanes, B8
+   and B9 but not B5); launches per call, read
    just after that step; the classic step's peak device memory under
    16 GB.  Then checks outside the path: the rows whose forward and beta
-   scans disagree, over the whole batch (at seed 0 ``LONG_FLAGGED``), and
-   none on peaked low-loss logits at T=500 and T=4000; loss (rtol 1e-5)
-   and d_logits (atol 1e-5) of ``LONG_ROWS`` against the pure path in
-   float64, except the d_logits of rows the guard repaired, which are
-   held to the float32 pure path that repaired them (atol 2e-4) and to
-   float64 at ``REPAIRED_LONG_ATOL``; rows 0-31 bit for bit as one chunk;
+   scans disagree, over the whole batch (at seed 0 ``LONG_FLAGGED``,
+   repaired through the pure path in float64), and none on peaked
+   low-loss logits at T=500 and T=4000; loss (rtol 1e-5) and d_logits
+   (atol 1e-5) of ``LONG_ROWS``, repaired rows included, against the pure
+   path in float64, and their forward-only loss's relative error printed;
+   rows 0-31 bit for bit as one chunk;
    then each topology's step and forward-only call (host clock, median of
    3), one chunk's kernels (CUDA events), ``F.ctc_loss`` there, and a
    profile of the classic step.
@@ -96,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -552,16 +562,31 @@ def rf_ops(ctx, topology):
 
 
 def agree_carry(ours, ref, what) -> float:
-    """Hold a block-float carry (mantissas, then exponents) against its
-    plain version: mantissas rtol 1e-5 + atol 1e-6, exponents exactly."""
+    """Hold a block-float carry (mantissas, then exponents) of a forward scan
+    against its plain version, bit for bit; returns the largest error."""
     import torch
 
-    *mants, e = ours
-    *ref_mants, ref_e = ref
-    for m, r in zip(mants, ref_mants):
-        agree(m, r, 1e-5, 1e-6, f"{what} mantissas vs plain")
-    check(torch.equal(e, ref_e), f"{what} exponents vs plain")
-    return max(max_err(m, r) for m, r in zip(mants, ref_mants))
+    err = max(max_err(a, b) for a, b in zip(ours, ref))
+    check(all(torch.equal(a, b) for a, b in zip(ours, ref)),
+          f"{what} bit for bit the plain version's (max abs err {err:.3g})")
+    return err
+
+
+def compare_fwd_modes(ctx) -> dict:
+    """Hold every mode of B1 and B6 bit for bit against its plain version on
+    the one chunk of ``ctx`` from the standard carry; returns the largest
+    error of each (0.0)."""
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+
+    n_chunks, chunk_t = cl.chunk_plan(ctx)
+    errs = {}
+    for topology, modes in FWD_MODES.items():
+        ops = rf_ops(ctx, topology)
+        args = ops.chunk(0, n_chunks * chunk_t)
+        for mode in modes:
+            name = f"{topology}_fwd[{mode}]"
+            errs[name] = same_fwd(ops, args, ops.k_win, mode, name)
+    return errs
 
 
 def compare_rf_kernels(ctx, topology):
@@ -642,21 +667,21 @@ def random_carry(torch, gen, states, batch, lpad, dev):
     return tuple(t.to(dev) for t in (*[mant() for _ in range(states)], e))
 
 
-def rf_lane_cases(dev) -> list:
-    """``[(window, label width)]``: a label for every lanes-per-thread
-    instantiation of B10 and B11 (512 threads, lanes t + j * threads): at
+def lane_cases(dev, kernels) -> dict:
+    """``{topology: [(window, label width)]}``: a label for every
+    lanes-per-thread instantiation of the kernel ``kernels[topology]`` (a
+    key of ``_build.SMEM_BYTES``; 512 threads, lanes t + j * threads): at
     window 8 up to the widest label it holds, then at window 1, where the
     lanes reach their most.  Each instantiation's widest lane count is
     taken, so the widest label at windows 8 and 1 is among them."""
     from tf_seq2seq_losses_tpu_torch.ops import _build
 
     cases = {}
-    for topology, lib in (("classic", "classic_bwd_rf"), ("simplified",
-                                                            "simplified_bwd_rf")):
+    for topology, kernel in kernels.items():
         done, out = 0, []
         for window in (8, 1):
-            widest = max(lp for lp in range(32, 8192, 32)
-                         if _build.fits((lib,), lp, window, dev))
+            widest = max(lp for lp in range(32, 16384, 32)
+                         if _build.fits((kernel,), lp, window, dev))
             for lpt in range(done + 1, -(-widest // 512) + 1):
                 out.append((window, min(512 * lpt, widest) - 1))
             done = max(done, -(-widest // 512))
@@ -699,6 +724,67 @@ def compare_rf_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
                 err, _ = same_bwd(ops, b_args, f"{topology}_bwd at window {window}, "
                                   f"{lpad} lanes, from random carries")
             errs[f"{topology}_bwd"] = max(errs.get(f"{topology}_bwd", 0.0), err)
+    return errs
+
+
+FWD_MODES = {"classic": ("final", "resid", "bound", "resid1"),
+             "simplified": ("final", "resid", "bound")}
+
+
+def same_fwd(ops, args, window, mode, what, init=None) -> float:
+    """Run a forward scan (B1 or B6) and its plain version in ``mode`` on
+    ``args`` from ``init`` and require every output that the kernel writes
+    bit for bit the plain version's (mode resid's residuals at the steps and
+    windows each sample runs); returns the largest error (0.0)."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.tools.time_scans import written
+
+    kw = {} if init is None else {"init": init}
+    lens = args[-1]
+    ours = written(torch, ops.fwd(*args, window, mode, **kw), mode, lens, window)
+    ref = written(torch, ops.fwd_plain(*args, window, mode, **kw), mode, lens, window)
+    err = max(max_err(a, b) for a, b in zip(ours, ref))
+    check(all(torch.equal(a, b) for a, b in zip(ours, ref)),
+          f"{what}: outputs bit for bit the plain version's (max abs err {err:.3g})")
+    return err
+
+
+def compare_fwd_lanes(torch, dev, seed, cases, max_t=40, batch=4) -> dict:
+    """Hold B1 in its four modes and B6 in its three bit for bit against
+    their plain versions at each ``(window, label width)`` of
+    ``cases[topology]``, labels of their full width (``label_length`` the
+    width), from the standard carry and from a random carry with every lane
+    live.  Returns the largest error of each mode (0.0)."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    gen = torch.Generator().manual_seed(seed)
+    errs = {}
+    for topology, widths in cases.items():
+        for window, width in widths:
+            labels, logits, _, logit_length = make_inputs(
+                torch, seed + width, dev, batch=batch, label_width=width, max_t=max_t,
+                infeasible=False)
+            full = torch.full_like(logit_length, width)
+            with config_override(window=window):
+                ctx = core.make_context(labels, logit_to_logproba(logits, 2), full,
+                                        logit_length, 0)
+                ops = rf_ops(ctx, topology)
+                n_chunks, chunk_t = cl.chunk_plan(ctx)
+                args = ops.chunk(0, n_chunks * chunk_t)
+                lpad = args[1].shape[2]
+                carry = random_carry(torch, gen, ops.states, batch, lpad, dev)
+                for mode in FWD_MODES[topology]:
+                    name = f"{topology}_fwd[{mode}]"
+                    for init in (None, carry):
+                        err = same_fwd(ops, args, window, mode,
+                                       f"{name} at window {window}, {lpad} lanes, from "
+                                       f"{'a random' if init else 'the standard'} carry",
+                                       init)
+                        errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
 
@@ -916,7 +1002,14 @@ def drive_slice_paths(torch, dev, seed, inputs, classic_main, sync):
     * a classic step on labels [8, 2000] (2016 lanes), then the same batch
       with row 2 saturated: the residual-free scheme (B1 bound, B10), the
       repair through the pure path (B5 does not hold the lanes); float64
-      on the clean rows, the pure path on the repaired one.
+      on the clean rows, the pure path on the repaired one;
+    * for each topology, a training step and an evaluation call on label
+      arrays wider than the kernels hold at window 8 (the widest label of
+      the residual-free pair, then of the forward, plus one lane): the
+      training step is the pure path's bit for bit, with no launch; the
+      evaluation call launches the forward's mode final once where it
+      holds the lanes (loss rtol 1e-5 against float64), and is the pure
+      path's otherwise.
 
     Returns the launches summed by kernel and the steps for timing."""
     from collections import Counter
@@ -1032,6 +1125,41 @@ def drive_slice_paths(torch, dev, seed, inputs, classic_main, sync):
         f"(d_logits {max_err(ws_d[2:3], p_d[2:3]):.3g} from it), clean rows bit for "
         f"bit; launches for the step and the saturated step {json.dumps(got)}")
     steps[f"classic_fwd_bwd_step_labels_{WIDE_LABELS}"] = (w_step, w_inputs[1:])
+
+    # label arrays wider than the kernels hold: past the residual-free pair,
+    # within the forward; past the forward too
+    for topology in ("classic", "simplified"):
+        held = widest_lanes(dev)
+        fwd = f"{topology}_fwd"
+        for width in (held[f"{topology}_bwd_rf"], held[fwd]):
+            x_inputs = make_inputs(torch, seed + 5, dev, batch=4, label_width=width,
+                                   max_t=100)
+            x_labels, x_logits, x_ll, x_gl = x_inputs
+            x_fn = loss_function(topology)
+            x_step = make_step(torch, x_fn, x_labels)
+            ((x_loss, x_d), x_eval), got = path(topology, lambda: (
+                x_step(x_logits, x_ll, x_gl), x_fn(x_labels, x_logits, x_ll, x_gl, 0)))
+            in_fwd = width < held[fwd]  # width + 1 labels: width + 32 lanes
+            check(got == ({f"{fwd}[final]": 1} if in_fwd else {}),
+                  f"{topology} labels [4, {width}] launches {got}")
+            with config_override(use_kernels=False):
+                p_loss, p_d = x_step(x_logits, x_ll, x_gl)
+            check(torch.equal(x_loss, p_loss) and torch.equal(x_d, p_d),
+                  f"{topology} labels [4, {width}]: the training step is the pure path's")
+            if in_fwd:
+                x64 = pure_float64(*x_inputs, topology)[0]
+                agree(x_eval, x64, 1e-5, 0.0,
+                      f"{topology} labels [4, {width}] evaluation loss vs float64 pure")
+            else:
+                check(torch.equal(x_eval, p_loss),
+                      f"{topology} labels [4, {width}]: the evaluation call is the pure "
+                      "path's")
+            log(f"phase 3 {topology} labels [4, {width}] ({width + 32} lanes; at "
+                f"window 8 the residual-free pair holds "
+                f"{held[f'{topology}_bwd_rf']}, the forward {held[fwd]}): the training "
+                f"step took the pure path, the evaluation call "
+                f"{fwd + '[final]' if in_fwd else 'the pure path'}; launches "
+                f"{json.dumps(got)}")
     return dict(launches=totals, steps=steps, v_inputs=v_inputs)
 
 
@@ -1040,12 +1168,8 @@ LONG_T = 4000
 # in the classic topology; flagged by the scan gap in the simplified one)
 LONG_ROWS = [0, 1, 2, 3, 4, 5, 6, 220]
 # the rows of seed 0's long-T batch whose scans disagree (the guard repairs
-# them through the pure path)
+# them through the pure path in float64)
 LONG_FLAGGED = {"classic": [], "simplified": [220]}
-# d_logits of a long row repaired through the float32 pure path against
-# float64: that path's own rounding over 4000 steps (7.4e-3 measured on
-# row 220, simplified, on an H100), not the 1e-5 of the kernel path
-REPAIRED_LONG_ATOL = 2e-2
 PEAK_SCALE = 12.0  # peaked logits: losses of a nat or less
 
 
@@ -1109,17 +1233,20 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     """The long-T phase of one topology, a path of its own (launch counts
     set to 0 just before, read just after): a training step and an
     evaluation call at B=256, T=4000 (8 chunks), then a batch with row 2
-    saturated at 1e2, which the guard repairs through the pure path (the
-    log-space kernels serve one chunk only).  Checks: the launches of each
+    saturated at 1e2 (12 steps), which the guard repairs on its own time
+    axis, through the log-space kernels where they hold the label's 2016
+    lanes (B8 and B9 do, B5 does not: the pure path in float64).  Checks: the launches of each
     call, the step's peak device memory, +inf and zero d_logits on
     infeasible rows; then, outside the path, the rows the scan gap flags
-    (``LONG_FLAGGED`` at seed 0; none on peaked low-loss logits at T=500
-    and 4000), loss and d_logits of rows ``LONG_ROWS`` against the pure
-    path in float64 (repaired rows to ``REPAIRED_LONG_ATOL``), and the
-    first 32 rows run again as one chunk, which must give the same bits.
-    Returns the launches, the peak memory and the step for timing."""
-    from tf_seq2seq_losses_tpu_torch.ops import core
+    (``LONG_FLAGGED`` at seed 0, repaired through the pure path in
+    float64; none on peaked low-loss logits at T=500 and 4000), loss
+    (rtol 1e-5) and d_logits (atol 1e-5) of rows ``LONG_ROWS``, repaired
+    ones included, against the pure path in float64, and the first 32
+    rows run again as one chunk, which must give the same bits.  Returns
+    the launches, the peak memory and the step for timing."""
+    from tf_seq2seq_losses_tpu_torch.ops import _build, core
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
     from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
     from tf_seq2seq_losses_tpu_torch.utils.config import config_override
     from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
@@ -1132,6 +1259,11 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
                             logit_length, 0)
     n_chunks, chunk_t = cl.chunk_plan(ctx)
+    # row 2 runs 12 steps: the log-space kernels repair it where they hold
+    # the label's lanes (B8/B9 do, B5 does not), else the pure path
+    log_repair = _build.fits(ll._LOG_KERNELS[topology], cl.geometry(ctx)[1], 0, dev)
+    log_kernels = ({f"{topology}_log_{m}": 1 for m in ("fwd[final]", "fwd[resid]", "bwd")}
+                   if log_repair else {})
     t0 = time.perf_counter()
     reset_launches()
     if dev.type == "cuda":
@@ -1170,9 +1302,11 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     sync()
     # the end of the path: what follows checks it, and its launches do not count
     launches = read_launches(topology)
-    check(per_step["step with 1 row repaired"] == per_step["training step"],
-          f"{topology} long-T repair launched no log-space kernel")
-    for name in (fwd_final, fwd_bound, bwd_rf):
+    check(per_step["step with 1 row repaired"] == {**per_step["training step"],
+                                                   **log_kernels},
+          f"{topology} long-T step with row 2 repaired launches "
+          f"{per_step['step with 1 row repaired']}")
+    for name in (fwd_final, fwd_bound, bwd_rf, *log_kernels):
         check(launches[name] >= 1, f"{name} launched on the {topology} long-T path")
     if topology == "classic":
         check(peak < 16e9,
@@ -1209,7 +1343,8 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     sub = [t[rows] for t in inputs]
     loss64, d64 = pure_float64(*sub, topology)
     # one float32 pure pass (a Python loop over T) for the rows LONG_ROWS
-    # and the saturated row 2: the repair's own reference
+    # and the saturated row 2: the float32 pure path's own error, printed,
+    # and the reference of row 2's log-space repair
     both = [torch.cat([a, b[2:3]]) for a, b in zip(sub, (labels, s_logits, s_ll, s_gl))]
     with config_override(use_kernels=False):
         loss32, d32 = make_step(torch, loss_fn, both[0])(*both[1:])
@@ -1217,17 +1352,16 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     loss32, d32 = loss32[:-1], d32[:-1]
     agree(s_loss[2:3], p_loss, 0.0, 2e-4, f"{topology} long-T repaired loss vs pure")
     agree(s_d[2:3], p_d, 0.0, 2e-4, f"{topology} long-T repaired d_logits vs pure")
-    # the flagged rows went through the float32 pure path: exactly it, and
-    # as far from float64 as its rounding over T steps takes it
-    fixed = torch.tensor([r in gaps["random"]["flagged"] for r in LONG_ROWS], device=dev)
-    fixed_rows = [r for r, f in zip(LONG_ROWS, fixed.tolist()) if f]
+    # the flagged rows went through the pure path in float64: held to
+    # float64 as the kernel rows are
+    fixed_rows = [r for r in LONG_ROWS if r in gaps["random"]["flagged"]]
     agree(loss[rows], loss64, 1e-5, 0.0, f"{topology} long-T loss vs float64 pure")
-    agree(d_logits[rows][~fixed], d64[~fixed], 0.0, 1e-5,
-          f"{topology} long-T d_logits vs float64 pure")
-    agree(d_logits[rows][fixed], d32[fixed], 0.0, 2e-4,
-          f"{topology} long-T repaired d_logits vs float32 pure")
-    agree(d_logits[rows][fixed], d64[fixed], 0.0, REPAIRED_LONG_ATOL,
-          f"{topology} long-T repaired d_logits vs float64 pure")
+    agree(d_logits[rows], d64, 0.0, 1e-5, f"{topology} long-T d_logits vs float64 pure")
+    # the forward-only loss of each row against float64, relative: a row
+    # whose scans disagree keeps its forward scan's loss there (it has no
+    # beta scan to disagree with)
+    rel = (torch.abs(loss_eval[rows].double() - loss64) / torch.abs(loss64)).tolist()
+    eval_rel = {r: e for r, e in zip(LONG_ROWS, rel) if math.isfinite(e)}
 
     first = [t[:32] for t in inputs]
     step32 = make_step(torch, loss_fn, first[0])
@@ -1243,16 +1377,15 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
         f"as a share of its limit, and the median loss): {json.dumps(gaps)}; "
         f"rows {LONG_ROWS} vs the float64 pure path: kernel path loss "
         f"{max_err(loss[rows], loss64):.3g} d_logits "
-        f"{max_err(d_logits[rows][~fixed], d64[~fixed]):.3g}, float32 pure path loss "
-        f"{max_err(loss32, loss64):.3g} d_logits {max_err(d32, d64):.3g}; of these, "
-        f"rows {fixed_rows} were repaired through the float32 pure path (d_logits "
-        f"{max_err(d_logits[rows][fixed], d32[fixed]):.3g} from it, "
-        f"{max_err(d_logits[rows][fixed], d64[fixed]):.3g} from float64, limit "
-        f"{REPAIRED_LONG_ATOL}, not the 1e-5 of the kernel rows); "
-        f"rows 0-31 chunked equal one chunk bit for bit; row 2 "
-        f"repaired through the pure path (loss {float(s_loss[2]):.4f}, max abs err "
-        f"loss {max_err(s_loss[2:3], p_loss):.3g} d_logits "
-        f"{max_err(s_d[2:3], p_d):.3g}), "
+        f"{max_err(d_logits[rows], d64):.3g} (rows {fixed_rows} repaired through "
+        f"the pure path in float64), float32 pure path loss "
+        f"{max_err(loss32, loss64):.3g} d_logits {max_err(d32, d64):.3g}; "
+        f"forward-only loss vs float64, relative, by row: {json.dumps(eval_rel)}; "
+        f"rows 0-31 chunked equal one chunk bit for bit; row 2 (12 steps) "
+        f"repaired through {'the log-space kernels' if log_repair else 'the pure path'}"
+        f" (loss {float(s_loss[2]):.4f}, max abs "
+        f"err vs the float32 pure path loss {max_err(s_loss[2:3], p_loss):.3g} "
+        f"d_logits {max_err(s_d[2:3], p_d):.3g}), "
         f"clean rows bit for bit; peak memory of the training step "
         f"{peak / 1e9:.3f} GB; launches per call {json.dumps(per_step)}")
     return dict(launches=launches, peak=peak, train_step=train_step, loss_fn=loss_fn,
@@ -1310,6 +1443,8 @@ def run(seed: int, dev) -> dict:
         errs_c, args_c = compare_kernels(c)
         errs_s, args_s = compare_simplified_kernels(c)
         out = {**errs_c, **errs_s}
+        for name, e in compare_fwd_modes(c).items():
+            out[name] = max(out.get(name, 0.0), e)
         errs_rf, args_rf = compare_rf(c) if rf else ({}, None)
         for name, e in errs_rf.items():
             out[name] = max(out.get(name, 0.0), e)
@@ -1334,12 +1469,23 @@ def run(seed: int, dev) -> dict:
         rep_labels, logit_to_logproba(small[1], 2), *small[2:], 3), rf=True)[0]
     # B10 and B11 with every lane live: a label for each lanes-per-thread
     # instantiation, and window 3, from random carries
-    lane_cases = rf_lane_cases(dev)
-    key = "B10/B11 from random carries, (window, width) " + json.dumps(lane_cases)
-    extra[key] = compare_rf_lanes(torch, dev, seed, lane_cases)
+    rf_cases = lane_cases(dev, {"classic": "classic_bwd_rf",
+                                "simplified": "simplified_bwd_rf"})
+    key = "B10/B11 from random carries, (window, width) " + json.dumps(rf_cases)
+    extra[key] = compare_rf_lanes(torch, dev, seed, rf_cases)
     extra["B10/B11 from random carries at window 3"] = compare_rf_lanes(
         torch, dev, seed, {"classic": [(3, 999)], "simplified": [(3, 999)]}, max_t=40)
-    for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"]):
+    # B1 and B6 in every mode with every lane live: a label for each
+    # lanes-per-thread instantiation, then windows 3 (a window's blank row
+    # is not 16-byte aligned) and 16, both carries
+    fwd_cases = {topology: cases + [(3, 999), (16, 999)] for topology, cases in
+                 lane_cases(dev, {"classic": "classic_fwd",
+                                  "simplified": "simplified_fwd"}).items()}
+    fwd_key = ("B1/B6 every mode from the standard and random carries, (window, width) "
+               + json.dumps(fwd_cases))
+    extra[fwd_key] = compare_fwd_lanes(torch, dev, seed, fwd_cases)
+    for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"],
+                      extra[fwd_key]):
         for name, e in name_errs.items():
             errs[name] = max(errs[name], e)
     # the residual-free kernels over several chunks, each from the carries

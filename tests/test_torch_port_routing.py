@@ -3,7 +3,9 @@
 A training forward streams its residuals only where the streamed kernels'
 shared memory holds the label's lanes, and the guard repairs through the
 log-space kernels only where they hold them; otherwise the residual-free
-scheme and the pure path take over (and give the same values).  The
+scheme and the pure path take over (and give the same values).  A label
+that no kernel of a call holds takes the pure path, as the JAX package
+computes any width.  The
 shared-memory formulas are Python mirrors of the kernel libraries'
 (``_build.SMEM_BYTES``; ``chip_smoke.py`` holds them against the
 libraries), and CPU tensors are routed by the H100's limit, so these tests
@@ -31,8 +33,8 @@ def _widest(name, x=8):
 def test_the_mirrors_give_the_lanes_measured_on_the_h100():
     # the widest labels at window 8 that chip_smoke.py phase 1 prints on an
     # H100, from the libraries' own formulas
-    widest = {"classic_fwd": 3040, "classic_bwd_rf": 3040, "classic_bwd": 1600,
-              "simplified_fwd": 3872, "simplified_bwd_rf": 3616,
+    widest = {"classic_fwd": 4832, "classic_bwd_rf": 3040, "classic_bwd": 1600,
+              "simplified_fwd": 4832, "simplified_bwd_rf": 3616,
               "simplified_bwd": 2400, "classic_log_bwd": 1568}
     assert {name: _widest(name) for name in widest} == widest
     assert _widest("classic_bwd_half") == _widest("classic_bwd")
@@ -61,6 +63,28 @@ def test_the_staged_scans_hold_at_least_the_lanes_of_the_unstaged_ones(name, win
                  if _UNSTAGED_BYTES[name](lp, window) <= _build.SMEM_LIMIT)
     assert _widest(name, window) >= before
     assert _widest(name, 8) >= {"classic_bwd_rf": 2496, "simplified_bwd_rf": 3200}[name]
+
+
+# The forward scans' shared memory before their redesign: every per-lane
+# value in shared memory and one staged window of transitions
+# (ops/_build.py's formulas then).
+_UNSTAGED_FWD_BYTES = {
+    "classic_fwd": lambda lp, k: 4 * (lp * (8 + k) + k) + 4 * 3 * lp,
+    "simplified_fwd": lambda lp, k: 4 * (lp * (4 + k) + k) + 4 * 3 * lp,
+}
+
+
+@pytest.mark.parametrize("window", [1, 8, 16])
+@pytest.mark.parametrize("name", sorted(_UNSTAGED_FWD_BYTES))
+def test_the_staged_forwards_hold_at_least_the_lanes_of_the_unstaged_ones(name, window):
+    # the ring costs shared memory that the lanes held in registers give
+    # back: no label that took a forward kernel before may leave it
+    before = max(lp for lp in range(32, 16384, 32)
+                 if _UNSTAGED_FWD_BYTES[name](lp, window) <= _build.SMEM_LIMIT)
+    widest = max(lp for lp in range(32, 16384, 32)
+                 if _build.fits((name,), lp, window, CPU))
+    assert widest >= before
+    assert _widest(name, 8) >= {"classic_fwd": 3040, "simplified_fwd": 3872}[name]
 
 
 def test_the_staged_scans_need_aligned_rows():
@@ -158,3 +182,53 @@ def test_a_label_the_log_kernels_do_not_hold_is_repaired_through_the_pure_path(
     for ours in (pure_repair, logspace):
         np.testing.assert_allclose(ours[0][1].numpy(), pure[0][1].numpy(), atol=2e-4)
         np.testing.assert_allclose(ours[1].numpy(), pure[1].numpy(), atol=2e-4)
+
+
+_WIDE = {  # label widths past what the kernels of a call hold at window 8
+    # past the residual-free pair (3040 and 3616 lanes), within the forward
+    ("classic", "training"): 3100, ("simplified", "training"): 3700,
+    # past the forward (4832 lanes)
+    ("classic", "forward"): 4900, ("simplified", "forward"): 4900,
+}
+_KERNELS = {
+    "classic": (cl, ("classic_fwd", "classic_bwd_streamed", "classic_bwd",
+                     "classic_bwd_half")),
+    "simplified": (cs, ("simplified_fwd", "simplified_bwd_streamed", "simplified_bwd")),
+}
+
+
+@pytest.mark.parametrize("past", ["training", "forward"])
+@pytest.mark.parametrize("topology", ["classic", "simplified"])
+def test_a_label_no_kernel_holds_takes_the_pure_path(topology, past, monkeypatch):
+    width = _WIDE[topology, past]
+    rng = np.random.RandomState(7)
+    labels = rng.randint(1, 5, size=(2, width)).astype(np.int32)
+    logits = rng.normal(size=(2, 10, 5)).astype(np.float32)
+    lab_len, logit_len = np.array([4, 3], np.int32), np.array([10, 8], np.int32)
+    fn = {"classic": api.classic_ctc_loss, "simplified": api.simplified_ctc_loss}[topology]
+    module, names = _KERNELS[topology]
+    calls = []
+    for name in names:
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _n=name, _r=real, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+
+    def run(**cfg):
+        x = torch.tensor(logits, requires_grad=True)
+        lengths = (torch.tensor(lab_len), torch.tensor(logit_len), 0)
+        with config_override(**cfg):
+            evaluation = fn(torch.tensor(labels), torch.tensor(logits), *lengths)
+            loss = fn(torch.tensor(labels), x, *lengths)
+            loss.sum().backward()
+        return evaluation, loss.detach(), x.grad
+
+    ctx = _ctx(labels, logits, lab_len, logit_len)
+    fwd_name = f"{topology}_fwd"
+    assert _build.fits((fwd_name,), cl.geometry(ctx)[1], 8, CPU) == (past == "training")
+    kernel = run(use_kernels=True)
+    pure = run(use_kernels=False)
+    # the training step took the pure path, and the evaluation call too
+    # where the forward does not hold the label either
+    assert calls == ([fwd_name] if past == "training" else [])
+    np.testing.assert_allclose(kernel[0].numpy(), pure[0].numpy(), rtol=1e-5)
+    assert torch.equal(kernel[1], pure[1]) and torch.equal(kernel[2], pure[2])

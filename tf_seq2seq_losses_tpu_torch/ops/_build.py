@@ -87,18 +87,29 @@ _SIGNATURES = {
 _F = _N = 4  # bytes of a float and of an int
 _BAR = 8  # bytes of an mbarrier
 _LOG_CHUNK = 8  # kChunk / kSChunk of the log-space kernels
-_SPARE_ROWS = 2  # kSpareRows of the residual-free scans' staging ring
+_SPARE_ROWS = 2  # ring rows beyond one window of the staged scans
 
 
 def _classic_bwd_bytes(lp: int, k: int) -> int:
     return _F * (lp * (9 + 3 * k) + k) + _N * 3 * lp  # B3 and B13 alike
 
 
+def _fwd_bytes(min_ring: int):
+    """The forward scans' formula (B1 and B6): a ring of k + spare staged
+    rows, at least ``min_ring`` (kFwdMinRing, kSFwdMinRing), and the
+    double-buffered exchange a lane; a blank row per window slot; an
+    mbarrier per ring row."""
+    def smem_bytes(lp: int, k: int) -> int:
+        ring = max(k + _SPARE_ROWS, min_ring)
+        return _F * (lp * (ring + 2) + 2 * k) + _BAR * ring
+    return smem_bytes
+
+
 # Python mirrors of the libraries' ``ctc_<name>_smem_bytes(lpad, x)``: x is
 # the window for the block-float kernels, the vocabulary size for the fused
 # epilogue, and unused by the log-space kernels.
 SMEM_BYTES = {
-    "classic_fwd": lambda lp, k: _F * (lp * (8 + k) + k) + _N * 3 * lp,
+    "classic_fwd": _fwd_bytes(10),
     "classic_bwd": _classic_bwd_bytes,
     "classic_bwd_half": _classic_bwd_bytes,
     # a ring of k + spare staged rows, a blank row per window slot, an
@@ -107,7 +118,7 @@ SMEM_BYTES = {
                                      + _BAR * (k + _SPARE_ROWS + 1)),
     "classic_log_fwd": lambda lp, _: _F * (lp * (7 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
     "classic_log_bwd": lambda lp, _: _F * (lp * (5 + 4 * _LOG_CHUNK) + _LOG_CHUNK),
-    "simplified_fwd": lambda lp, k: _F * (lp * (4 + k) + k) + _N * 3 * lp,
+    "simplified_fwd": _fwd_bytes(5),
     "simplified_bwd": lambda lp, k: _F * (lp * (5 + 2 * k) + k) + _N * 3 * lp,
     "simplified_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 6) + 2 * k)
                                         + _BAR * (k + _SPARE_ROWS + 1)),

@@ -145,6 +145,16 @@ def make_context(
     )
 
 
+def float64_context(ctx: CtcContext) -> CtcContext:
+    """``ctx`` with its log-probabilities in float64, for the pure path of a
+    repair: the float32 pure path's rounding grows with the steps (1e-2 of
+    d_logits at T=4000), the float64 one stays far under the 1e-5 that
+    the kernel path meets."""
+    return ctx._replace(logproba=ctx.logproba.double(),
+                        raw_logproba=ctx.raw_logproba.double(),
+                        blank_lp=ctx.blank_lp.double())
+
+
 def take_token_logprobas(logproba: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """``out[b, t, l] = logproba[b, t, label[b, l]]`` (exact, -inf kept)."""
     num_t = logproba.shape[1]

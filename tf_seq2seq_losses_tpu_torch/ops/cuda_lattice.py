@@ -86,15 +86,22 @@ def geometry(ctx: CtcContext):
     return _round_up(max(num_t, 1), k_win), _round_up(ctx.label.shape[1], _LANE), k_win
 
 
+def chunk_steps() -> int:
+    """The most steps of a chunk: ``config.chunk_time`` floored to whole
+    windows, one window at least."""
+    k_win = get_config().window
+    return max(k_win, get_config().chunk_time // k_win * k_win)
+
+
 def chunk_plan(ctx: CtcContext):
     """``(n_chunks, chunk_t)``: the window-padded time axis in equal chunks,
-    each a whole number of windows and at most ``config.chunk_time`` steps
-    (one window at least), as ``_chunk_plan`` of the JAX package cuts it.
+    each a whole number of windows and at most :func:`chunk_steps` steps,
+    as ``_chunk_plan`` of the JAX package cuts it.
     Window boundaries fall where the one-chunk scan puts them, so the
     chunked result equals the unchunked one bit for bit.  The chunks may
     overhang T by up to a window each: those steps are no-ops."""
     tpad, _, k_win = geometry(ctx)
-    cmax = max(k_win, get_config().chunk_time // k_win * k_win)
+    cmax = chunk_steps()
     n_chunks = -(-tpad // cmax)
     return n_chunks, -(-(tpad // k_win) // n_chunks) * k_win
 
@@ -441,6 +448,7 @@ def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None)
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     f32 = torch.float32
     init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
+    check_aligned((("dcu", dcu),), "classic_fwd")
     lib = _build.lib("classic_fwd")
     _build.check_smem(lib.ctc_classic_fwd_smem_bytes(lpad, k_win), "classic_fwd", dev)
     n_w = tpad // k_win
@@ -773,6 +781,34 @@ def streams_residuals(ctx: CtcContext, n_chunks: int, kernels) -> bool:
     return _build.fits(kernels, lpad, k_win, ctx.logproba.device)
 
 
+def kernels_hold(ctx: CtcContext, fwd: str, streamed, rf_bwd: str,
+                 training: bool) -> bool:
+    """Whether the kernels of a call hold the label's lanes (keys of
+    ``_build.SMEM_BYTES``): the forward scan ``fwd`` for a forward-only
+    call; for a training call those of the scheme its forward picks, the
+    streamed pair ``streamed`` where :func:`streams_residuals` holds, else
+    ``fwd`` and the residual-free backward ``rf_bwd``.  A label that they
+    do not hold takes the pure path."""
+    _, lpad, k_win = geometry(ctx)
+    if not training:
+        return _build.fits((fwd,), lpad, k_win, ctx.logproba.device)
+    return (streams_residuals(ctx, chunk_plan(ctx)[0], streamed)
+            or _build.fits((fwd, rf_bwd), lpad, k_win, ctx.logproba.device))
+
+
+def _classic_streamed():
+    """The kernels of the classic streamed scheme: B2 and B3, or with
+    ``half_stream`` B13's forward (mode resid1) and backward."""
+    return ("classic_fwd", "classic_bwd_half" if get_config().half_stream
+            else "classic_bwd")
+
+
+def classic_kernels_hold(ctx: CtcContext, training: bool) -> bool:
+    """:func:`kernels_hold` for the classic topology."""
+    return kernels_hold(ctx, "classic_fwd", _classic_streamed(), "classic_bwd_rf",
+                        training)
+
+
 class ChunkPack(NamedTuple):
     """Training forward's pack of the residual-free scheme; it holds no
     ``[B, T, L]`` tensor.  ``carries``: the alpha carry entering each chunk
@@ -855,8 +891,7 @@ def classic_loss_and_pack(ctx: CtcContext):
         return classic_mod.loss(ctx, classic_mod.alpha(ctx)), None
     n_chunks, chunk_t = chunk_plan(ctx)
     half = get_config().half_stream
-    scan = "classic_bwd_half" if half else "classic_bwd"
-    if streams_residuals(ctx, n_chunks, ("classic_fwd", scan)):
+    if streams_residuals(ctx, n_chunks, _classic_streamed()):
         inputs = kernel_inputs(ctx)
         blank, dcu, lm, nb, rep, lens, lab_len, k_win = inputs
         mode = "resid1" if half else "resid"

@@ -57,6 +57,7 @@ from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     gradient_from_beta_carry,
     init_kw,
     kernel_lengths,
+    kernels_hold,
     pick_loss,
     scatter_chunk,
     shift_lanes,
@@ -169,6 +170,7 @@ def simplified_fwd(blank, dg, lens, k_win: int, mode: str, init=None):
     check_tensor(dg, (batch, tpad, lpad), f32, "dg", dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     init_ptrs = carry_pointers(init, 1, (batch, lpad), "init", dev)
+    check_aligned((("dg", dg),), "simplified_fwd")
     lib = _build.lib("simplified_fwd")
     _build.check_smem(
         lib.ctc_simplified_fwd_smem_bytes(lpad, k_win), "simplified_fwd", dev
@@ -406,6 +408,15 @@ def _pure_loss(ctx: CtcContext) -> torch.Tensor:
     return simplified_mod.loss(ctx, simplified_mod.alpha(ctx))
 
 
+_STREAMED = ("simplified_fwd", "simplified_bwd")  # B6 mode resid and B7
+
+
+def simplified_kernels_hold(ctx: CtcContext, training: bool) -> bool:
+    """``cuda_lattice.kernels_hold`` for the simplified topology."""
+    return kernels_hold(ctx, "simplified_fwd", _STREAMED, "simplified_bwd_rf",
+                        training)
+
+
 def simplified_loss_fast(ctx: CtcContext) -> torch.Tensor:
     """Forward-only block-float loss (kernel B6 in mode final, once per
     chunk); may flush to +inf."""
@@ -431,7 +442,7 @@ def simplified_loss_and_pack(ctx: CtcContext):
     if batch == 0 or num_t == 0:
         return _pure_loss(ctx), None
     n_chunks, chunk_t = chunk_plan(ctx)
-    if streams_residuals(ctx, n_chunks, ("simplified_fwd", "simplified_bwd")):
+    if streams_residuals(ctx, n_chunks, _STREAMED):
         inputs = simplified_kernel_inputs(ctx)
         blank, dg, _lm, lens, lab_len, k_win = inputs
         sa, saf, f, fe = simplified_fwd(blank, dg, lens, k_win, "resid")

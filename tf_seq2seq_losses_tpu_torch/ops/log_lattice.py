@@ -14,7 +14,7 @@ Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
 kernels; CPU tensors run the plain versions.  These kernels serve a time
 axis of one chunk only (a rare repair needs no chunked scan), and labels
 whose lanes their shared memory holds: beyond either the repair takes the
-pure path (:func:`fits_log_fallback`).
+pure path (:func:`fits_log_fallback`), in float64, cast back to float32.
 """
 
 from __future__ import annotations
@@ -268,7 +268,7 @@ def classic_loss_exact(ctx: CtcContext) -> torch.Tensor:
     """Exact classic loss through the log-space kernel B4 (mode final)."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
-        return classic_mod.loss(ctx, classic_mod.alpha(ctx))
+        return _pure_loss(classic_mod, ctx)
     blank_l, dc_l, pt_l, _lm, nb, rep, lens, lab_len = _log_inputs(ctx)
     f0, f1 = classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, "final")
     return _pick_log_loss(f0, f1, lab_len)
@@ -293,11 +293,21 @@ def assemble_with_blank_identity(ctx: CtcContext, non_blank, fast_loss):
     return torch.where(token_is_blank, bl, non_blank)
 
 
+def _pure_loss(pure, ctx: CtcContext) -> torch.Tensor:
+    """The loss on the pure path of the topology module ``pure``
+    (``ops/classic.py`` or ``ops/simplified.py``), in float64 and cast back
+    (``core.float64_context``): the repair of a row that these kernels do
+    not serve."""
+    c64 = core_mod.float64_context(ctx)
+    return pure.loss(c64, pure.alpha(c64)).float()
+
+
 def _pure_loss_and_gradient_log(pure, ctx: CtcContext):
-    """``(loss, log(-grad))`` on the pure path of the topology module
-    ``pure`` (``ops/classic.py`` or ``ops/simplified.py``)."""
-    loss = pure.loss(ctx, pure.alpha(ctx))
-    return loss, core_mod.gradient_log(pure, ctx, loss)
+    """``(loss, log(-grad))`` on the pure path of ``pure``, in float64 and
+    cast back, as :func:`_pure_loss`."""
+    c64 = core_mod.float64_context(ctx)
+    loss = pure.loss(c64, pure.alpha(c64))
+    return loss.float(), core_mod.gradient_log(pure, c64, loss).float()
 
 
 def _safe_loss(loss: torch.Tensor) -> torch.Tensor:
@@ -504,7 +514,7 @@ def simplified_loss_exact(ctx: CtcContext) -> torch.Tensor:
     """Exact simplified loss through the log-space kernel B8 (mode final)."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx, "simplified"):
-        return simplified_mod.loss(ctx, simplified_mod.alpha(ctx))
+        return _pure_loss(simplified_mod, ctx)
     blank_l, dg_l, _lm, lens, lab_len = simplified_log_inputs(ctx)
     f = simplified_log_fwd(blank_l, dg_l, lens, "final")
     return _pick_single_log_loss(f, lab_len)

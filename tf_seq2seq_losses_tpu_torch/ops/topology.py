@@ -13,14 +13,15 @@ control-flow structure that served it there:
 
 * ``flushed = isposinf(fast_loss) & feasible``;
 * every flushed row is recomputed, in rounds of ``repair_bucket2`` rows,
-  through the log-space kernels (``log_fallback``; a time axis of one
-  chunk and a label whose lanes they hold) or the pure path, and
-  scattered back;
+  each on its own rows' time axis, through the log-space kernels
+  (``log_fallback``; a time axis of one chunk and a label whose lanes they
+  hold) or the pure path in float64, and scattered back;
 * clean rows keep their fast values bit for bit;
 * NaN inputs flow through (NaN is not +inf).
 
 Finding the flushed rows is a ``nonzero()``, which waits for the device:
-one host synchronisation per guarded call.
+one host synchronisation per guarded call (and a few more per call that
+repairs rows).
 """
 
 from __future__ import annotations
@@ -59,21 +60,45 @@ def _simplified_feasible(ctx: CtcContext) -> torch.Tensor:
     return ctx.logit_length >= ctx.label_length
 
 
+# the fields of a context with a time axis (dim 1)
+_TIME_FIELDS = ("logproba", "raw_logproba", "logit_length_mask", "blank_lp")
+
+
 def take_ctx(ctx: CtcContext, idx: torch.Tensor) -> CtcContext:
-    """Gather a mini-batch of samples out of a context (repair rounds)."""
-    return CtcContext(
-        **{
-            name: val if name == "blank_index" else val.index_select(0, idx)
-            for name, val in ctx._asdict().items()
-        }
-    )
+    """Gather a mini-batch of samples out of a context (repair rounds), its
+    time axis cut to the longest ``logit_length`` among them (one step at
+    least): a short row of a long batch is repaired on its own length,
+    where the log-space kernels serve it."""
+    sub = {name: val if name == "blank_index" else val.index_select(0, idx)
+           for name, val in ctx._asdict().items()}
+    num_t = int(sub["logit_length"].max().clamp(1, ctx.logproba.shape[1]))
+    for name in _TIME_FIELDS:
+        sub[name] = sub[name][:, :num_t]
+    return CtcContext(**sub)
+
+
+def _repair_rounds(ctx: CtcContext, rows: torch.Tensor, bucket: int):
+    """``rows`` in rounds of at most ``bucket``, shortest first, the rows
+    that fit one chunk apart from the longer ones: a round runs on its
+    longest row's time axis (:func:`take_ctx`), and a short row is left to
+    the log-space kernels, which serve one chunk."""
+    lens = ctx.logit_length.index_select(0, rows)
+    order = torch.argsort(lens, stable=True)
+    rows = rows.index_select(0, order)
+    short = int((lens <= _kernels.chunk_steps()).sum())  # host sync
+    return [r for part in (rows[:short], rows[short:])
+            for r in torch.split(part, bucket) if r.numel()]
 
 
 def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None):
     """``fast_value`` with every flushed feasible row recomputed exactly.
 
     ``exact_fn``/``pure_fn`` take a (mini-batch) context, plus the gathered
-    rows of ``aux`` when it is given."""
+    rows of ``aux`` when it is given.  The mini-batch's time axis is cut to
+    its rows' lengths (:func:`take_ctx`); a repaired gradient or d_logits
+    is zero past ``logit_length``, so the steps cut off are zeros.
+    ``pure_fn`` runs in float64 (``core.float64_context``), its result cast
+    back."""
     cfg = get_config()
     if not cfg.guard:
         return fast_value
@@ -83,9 +108,13 @@ def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None):
         return fast_value
     fn = exact_fn if cfg.log_fallback else pure_fn
     out = fast_value.clone()
-    for idx in torch.split(rows, cfg.repair_bucket2):
+    for idx in _repair_rounds(ctx, rows, cfg.repair_bucket2):
         sub = take_ctx(ctx, idx)
+        if not cfg.log_fallback:
+            sub = _core.float64_context(sub)
         mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
+        if out.dim() == 3:  # zeros past the cut time axis
+            mini = torch.nn.functional.pad(mini, (0, 0, 0, out.shape[1] - mini.shape[1]))
         out[idx] = mini.to(out.dtype)
     return out
 
@@ -111,12 +140,14 @@ class Topology:
     block-float kernel path;
     ``loss_exact`` and ``loss_and_gradient_log_exact`` the exact log-space
     kernels that repair it; ``feasible`` gives the rows whose loss is
-    finite by their lengths.
+    finite by their lengths; ``kernels_hold(ctx, training)`` whether the
+    kernel path's kernels hold the label's lanes (a label that they do not
+    hold takes the pure path, as the JAX package computes any width).
     """
 
     def __init__(self, name, pure, feasible, loss_fast, loss_and_pack,
                  gradient_with_loss, streamed_acts, loss_exact,
-                 loss_and_gradient_log_exact):
+                 loss_and_gradient_log_exact, kernels_hold):
         self.name = name
         self.alpha = pure.alpha
         self.beta = pure.beta
@@ -130,6 +161,10 @@ class Topology:
         self._streamed_acts = streamed_acts
         self._loss_exact = loss_exact
         self._loss_and_gradient_log_exact = loss_and_gradient_log_exact
+        self._kernels_hold = kernels_hold
+
+    def _kernel_path(self, ctx: CtcContext, training: bool) -> bool:
+        return kernels_enabled(ctx) and self._kernels_hold(ctx, training)
 
     def pure_loss(self, c: CtcContext):
         return self.loss(c, self.alpha(c))
@@ -148,7 +183,7 @@ class Topology:
     def loss_fast(self, ctx: CtcContext):
         """Forward-only loss: the forward kernel in mode final on the
         kernel path."""
-        if not kernels_enabled(ctx):
+        if not self._kernel_path(ctx, training=False):
             return self.pure_loss(ctx)
         return self._guarded_loss(ctx, self._loss_fast(ctx))
 
@@ -156,7 +191,7 @@ class Topology:
         """Training forward: the guarded loss plus the pack that the
         backward reads (see ``cuda_lattice.classic_loss_and_pack``); the
         pack is None on the pure path."""
-        if not kernels_enabled(ctx):
+        if not self._kernel_path(ctx, training=True):
             return self.pure_loss(ctx), None
         fast, pack = self._loss_and_pack(ctx)
         return self._guarded_loss(ctx, fast), pack
@@ -164,7 +199,7 @@ class Topology:
     def gradient_fast(self, ctx: CtcContext, pack=None):
         """Gradient w.r.t. log-probabilities; the backward kernel on the
         kernel path."""
-        if not kernels_enabled(ctx):
+        if not self._kernel_path(ctx, training=True):
             return self._pure_grad(ctx)
         fast, fast_loss = self._gradient_with_loss(ctx, None, pack)
         return _guarded(
@@ -187,6 +222,8 @@ class Topology:
             loss, grad_log = self._loss_and_gradient_log_exact(c)
             return compose_dlogits(c, -torch.exp(grad_log), loss, dl)
 
+        if not self._kernel_path(ctx, training=True):
+            return pure(ctx, d_loss)
         if _kernels.fused_epilogue_ok(ctx, pack):
             fast, fast_loss = _kernels.streamed_dlogits(
                 ctx, d_loss, *self._streamed_acts(ctx, pack))
@@ -206,6 +243,7 @@ CLASSIC = Topology(
     streamed_acts=_kernels.classic_streamed_acts,
     loss_exact=_log.classic_loss_exact,
     loss_and_gradient_log_exact=_log.classic_loss_and_gradient_log_exact,
+    kernels_hold=_kernels.classic_kernels_hold,
 )
 SIMPLIFIED = Topology(
     "simplified", _simplified, _simplified_feasible,
@@ -215,5 +253,6 @@ SIMPLIFIED = Topology(
     streamed_acts=_skernels.simplified_streamed_acts,
     loss_exact=_log.simplified_loss_exact,
     loss_and_gradient_log_exact=_log.simplified_loss_and_gradient_log_exact,
+    kernels_hold=_skernels.simplified_kernels_hold,
 )
 TOPOLOGIES = {t.name: t for t in (CLASSIC, SIMPLIFIED)}

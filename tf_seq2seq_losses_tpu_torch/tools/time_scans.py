@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time the residual-free beta scans (B10 ``classic_bwd``, B11
-``simplified_bwd``) of one checkout of the repository on one NVIDIA card.
+"""Time the block-float scans of one checkout of the repository on one
+NVIDIA card: the forward scans B1 (``classic_fwd``, modes final, resid,
+bound and resid1) and B6 (``simplified_fwd``, modes final, resid and
+bound), and the residual-free beta scans B10 (``classic_bwd``) and B11
+(``simplified_bwd``).
 
-    python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \
+    python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
 
 ``--tree`` names the root of a checkout (the repository itself, or an
@@ -23,8 +26,11 @@ training step of each topology on the host clock (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
 through the pure path) and its device time by ``torch.profiler``.
 
-Prints one JSON line: the tag, the card's name and power limit, and the
-times in ms.
+Prints one JSON line: the tag, the card's name and power limit, the times
+in ms, and a digest of the outputs of the tree's own kernels at each shape
+(of what they write: mode resid's residuals only at the steps and windows
+that a sample runs), by which two trees' kernels are shown to give the
+same bits.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+_FWD_MODES = {"classic": ("final", "resid", "bound", "resid1"),
+              "simplified": ("final", "resid", "bound")}
 
 
 def build_variant(build, library: str, source: Path) -> Path:
@@ -53,10 +62,12 @@ def build_variant(build, library: str, source: Path) -> Path:
     return out
 
 
-def scan_args(smoke, torch, dev, max_t: int, chunk: int):
-    """``{topology: kernel arguments}`` of the residual-free backward on
-    chunk ``chunk`` of the inputs ``make_inputs`` gives at ``max_t`` (the
-    headline generator; at T=4000 that of ``benchmarks/long_t.py``)."""
+def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
+    """``{case: (launch, mode, lens, window)}`` for every forward mode and
+    the residual-free backward of each topology on chunk ``chunk`` of the
+    inputs ``make_inputs`` gives at ``max_t`` (the headline generator; at
+    T=4000 that of ``benchmarks/long_t.py``), each scan from the carry that
+    the chunks before it leave; ``mode`` is None for a backward."""
     from tf_seq2seq_losses_tpu_torch.ops import core
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
@@ -76,10 +87,45 @@ def scan_args(smoke, torch, dev, max_t: int, chunk: int):
                             **cl.init_kw(carry))
         ebi = cl.ebi_from_loss(ops.loss(carry))
         args = ops.chunk(chunk, chunk_t)
-        bounds = ops.fwd(*args, ops.k_win, "bound", **cl.init_kw(carries[chunk]))
-        out[topology] = (ops.bwd, (*args, ops.lab_len, ebi, *bounds[:ops.states + 1],
-                                   ops.k_win, None))
+        init = cl.init_kw(carries[chunk])
+        for mode in _FWD_MODES[topology]:
+            out[f"{topology}_fwd[{mode}]"] = (
+                lambda f=ops.fwd, a=args, k=ops.k_win, m=mode, kw=init: f(*a, k, m, **kw),
+                mode, args[-1], ops.k_win)
+        bounds = ops.fwd(*args, ops.k_win, "bound", **init)[:ops.states + 1]
+        b_args = (*args, ops.lab_len, ebi, *bounds, ops.k_win, None)
+        out[f"{topology}_bwd"] = (lambda f=ops.bwd, a=b_args: f(*a), None, args[-1],
+                                  ops.k_win)
     return out
+
+
+def written(torch, outs, mode, lens, k_win) -> list:
+    """A scan's outputs with what the kernel leaves unwritten set to 0: the
+    residual steps and windows past each sample's length (modes resid and
+    resid1: the residuals, the frames, then in resid1 ``a0w``)."""
+    outs = list(outs)
+    if mode not in ("resid", "resid1"):
+        return outs
+    steps = torch.arange(outs[0].shape[1], device=lens.device)
+    run_t = steps[None, :] < lens[:, None]
+    run_w = steps[None, ::k_win] < lens[:, None]
+
+    def keep(x, ok):
+        ok = ok.reshape(ok.shape + (1,) * (x.dim() - 2))
+        return torch.where(ok, x, torch.zeros_like(x))
+
+    for i, ok in enumerate((run_t, run_w, run_w)[:3 if mode == "resid1" else 2]):
+        outs[i] = keep(outs[i], ok)
+    return outs
+
+
+def digest(torch, case) -> str:
+    """The first 16 hex digits of a SHA-256 of what ``case`` writes."""
+    launch, mode, lens, k_win = case
+    h = hashlib.sha256()
+    for t in written(torch, launch(), mode, lens, k_win):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def long_steps(smoke, torch, dev) -> dict:
@@ -129,22 +175,21 @@ def main() -> int:
         library, _, source = rest.partition("=")
         so = build_variant(_build, library, Path(source).resolve())
         variants.setdefault(tag, {})[library] = _build._bind(library, so)
-    shapes = {"headline": (scan_args(smoke, torch, dev, smoke.MAX_T, 0), 20),
-              "long_t_chunk": (scan_args(smoke, torch, dev, smoke.LONG_T, 1), 5)}
+    shapes = {"headline": (scan_cases(smoke, torch, dev, smoke.MAX_T, 0), 20),
+              "long_t_chunk": (scan_cases(smoke, torch, dev, smoke.LONG_T, 1), 5)}
+    digests = {f"{name} {shape}": digest(torch, case)
+               for shape, (cases, _) in shapes.items() for name, case in cases.items()}
     times = {}
     for tag, override in [(args.tag or tree.name, {}), *variants.items()]:
         _build._libs.clear()
         _build._libs.update({**libs, **override})
-        row = {}
-        for shape, (per_topology, burst) in shapes.items():
-            for topology, (fn, fargs) in per_topology.items():
-                row[f"{topology}_bwd {shape}"] = smoke.time_ms(
-                    torch, lambda: fn(*fargs), burst=burst)
-        times[tag] = row
+        times[tag] = {f"{name} {shape}": smoke.time_ms(torch, case[0], burst=burst)
+                      for shape, (cases, burst) in shapes.items()
+                      for name, case in cases.items()}
     _build._libs.clear()
     _build._libs.update(libs)
     out = {"tree": str(args.tag or tree.name), "card": smoke.card_line(),
-           "ms": times}
+           "ms": times, "digest": digests}
     if args.steps:
         out["long_t_steps"] = long_steps(smoke, torch, dev)
     print(json.dumps(out), flush=True)
