@@ -23,8 +23,13 @@ simplified):
    every geometry here and also from the standard and a random carry at a
    label for every lanes-per-thread instantiation (``lane_cases``: up to
    the widest label at window 8, then at window 1) and at windows 3 and
-   16.  B13's forward (mode resid1) must give mode resid's residuals, and
-   its backward B3's acts and beta carry, bit for bit.  B12 runs at batch
+   16.  B13's forward (mode resid1) must give mode resid's residuals bit
+   for bit.  The streamed beta scans B3 and B13 must give their plain
+   versions' acts and beta carry bit for bit, and B13 B3's, at every
+   geometry here, and also over the residuals of modes resid and resid1
+   from a random carry with a random act normaliser, at a label for every
+   lanes-per-thread instantiation of each (``lane_cases``) and at windows 3
+   and 16.  B12 runs at batch
    8, blank 3, V = 32, 128 and 1000 (atol 1e-6).  The residual-free modes (B10, B11:
    forward modes bound and final from a carry, backward from a beta carry)
    run at the headline shape, at each batch-8 geometry above and at window
@@ -328,16 +333,9 @@ def compare_kernels(ctx):
     ebi = cl.ebi_from_loss(rl_k)
     b_args = (blank, dcu, lm, nb, rep, lens, lab_len, ebi, r_k[0], r_k[1], k_win)
     b_k = cl.classic_bwd_streamed(*b_args)
-    b_p = cl.classic_bwd_streamed_plain(*b_args)
-
-    def beta_loss(b):
-        return -(torch.log(b[1][:, 0]) + b[3][:, 0].float() * cl.LN2)
-
-    agree(beta_loss(b_k), beta_loss(b_p), 1e-5, 0.0,
-          "classic_bwd_streamed beta carry vs plain")
-    agree(b_k[0], b_p[0], 0.0, 1e-5, "classic_bwd_streamed pc vs plain")
-    errs["classic_bwd_streamed"] = max(max_err(b_k[0], b_p[0]),
-                                       max_err(beta_loss(b_k), beta_loss(b_p)))
+    errs["classic_bwd_streamed"] = agree_carry(
+        b_k, cl.classic_bwd_streamed_plain(*b_args),
+        "classic_bwd_streamed pc and beta carry")
 
     # the half-stream pair (B13): mode resid1, then the backward that
     # rebuilds a0; the latter bit for bit B3 on the same forward
@@ -360,14 +358,10 @@ def compare_kernels(ctx):
                                       max_err(h_k[2][valid_w], h_p[2][valid_w]))
     hb_args = (blank, dcu, lm, nb, rep, lens, lab_len, ebi, *h_k[:3], k_win)
     hb_k = cl.classic_bwd_half(*hb_args)
-    hb_p = cl.classic_bwd_half_plain(*hb_args)
-    agree(hb_k[0], hb_p[0], 0.0, 1e-5, "classic_bwd_half pc vs plain")
-    agree(beta_loss(hb_k), beta_loss(hb_p), 1e-5, 0.0,
-          "classic_bwd_half beta carry vs plain")
+    errs["classic_bwd_half"] = agree_carry(
+        hb_k, cl.classic_bwd_half_plain(*hb_args), "classic_bwd_half pc and beta carry")
     check(all(torch.equal(a, b) for a, b in zip(hb_k, b_k)),
           "classic_bwd_half pc and beta carry are B3's bit for bit")
-    errs["classic_bwd_half"] = max(max_err(hb_k[0], hb_p[0]),
-                                   max_err(beta_loss(hb_k), beta_loss(hb_p)))
 
     blank_l, dc_l, pt_l, _lm, nb_, rep_, _, _ = ll._log_inputs(ctx)
     lf_k = ll.classic_log_fwd(blank_l, dc_l, pt_l, nb_, rep_, lens, "final")
@@ -562,8 +556,9 @@ def rf_ops(ctx, topology):
 
 
 def agree_carry(ours, ref, what) -> float:
-    """Hold a block-float carry (mantissas, then exponents) of a forward scan
-    against its plain version, bit for bit; returns the largest error."""
+    """Hold the outputs of a scan (a block-float carry, mantissas then
+    exponents, or a backward's acts and beta carry) against its plain
+    version's, bit for bit; returns the largest error."""
     import torch
 
     err = max(max_err(a, b) for a, b in zip(ours, ref))
@@ -724,6 +719,53 @@ def compare_rf_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
                 err, _ = same_bwd(ops, b_args, f"{topology}_bwd at window {window}, "
                                   f"{lpad} lanes, from random carries")
             errs[f"{topology}_bwd"] = max(errs.get(f"{topology}_bwd", 0.0), err)
+    return errs
+
+
+def compare_streamed_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
+    """Hold B3 (``cases["classic_bwd_streamed"]``) and B13
+    (``cases["classic_bwd_half"]``) bit for bit against their plain versions
+    at each ``(window, label width)``: labels of their full width
+    (``label_length`` the width), the residuals of B1 mode resid (B3) or
+    resid1 (B13) from a random carry with every lane live, and a random act
+    normaliser; B13 also against B3 where B3 holds the lanes.  Returns the
+    largest error of each (0.0)."""
+    from tf_seq2seq_losses_tpu_torch.ops import _build, core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    gen = torch.Generator().manual_seed(seed)
+    errs = {}
+    for name, widths in cases.items():
+        for window, width in widths:
+            labels, logits, _, logit_length = make_inputs(
+                torch, seed + width, dev, batch=batch, label_width=width, max_t=max_t,
+                infeasible=False)
+            full = torch.full_like(logit_length, width)
+            with config_override(window=window):
+                ctx = core.make_context(labels, logit_to_logproba(logits, 2), full,
+                                        logit_length, 0)
+                *args, lab_len, _ = cl.kernel_inputs(ctx)
+                lpad = args[1].shape[2]
+                alpha = random_carry(torch, gen, 2, batch, lpad, dev)
+                ebi = -torch.randint(0, 60, (batch,), generator=gen).float().to(dev)
+                what = f"{name} at window {window}, {lpad} lanes, from a random carry"
+                sa, saf = cl.classic_fwd(*args, window, "resid", init=alpha)[:2]
+                b_args = (*args, lab_len, ebi, sa, saf, window)
+                if name == "classic_bwd_streamed":
+                    err = agree_carry(cl.classic_bwd_streamed(*b_args),
+                                      cl.classic_bwd_streamed_plain(*b_args), what)
+                else:
+                    half = cl.classic_fwd(*args, window, "resid1", init=alpha)[:3]
+                    h_args = (*args, lab_len, ebi, *half, window)
+                    hb = cl.classic_bwd_half(*h_args)
+                    err = agree_carry(hb, cl.classic_bwd_half_plain(*h_args), what)
+                    if _build.fits(("classic_bwd",), lpad, window, dev):
+                        check(all(torch.equal(a, b) for a, b in
+                                  zip(hb, cl.classic_bwd_streamed(*b_args))),
+                              f"{what}: B3's pc and beta carry bit for bit")
+            errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
 
@@ -970,7 +1012,8 @@ def drive_main_path(torch, dev, topology, inputs, ctx, sync):
 # the JAX repo's ASR north-star vocabulary (bench.py:266-267), which its
 # fused epilogue was written for
 SLICE_VOCAB = 128
-# a label array of 2016 lanes: wider than B3 (1600) and B5 (1568) hold
+# a label array of 2016 lanes: wider than B3 (1792), B13 (1856) and B5
+# (1568) hold
 WIDE_LABELS = 2000
 
 
@@ -1484,8 +1527,16 @@ def run(seed: int, dev) -> dict:
     fwd_key = ("B1/B6 every mode from the standard and random carries, (window, width) "
                + json.dumps(fwd_cases))
     extra[fwd_key] = compare_fwd_lanes(torch, dev, seed, fwd_cases)
+    # B3 and B13 over residuals from a random carry: a label for each
+    # lanes-per-thread instantiation, then windows 3 and 16
+    streamed_cases = {name: cases + [(3, 999), (16, 999)] for name, cases in
+                      lane_cases(dev, {"classic_bwd_streamed": "classic_bwd",
+                                       "classic_bwd_half": "classic_bwd_half"}).items()}
+    streamed_key = ("B3/B13 over residuals from a random carry, (window, width) "
+                    + json.dumps(streamed_cases))
+    extra[streamed_key] = compare_streamed_lanes(torch, dev, seed, streamed_cases)
     for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"],
-                      extra[fwd_key]):
+                      extra[fwd_key], extra[streamed_key]):
         for name, e in name_errs.items():
             errs[name] = max(errs[name], e)
     # the residual-free kernels over several chunks, each from the carries

@@ -33,13 +33,14 @@ def _widest(name, x=8):
 def test_the_mirrors_give_the_lanes_measured_on_the_h100():
     # the widest labels at window 8 that chip_smoke.py phase 1 prints on an
     # H100, from the libraries' own formulas
-    widest = {"classic_fwd": 4832, "classic_bwd_rf": 3040, "classic_bwd": 1600,
-              "simplified_fwd": 4832, "simplified_bwd_rf": 3616,
-              "simplified_bwd": 2400, "classic_log_bwd": 1568}
+    widest = {"classic_fwd": 4832, "classic_bwd_rf": 3040, "classic_bwd": 1792,
+              "classic_bwd_half": 1856, "simplified_fwd": 4832,
+              "simplified_bwd_rf": 3616, "simplified_bwd": 2400,
+              "classic_log_bwd": 1568}
     assert {name: _widest(name) for name in widest} == widest
-    assert _widest("classic_bwd_half") == _widest("classic_bwd")
     # a one-chunk step with a 2016-lane label: residual-free, pure repair
     assert not _build.fits(("classic_bwd",), 2016, 8, CPU)
+    assert not _build.fits(("classic_bwd_half",), 2016, 8, CPU)
     assert _build.fits(("classic_fwd", "classic_bwd_rf"), 2016, 8, CPU)
     assert not _build.fits(("classic_log_fwd", "classic_log_bwd"), 2016, 0, CPU)
     assert _build.fits(("fused_epilogue",), 2016, 1000, CPU)
@@ -87,6 +88,25 @@ def test_the_staged_forwards_hold_at_least_the_lanes_of_the_unstaged_ones(name, 
     assert _widest(name, 8) >= {"classic_fwd": 3040, "simplified_fwd": 3872}[name]
 
 
+def _unstaged_streamed_bytes(lp, k):
+    """The streamed one-chunk beta scans' shared memory before their
+    redesign (B3 and B13 alike): every per-lane value in shared memory and
+    one staged window of transitions and residual pairs."""
+    return 4 * (lp * (9 + 3 * k) + k) + 12 * lp
+
+
+@pytest.mark.parametrize("window", [1, 8, 16])
+@pytest.mark.parametrize("name", ["classic_bwd", "classic_bwd_half"])
+def test_the_staged_streamed_scans_hold_at_least_the_lanes_of_the_unstaged_ones(
+        name, window):
+    # the ring costs shared memory that the lanes held in registers give
+    # back: no label that took the streamed scheme before may leave it
+    before = max(lp for lp in range(32, 16384, 32)
+                 if _unstaged_streamed_bytes(lp, window) <= _build.SMEM_LIMIT)
+    assert before == {1: 3872, 8: 1600, 16: 960}[window]
+    assert _widest(name, window) >= before
+
+
 def test_the_staged_scans_need_aligned_rows():
     x = torch.zeros(65)
     cl.check_aligned((("x", x[:64]),), "classic_bwd")
@@ -108,9 +128,10 @@ def _case(seed=0, batch=3, max_t=14, vocab=5, width=6):
     return (labels, logits, *lengths)
 
 
-# At 32 lanes and window 4 the streamed backwards need 3088 (classic) and
-# 2064 (simplified) bytes, the residual-free scans 2008 and 1624 with their
-# forwards under them: these limits leave only the residual-free scheme.
+# At 32 lanes and window 4 the streamed backwards need 2640 (classic; 2520
+# half-stream) and 2064 (simplified) bytes, the residual-free scans 2008 and
+# 1624 with their forwards under them: these limits leave only the
+# residual-free scheme.
 @pytest.mark.parametrize("topology,limit", [("classic", 2500), ("simplified", 1900)])
 @pytest.mark.parametrize("half", [False, True])
 def test_a_label_the_streamed_kernels_do_not_hold_takes_the_residual_free_scheme(

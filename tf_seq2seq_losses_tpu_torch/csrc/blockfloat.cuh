@@ -88,7 +88,8 @@ __device__ __forceinline__ float scaled_act(float x, float y, float z,
 
 // The same acts with the scale s_hi * s_lo taken once (act_scale, exact:
 // a power of two), for a scan that reuses it over a window: the same bits,
-// two float64 conversions and a multiply fewer an act.
+// two float64 conversions and a multiply fewer an act (classic_bwd_rf.cu,
+// simplified_bwd_rf.cu, classic_bwd.cuh).
 __device__ __forceinline__ double act_scale(float s_hi, float s_lo) {
   return (double)s_hi * (double)s_lo;
 }

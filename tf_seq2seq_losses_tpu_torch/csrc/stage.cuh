@@ -2,8 +2,9 @@
 // (TMA without a tensor map) from global into shared memory, completing on
 // an mbarrier, 4-byte cp.async for rows that are not 16-byte aligned, and
 // the thread mapping of the kernels that hold a thread's lanes in
-// registers.  Used by classic_fwd.cu, simplified_fwd.cu, classic_bwd_rf.cu
-// and simplified_bwd_rf.cu.
+// registers.  Used by classic_fwd.cu, simplified_fwd.cu, classic_bwd_rf.cu,
+// simplified_bwd_rf.cu and classic_bwd.cuh (classic_bwd.cu and
+// classic_bwd_half.cu).
 //
 // A bulk copy needs its global and shared addresses and its size to be
 // multiples of 16 bytes; the wrappers check the base pointers, and rows of

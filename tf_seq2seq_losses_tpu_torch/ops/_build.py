@@ -90,8 +90,19 @@ _LOG_CHUNK = 8  # kChunk / kSChunk of the log-space kernels
 _SPARE_ROWS = 2  # ring rows beyond one window of the staged scans
 
 
-def _classic_bwd_bytes(lp: int, k: int) -> int:
-    return _F * (lp * (9 + 3 * k) + k) + _N * 3 * lp  # B3 and B13 alike
+def _classic_bwd_bytes(half: bool):
+    """The streamed beta scans' formula (B3, B13 with ``half``): a ring of
+    k + spare slots, at least kBwdMinRing, each a step's transition row and
+    its residual pair (B13: a1 only), and the double-buffered exchange a
+    lane; B13 also the window's rebuilt a0 and the a0 that opens it; a
+    blank row per window slot; an mbarrier per ring slot (B13: and a0's)."""
+    parts = 2 if half else 3
+
+    def smem_bytes(lp: int, k: int) -> int:
+        ring = max(k + _SPARE_ROWS, 4)  # kBwdMinRing
+        per_lane = ring * parts + 2 + (k + 1 if half else 0)
+        return _F * (lp * per_lane + 2 * k) + _BAR * (ring + half)
+    return smem_bytes
 
 
 def _fwd_bytes(min_ring: int):
@@ -110,8 +121,8 @@ def _fwd_bytes(min_ring: int):
 # epilogue, and unused by the log-space kernels.
 SMEM_BYTES = {
     "classic_fwd": _fwd_bytes(10),
-    "classic_bwd": _classic_bwd_bytes,
-    "classic_bwd_half": _classic_bwd_bytes,
+    "classic_bwd": _classic_bwd_bytes(False),
+    "classic_bwd_half": _classic_bwd_bytes(True),
     # a ring of k + spare staged rows, a blank row per window slot, an
     # mbarrier per ring row and one for the boundary rows
     "classic_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 9) + 2 * k)

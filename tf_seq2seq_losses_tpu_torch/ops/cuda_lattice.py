@@ -557,6 +557,7 @@ def classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
         )
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     check_tensor(sa, (batch, tpad, 2, lpad), torch.float32, "sa", dev)
+    check_aligned((("dcu", dcu), ("sa", sa)), "classic_bwd_streamed")
     out = _launch_beta("classic_bwd", "ctc_classic_bwd_streamed",
                        (blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf), k_win)
     classic_bwd_streamed.launches += 1
@@ -643,6 +644,7 @@ def classic_bwd_half(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w,
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     check_tensor(a1, (batch, tpad, lpad), torch.float32, "a1", dev)
     check_tensor(a0w, (batch, tpad // k_win, lpad), torch.float32, "a0w", dev)
+    check_aligned((("dcu", dcu), ("a1", a1), ("a0w", a0w)), "classic_bwd_half")
     args = (blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w)
     out = _launch_beta("classic_bwd_half", "ctc_classic_bwd_half", args, k_win)
     classic_bwd_half.launches += 1

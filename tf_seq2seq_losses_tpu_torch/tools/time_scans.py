@@ -2,8 +2,10 @@
 """Time the block-float scans of one checkout of the repository on one
 NVIDIA card: the forward scans B1 (``classic_fwd``, modes final, resid,
 bound and resid1) and B6 (``simplified_fwd``, modes final, resid and
-bound), and the residual-free beta scans B10 (``classic_bwd``) and B11
-(``simplified_bwd``).
+bound), the residual-free beta scans B10 (``classic_bwd``) and B11
+(``simplified_bwd``), and at the headline the streamed one-chunk beta scans
+B3 (``classic_bwd_streamed``, over mode resid's residuals) and B13
+(``classic_bwd_half``, over mode resid1's).
 
     python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
@@ -21,16 +23,19 @@ Shapes: the headline (B=256, T=500, V=32, labels [256, 250], one chunk;
 bursts of 20 launches) and one long-T chunk (chunk 1 of 8 at B=256,
 T=4000, labels [256, 2000]: 504 steps, 2016 lanes, from the carry chunk 0
 leaves; bursts of 5), each by CUDA events, the median of 5 bursts, as
-``chip_smoke.py`` times its kernels.  ``--steps`` also times the long-T
-training step of each topology on the host clock (median of 3; the
+``chip_smoke.py`` times its kernels.  ``--steps`` also times the classic
+training step at the headline, streamed and half-stream (median of 20),
+and the long-T training step of each topology (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
-through the pure path) and its device time by ``torch.profiler``.
+through the pure path), each on the host clock and its device time by
+``torch.profiler``.
 
 Prints one JSON line: the tag, the card's name and power limit, the times
-in ms, and a digest of the outputs of the tree's own kernels at each shape
-(of what they write: mode resid's residuals only at the steps and windows
-that a sample runs), by which two trees' kernels are shown to give the
-same bits.
+in ms, each case's bound (the least time the card could take for its work
+on this run's data, ``chip_smoke.kernel_bounds``), and a digest of the
+outputs of the tree's own kernels at each shape (of what they write: mode
+resid's residuals only at the steps and windows that a sample runs), by
+which two trees' kernels are shown to give the same bits.
 """
 
 from __future__ import annotations
@@ -67,7 +72,9 @@ def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
     the residual-free backward of each topology on chunk ``chunk`` of the
     inputs ``make_inputs`` gives at ``max_t`` (the headline generator; at
     T=4000 that of ``benchmarks/long_t.py``), each scan from the carry that
-    the chunks before it leave; ``mode`` is None for a backward."""
+    the chunks before it leave; ``mode`` is None for a backward.  Where the
+    time axis is one chunk, also B3 over mode resid's pack and B13 over mode
+    resid1's, with the act normaliser of that forward's loss."""
     from tf_seq2seq_losses_tpu_torch.ops import core
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
@@ -96,7 +103,28 @@ def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
         b_args = (*args, ops.lab_len, ebi, *bounds, ops.k_win, None)
         out[f"{topology}_bwd"] = (lambda f=ops.bwd, a=b_args: f(*a), None, args[-1],
                                   ops.k_win)
+        if topology == "classic" and n_chunks == 1:
+            sa, saf, *fin = ops.fwd(*args, ops.k_win, "resid")
+            a1, saf1, a0w = ops.fwd(*args, ops.k_win, "resid1")[:3]
+            s_args = (*args, ops.lab_len, cl.ebi_from_loss(ops.loss(fin)))
+            out["classic_bwd_streamed"] = (
+                lambda a=(*s_args, sa, saf, ops.k_win): cl.classic_bwd_streamed(*a),
+                None, args[-1], ops.k_win)
+            out["classic_bwd_half"] = (
+                lambda a=(*s_args, a1, saf1, a0w, ops.k_win): cl.classic_bwd_half(*a),
+                None, args[-1], ops.k_win)
     return out
+
+
+def bound_ms(smoke, torch, dev, max_t: int, cases) -> dict:
+    """``{case: ms}``: the least time the card could take for each case's
+    work on the data ``scan_cases`` made at ``max_t``
+    (``chip_smoke.kernel_bounds``: its bytes at the HBM rate or its
+    operations at the float32 rate, whichever is longer)."""
+    label_length = smoke.make_inputs(torch, 0, dev, max_t=max_t,
+                                     infeasible=max_t == smoke.MAX_T)[2]
+    return {name: smoke.bound(*smoke.kernel_bounds(lens, label_length, k_win)[name])[0]
+            for name, (_launch, _mode, lens, k_win) in cases.items()}
 
 
 def written(torch, outs, mode, lens, k_win) -> list:
@@ -126,6 +154,24 @@ def digest(torch, case) -> str:
     for t in written(torch, launch(), mode, lens, k_win):
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def headline_steps(smoke, torch, dev) -> dict:
+    """Host-clock and device time of the classic training step at the
+    headline, streamed (B2, B3) and half-stream (resid1, B13)."""
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    labels, *inputs = smoke.make_inputs(torch, 0, dev)
+    step = smoke.make_step(torch, smoke.loss_function("classic"), labels)
+    out = {}
+    for name, half in (("classic_fwd_bwd_step", False),
+                       ("classic_fwd_bwd_step_half_stream", True)):
+        with config_override(half_stream=half):
+            host = smoke.host_ms(torch, lambda: step(*inputs))
+            prof = smoke.profile_step(torch, dev, host, lambda: step(*inputs))
+        out[name] = {"host_ms": host, "device_ms": prof.get("device_ms_per_step"),
+                     "device_idle_share": prof.get("device_idle_share")}
+    return out
 
 
 def long_steps(smoke, torch, dev) -> dict:
@@ -175,22 +221,27 @@ def main() -> int:
         library, _, source = rest.partition("=")
         so = build_variant(_build, library, Path(source).resolve())
         variants.setdefault(tag, {})[library] = _build._bind(library, so)
-    shapes = {"headline": (scan_cases(smoke, torch, dev, smoke.MAX_T, 0), 20),
-              "long_t_chunk": (scan_cases(smoke, torch, dev, smoke.LONG_T, 1), 5)}
+    # shape: (T, the chunk timed, launches a burst)
+    shapes = {"headline": (smoke.MAX_T, 0, 20), "long_t_chunk": (smoke.LONG_T, 1, 5)}
+    cases = {shape: scan_cases(smoke, torch, dev, max_t, chunk)
+             for shape, (max_t, chunk, _) in shapes.items()}
     digests = {f"{name} {shape}": digest(torch, case)
-               for shape, (cases, _) in shapes.items() for name, case in cases.items()}
+               for shape in shapes for name, case in cases[shape].items()}
+    bounds = {f"{name} {shape}": ms for shape, (max_t, _, _) in shapes.items()
+              for name, ms in bound_ms(smoke, torch, dev, max_t, cases[shape]).items()}
     times = {}
     for tag, override in [(args.tag or tree.name, {}), *variants.items()]:
         _build._libs.clear()
         _build._libs.update({**libs, **override})
         times[tag] = {f"{name} {shape}": smoke.time_ms(torch, case[0], burst=burst)
-                      for shape, (cases, burst) in shapes.items()
-                      for name, case in cases.items()}
+                      for shape, (_, _, burst) in shapes.items()
+                      for name, case in cases[shape].items()}
     _build._libs.clear()
     _build._libs.update(libs)
     out = {"tree": str(args.tag or tree.name), "card": smoke.card_line(),
-           "ms": times, "digest": digests}
+           "ms": times, "bound_ms": bounds, "digest": digests}
     if args.steps:
+        out["headline_steps"] = headline_steps(smoke, torch, dev)
         out["long_t_steps"] = long_steps(smoke, torch, dev)
     print(json.dumps(out), flush=True)
     return 0
