@@ -24,13 +24,16 @@ simplified):
    label for every lanes-per-thread instantiation (``lane_cases``: up to
    the widest label at window 8, then at window 1) and at windows 3 and
    16.  B13's forward (mode resid1) must give mode resid's residuals bit
-   for bit.  The streamed beta scans B3 and B13 must give their plain
+   for bit.  The streamed beta scans B3, B13 and B7 must give their plain
    versions' acts and beta carry bit for bit, and B13 B3's, at every
-   geometry here, and also over the residuals of modes resid and resid1
-   from a random carry with a random act normaliser, at a label for every
-   lanes-per-thread instantiation of each (``lane_cases``) and at windows 3
-   and 16.  B12 runs at batch
-   8, blank 3, V = 32, 128 and 1000 (atol 1e-6).  The residual-free modes (B10, B11:
+   geometry here, and also over the residuals of B1 modes resid and resid1
+   and of B6 mode resid from a random carry with a random act normaliser,
+   at a label for every lanes-per-thread instantiation of each
+   (``lane_cases``) and at windows 3 and 16; B7 also B11's where B11 holds
+   the lanes.  B12 runs at batch 8, blank 3, V = 32, 128 and 1000, and on
+   random acts at each V over labels of 992, 2048 and 2080 lanes (two act
+   rows staged a warp, then one) and the widest it holds (atol 1e-6).
+   The residual-free modes (B10, B11:
    forward modes bound and final from a carry, backward from a beta carry)
    run at the headline shape, at each batch-8 geometry above and at window
    3 (where a window's blank row is not 16-byte aligned), and chunk by
@@ -439,9 +442,9 @@ def compare_simplified_kernels(ctx):
 
     agree(beta_loss(b_k), beta_loss(b_p), 1e-5, 0.0,
           "simplified_bwd_streamed beta carry vs plain")
-    agree(b_k[0], b_p[0], 0.0, 1e-5, "simplified_bwd_streamed pd vs plain")
-    errs["simplified_bwd_streamed"] = max(max_err(b_k[0], b_p[0]),
-                                          max_err(beta_loss(b_k), beta_loss(b_p)))
+    errs["simplified_bwd_streamed"] = max(
+        agree_carry(b_k, b_p, "simplified_bwd_streamed pd and beta carry"),
+        max_err(beta_loss(b_k), beta_loss(b_p)))
 
     blank_l, dg_l, _lm, _, _ = ll.simplified_log_inputs(ctx)
 
@@ -723,13 +726,15 @@ def compare_rf_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
 
 
 def compare_streamed_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
-    """Hold B3 (``cases["classic_bwd_streamed"]``) and B13
-    (``cases["classic_bwd_half"]``) bit for bit against their plain versions
-    at each ``(window, label width)``: labels of their full width
-    (``label_length`` the width), the residuals of B1 mode resid (B3) or
-    resid1 (B13) from a random carry with every lane live, and a random act
-    normaliser; B13 also against B3 where B3 holds the lanes.  Returns the
-    largest error of each (0.0)."""
+    """Hold B3 (``cases["classic_bwd_streamed"]``), B13
+    (``cases["classic_bwd_half"]``) and B7 (``cases["simplified_bwd_streamed"]``)
+    bit for bit against their plain versions at each ``(window, label
+    width)``: labels of their full width (``label_length`` the width), the
+    residuals of B1 mode resid (B3) or resid1 (B13), or of B6 mode resid
+    (B7), from a random carry with every lane live, and a random act
+    normaliser; B13 also against B3 where B3 holds the lanes, B7 against
+    B11 over B6 mode bound's boundaries from the same carry where B11 holds
+    them.  Returns the largest error of each (0.0)."""
     from tf_seq2seq_losses_tpu_torch.ops import _build, core
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.utils.config import config_override
@@ -746,6 +751,10 @@ def compare_streamed_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
             with config_override(window=window):
                 ctx = core.make_context(labels, logit_to_logproba(logits, 2), full,
                                         logit_length, 0)
+                if name == "simplified_bwd_streamed":
+                    err = same_simplified_streamed(torch, gen, ctx, window)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    continue
                 *args, lab_len, _ = cl.kernel_inputs(ctx)
                 lpad = args[1].shape[2]
                 alpha = random_carry(torch, gen, 2, batch, lpad, dev)
@@ -767,6 +776,70 @@ def compare_streamed_lanes(torch, dev, seed, cases, max_t=24, batch=4) -> dict:
                               f"{what}: B3's pc and beta carry bit for bit")
             errs[name] = max(errs.get(name, 0.0), err)
     return errs
+
+
+def same_simplified_streamed(torch, gen, ctx, window) -> float:
+    """B7 on ``ctx`` over B6 mode resid's residuals from a random carry,
+    with a random act normaliser, bit for bit its plain version's, and
+    B11's over B6 mode bound's boundaries from the same carry where B11
+    holds the lanes; returns the largest error (0.0)."""
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
+
+    blank, dg, _lm, lens, lab_len, _ = cs.simplified_kernel_inputs(ctx)
+    batch, _, lpad = dg.shape
+    dev = dg.device
+    alpha = random_carry(torch, gen, 1, batch, lpad, dev)
+    ebi = -torch.randint(0, 60, (batch,), generator=gen).float().to(dev)
+    what = f"simplified_bwd_streamed at window {window}, {lpad} lanes, from a random carry"
+    sa, saf = cs.simplified_fwd(blank, dg, lens, window, "resid", init=alpha)[:2]
+    b_args = (blank, dg, lens, lab_len, ebi, sa, saf, window)
+    ours = cs.simplified_bwd_streamed(*b_args)
+    err = agree_carry(ours, cs.simplified_bwd_streamed_plain(*b_args), what)
+    if _build.fits(("simplified_bwd_rf",), lpad, window, dev):
+        bd, bde = cs.simplified_fwd(blank, dg, lens, window, "bound", init=alpha)[:2]
+        rf = cs.simplified_bwd(blank, dg, lens, lab_len, ebi, bd, bde, window)
+        check(all(torch.equal(a, b) for a, b in zip(ours, rf)),
+              f"{what}: B11's pd and beta carry bit for bit")
+    return err
+
+
+def compare_fused_lanes(torch, dev, seed, max_t=24, batch=3) -> dict:
+    """Hold B12 against its plain version (atol 1e-6, as ``compare_fused``)
+    at V = 32, 128 and 1000 on random acts in [0, 1) over labels of 992 and
+    2048 lanes (two act rows staged a warp), 2080 (one) and the widest it
+    holds at each V: random tokens, one lane in ten unlisted, blank 3,
+    sample 0 with no listed lane and sample 1 with no valid step.  Returns
+    ``{V: the widest label's lanes}``."""
+    from tf_seq2seq_losses_tpu_torch.ops import _build
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+
+    gen = torch.Generator().manual_seed(seed)
+    widest = {}
+    for vocab in (32, 128, 1000):
+        widest[vocab] = max(lp for lp in range(32, 16384, 32)
+                            if _build.fits(("fused_epilogue",), lp, vocab, dev))
+        for lpad in (992, 2048, 2080, widest[vocab]):
+            acts = torch.rand((batch, max_t, lpad), generator=gen)
+            labels = torch.randint(0, vocab, (batch, lpad), generator=gen,
+                                   dtype=torch.int32)
+            lm = (torch.rand((batch, lpad), generator=gen) >= 0.1).float()
+            lm[0] = 0.0
+            scale = 0.5 + torch.rand((batch,), generator=gen)
+            d_loss = 0.5 + torch.rand((batch,), generator=gen)
+            lens = torch.randint(max_t // 2, max_t + 1, (batch,), generator=gen,
+                                 dtype=torch.int32)
+            lens[1] = 0
+            logproba = torch.log_softmax(torch.randn((batch, max_t, vocab),
+                                                     generator=gen), 2)
+            args = tuple(t.to(dev) for t in (acts, labels, lm, scale, d_loss, lens,
+                                             logproba)) + (3,)
+            out, ref = cl.fused_dlogits(*args), cl.fused_dlogits_plain(*args)
+            agree(out, ref, 0.0, 1e-6, f"fused_dlogits vs plain at V={vocab}, "
+                  f"{lpad} lanes")
+            check(not bool(out[1].any()),
+                  f"fused_dlogits zero on a row with no valid step, V={vocab}")
+    return widest
 
 
 FWD_MODES = {"classic": ("final", "resid", "bound", "resid1"),
@@ -1527,12 +1600,14 @@ def run(seed: int, dev) -> dict:
     fwd_key = ("B1/B6 every mode from the standard and random carries, (window, width) "
                + json.dumps(fwd_cases))
     extra[fwd_key] = compare_fwd_lanes(torch, dev, seed, fwd_cases)
-    # B3 and B13 over residuals from a random carry: a label for each
+    # B3, B13 and B7 over residuals from a random carry: a label for each
     # lanes-per-thread instantiation, then windows 3 and 16
     streamed_cases = {name: cases + [(3, 999), (16, 999)] for name, cases in
                       lane_cases(dev, {"classic_bwd_streamed": "classic_bwd",
-                                       "classic_bwd_half": "classic_bwd_half"}).items()}
-    streamed_key = ("B3/B13 over residuals from a random carry, (window, width) "
+                                       "classic_bwd_half": "classic_bwd_half",
+                                       "simplified_bwd_streamed": "simplified_bwd",
+                                       }).items()}
+    streamed_key = ("B3/B13/B7 over residuals from a random carry, (window, width) "
                     + json.dumps(streamed_cases))
     extra[streamed_key] = compare_streamed_lanes(torch, dev, seed, streamed_cases)
     for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"],
@@ -1552,12 +1627,15 @@ def run(seed: int, dev) -> dict:
         for name, e in extra[key].items():
             errs[name] = max(errs[name], e)
     errs["fused_dlogits"] = compare_fused(torch, seed, dev)
+    fused_widest = compare_fused_lanes(torch, dev, seed)
     sync()
     worst = {name: float(f"{max(e.values()):.3g}") for name, e in extra.items()}
     log("phase 2 kernel vs plain on the card: ok, max abs err at the headline "
         "shape (the residual-free modes: also over the chunks of T 1500, the "
         "backwards also from random carries at every lanes-per-thread count; "
-        "fused_dlogits: at batch 8, blank 3, V = 32, 128 and 1000) "
+        "fused_dlogits: at batch 8, blank 3, V = 32, 128 and 1000, and on random "
+        "acts at 992, 2048, 2080 and the widest lanes it holds, "
+        + json.dumps(fused_widest) + ") "
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
         + "; worst over the kernels at batch 8: " + json.dumps(worst)
         + f"; {time.perf_counter() - t_phase:.1f} s")

@@ -35,7 +35,7 @@ def test_the_mirrors_give_the_lanes_measured_on_the_h100():
     # H100, from the libraries' own formulas
     widest = {"classic_fwd": 4832, "classic_bwd_rf": 3040, "classic_bwd": 1792,
               "classic_bwd_half": 1856, "simplified_fwd": 4832,
-              "simplified_bwd_rf": 3616, "simplified_bwd": 2400,
+              "simplified_bwd_rf": 3616, "simplified_bwd": 2624,
               "classic_log_bwd": 1568}
     assert {name: _widest(name) for name in widest} == widest
     # a one-chunk step with a 2016-lane label: residual-free, pure repair
@@ -107,6 +107,70 @@ def test_the_staged_streamed_scans_hold_at_least_the_lanes_of_the_unstaged_ones(
     assert _widest(name, window) >= before
 
 
+# B7 and B12 before their redesign (ops/_build.py's formulas then): B7 kept
+# every per-lane value in shared memory beside one staged window of
+# transitions and residuals; B12 one staged act row a warp, head[V] and
+# next[L].
+def _unstaged_b7_bytes(lp, k):
+    return 4 * (lp * (5 + 2 * k) + k) + 4 * 3 * lp
+
+
+def _linked_b12_bytes(lp, v):
+    return 4 * (v + lp + 1) + 4 * 8 * lp
+
+
+def test_the_redesigned_b7_and_b12_hold_the_labels_measured_on_the_h100():
+    # the widest labels by the new mirrors: B7 at windows 1, 8 and 16, B12
+    # at V = 32, 128 and 1000
+    assert {k: _widest("simplified_bwd", k) for k in (1, 8, 16)} == {
+        1: 5792, 8: 2624, 16: 1504}
+    assert {v: _widest("fused_epilogue", v) for v in (32, 128, 1000)} == {
+        32: 6432, 128: 6432, 1000: 6336}
+
+
+@pytest.mark.parametrize("window", [1, 8, 16])
+def test_the_staged_b7_holds_at_least_the_lanes_of_the_unstaged_one(window):
+    # no simplified label that took the streamed scheme may leave it
+    before = max(lp for lp in range(32, 16384, 32)
+                 if _unstaged_b7_bytes(lp, window) <= _build.SMEM_LIMIT)
+    assert before == {1: 5792, 8: 2400, 16: 1440}[window]
+    assert _widest("simplified_bwd", window) >= before
+
+
+@pytest.mark.parametrize("vocab", [32, 128, 1000])
+def test_the_csr_b12_holds_the_lanes_of_the_linked_one_and_of_the_streamed_scans(
+        vocab):
+    before = max(lp for lp in range(32, 16384, 32)
+                 if _linked_b12_bytes(lp, vocab) <= _build.SMEM_LIMIT)
+    widest = max(lp for lp in range(32, 16384, 32)
+                 if _build.fits(("fused_epilogue",), lp, vocab, CPU))
+    assert widest >= before
+    # every label that a streamed backward holds at window 1 (B13 4832
+    # lanes, B3 fewer, B7 5792) keeps the fused epilogue
+    for name in ("classic_bwd", "classic_bwd_half", "simplified_bwd"):
+        assert widest >= max(lp for lp in range(32, 16384, 32)
+                             if _build.fits((name,), lp, 1, CPU))
+
+
+@pytest.mark.parametrize("topology,width", [("classic", 4831), ("simplified", 5791)])
+@pytest.mark.parametrize("vocab", [32, 128, 1000])
+def test_the_widest_streamed_label_at_window_1_takes_the_fused_epilogue(
+        topology, width, vocab):
+    # 4832 lanes: the widest label of B13 at window 1 (the half-stream
+    # scheme; B3 holds fewer); 5792: of B7
+    rng = np.random.RandomState(vocab)
+    labels = rng.randint(1, vocab, size=(1, width)).astype(np.int32)
+    logits = rng.normal(size=(1, 4, vocab)).astype(np.float32)
+    ctx = _ctx(labels, logits, [2], [4])
+    loss_and_pack = {"classic": cl.classic_loss_and_pack,
+                     "simplified": cs.simplified_loss_and_pack}[topology]
+    with config_override(window=1, half_stream=True, fused_epilogue=True):
+        assert cl.geometry(ctx)[1] == width + 1
+        _, pack = loss_and_pack(ctx)
+        assert isinstance(pack, cl.HalfPack if topology == "classic" else cl.StreamPack)
+        assert cl.fused_epilogue_ok(ctx, pack)
+
+
 def test_the_staged_scans_need_aligned_rows():
     x = torch.zeros(65)
     cl.check_aligned((("x", x[:64]),), "classic_bwd")
@@ -129,10 +193,10 @@ def _case(seed=0, batch=3, max_t=14, vocab=5, width=6):
 
 
 # At 32 lanes and window 4 the streamed backwards need 2640 (classic; 2520
-# half-stream) and 2064 (simplified) bytes, the residual-free scans 2008 and
+# half-stream) and 1872 (simplified) bytes, the residual-free scans 2008 and
 # 1624 with their forwards under them: these limits leave only the
 # residual-free scheme.
-@pytest.mark.parametrize("topology,limit", [("classic", 2500), ("simplified", 1900)])
+@pytest.mark.parametrize("topology,limit", [("classic", 2500), ("simplified", 1800)])
 @pytest.mark.parametrize("half", [False, True])
 def test_a_label_the_streamed_kernels_do_not_hold_takes_the_residual_free_scheme(
         topology, limit, half, monkeypatch):

@@ -3,8 +3,8 @@
 // an mbarrier, 4-byte cp.async for rows that are not 16-byte aligned, and
 // the thread mapping of the kernels that hold a thread's lanes in
 // registers.  Used by classic_fwd.cu, simplified_fwd.cu, classic_bwd_rf.cu,
-// simplified_bwd_rf.cu and classic_bwd.cuh (classic_bwd.cu and
-// classic_bwd_half.cu).
+// simplified_bwd_rf.cu, classic_bwd.cuh (classic_bwd.cu and
+// classic_bwd_half.cu), simplified_bwd.cu and fused_epilogue.cu.
 //
 // A bulk copy needs its global and shared addresses and its size to be
 // multiples of 16 bytes; the wrappers check the base pointers, and rows of
@@ -37,6 +37,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// A plain arrival (a consumer releasing a slot to its producer).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
 }
 
@@ -99,6 +105,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A barrier among the first `threads` threads of the CTA (a multiple of
+// 32), for a kernel whose last warp is a producer outside the step chain.
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
 // Lanes held in registers: thread t owns lanes t + j * threads for j below

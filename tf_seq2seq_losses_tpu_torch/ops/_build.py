@@ -105,6 +105,24 @@ def _classic_bwd_bytes(half: bool):
     return smem_bytes
 
 
+def _simplified_bwd_bytes(lp: int, k: int) -> int:
+    """The streamed simplified beta scan's formula (B7): a ring of k + spare
+    slots, at least kSBwdMinRing, each a step's transition row and residual
+    row, and the double-buffered exchange a lane; a blank row per window
+    slot; two mbarriers per ring slot (full, empty)."""
+    ring = max(k + _SPARE_ROWS, 4)  # kSBwdMinRing
+    return _F * (lp * (2 * ring + 2) + 2 * k) + _BAR * 2 * ring
+
+
+def _fused_epilogue_bytes(lp: int, v: int) -> int:
+    """The fused epilogue's formula (B12): each of its 8 warps' ring of act
+    rows, two rows deep up to 2048 lanes and one beyond (epi_depth), an
+    mbarrier per ring slot; the token lists: lanes[lp] and ends[v] ints,
+    and one past the last listed lane."""
+    slots = 8 * (2 if lp <= 2048 else 1)
+    return _F * slots * lp + _BAR * slots + _N * (lp + v + 1)
+
+
 def _fwd_bytes(min_ring: int):
     """The forward scans' formula (B1 and B6): a ring of k + spare staged
     rows, at least ``min_ring`` (kFwdMinRing, kSFwdMinRing), and the
@@ -130,13 +148,12 @@ SMEM_BYTES = {
     "classic_log_fwd": lambda lp, _: _F * (lp * (7 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
     "classic_log_bwd": lambda lp, _: _F * (lp * (5 + 4 * _LOG_CHUNK) + _LOG_CHUNK),
     "simplified_fwd": _fwd_bytes(5),
-    "simplified_bwd": lambda lp, k: _F * (lp * (5 + 2 * k) + k) + _N * 3 * lp,
+    "simplified_bwd": _simplified_bwd_bytes,
     "simplified_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 6) + 2 * k)
                                         + _BAR * (k + _SPARE_ROWS + 1)),
     "simplified_log_fwd": lambda lp, _: _F * (lp * (3 + _LOG_CHUNK) + _LOG_CHUNK),
     "simplified_log_bwd": lambda lp, _: _F * (lp * (2 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
-    # head[V] and next[L] ints, one staged act row per warp (8 warps), nl
-    "fused_epilogue": lambda lp, v: _N * (v + lp + 1) + _F * 8 * lp,
+    "fused_epilogue": _fused_epilogue_bytes,
 }
 
 # Shared memory one CTA may opt into on an H100 (227 KB): the limit that

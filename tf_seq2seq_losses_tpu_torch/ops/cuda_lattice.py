@@ -1137,6 +1137,7 @@ def fused_dlogits(acts, labels, lm, scale, d_loss, lens, logproba, blank):
         check_tensor(t, (batch,), f32, name, dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(logproba, (batch, num_t, num_tokens), f32, "logproba", dev)
+    check_aligned((("acts", acts),), "fused_dlogits")
     blank_t = torch.as_tensor(blank, device=dev).to(torch.int32).reshape(1)
     lib = _build.lib("fused_epilogue")
     _build.check_smem(lib.ctc_fused_epilogue_smem_bytes(lpad, num_tokens),

@@ -270,6 +270,7 @@ def simplified_bwd_streamed(blank, dg, lens, lab_len, ebi, sa, saf, k_win: int):
     check_tensor(ebi, (batch,), f32, "ebi", dev)
     check_tensor(sa, (batch, tpad, lpad), f32, "sa", dev)
     check_tensor(saf, (batch, tpad // k_win, lpad), torch.int32, "saf", dev)
+    check_aligned((("dg", dg), ("sa", sa)), "simplified_bwd_streamed")
     lib = _build.lib("simplified_bwd")
     _build.check_smem(
         lib.ctc_simplified_bwd_smem_bytes(lpad, k_win), "simplified_bwd_streamed", dev

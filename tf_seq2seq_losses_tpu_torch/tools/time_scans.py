@@ -4,8 +4,11 @@ NVIDIA card: the forward scans B1 (``classic_fwd``, modes final, resid,
 bound and resid1) and B6 (``simplified_fwd``, modes final, resid and
 bound), the residual-free beta scans B10 (``classic_bwd``) and B11
 (``simplified_bwd``), and at the headline the streamed one-chunk beta scans
-B3 (``classic_bwd_streamed``, over mode resid's residuals) and B13
-(``classic_bwd_half``, over mode resid1's).
+B3 (``classic_bwd_streamed``, over mode resid's residuals), B13
+(``classic_bwd_half``, over mode resid1's) and B7
+(``simplified_bwd_streamed``, over B6 mode resid's), and the fused d_logits
+epilogue B12 (``fused_dlogits``) at V=128 on the headline batch, over the
+acts of the streamed classic scheme (``chip_smoke.fused_args``).
 
     python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
@@ -23,16 +26,18 @@ Shapes: the headline (B=256, T=500, V=32, labels [256, 250], one chunk;
 bursts of 20 launches) and one long-T chunk (chunk 1 of 8 at B=256,
 T=4000, labels [256, 2000]: 504 steps, 2016 lanes, from the carry chunk 0
 leaves; bursts of 5), each by CUDA events, the median of 5 bursts, as
-``chip_smoke.py`` times its kernels.  ``--steps`` also times the classic
-training step at the headline, streamed and half-stream (median of 20),
-and the long-T training step of each topology (median of 3; the
+``chip_smoke.py`` times its kernels.  ``--steps`` also times the training
+steps at the headline (median of 20): classic streamed and half-stream,
+simplified, and each topology's fused step at V=128; and the long-T
+training step of each topology (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
 through the pure path), each on the host clock and its device time by
 ``torch.profiler``.
 
 Prints one JSON line: the tag, the card's name and power limit, the times
 in ms, each case's bound (the least time the card could take for its work
-on this run's data, ``chip_smoke.kernel_bounds``), and a digest of the
+on this run's data, ``chip_smoke.kernel_bounds``; B12's
+``chip_smoke.fused_bound``), and a digest of the
 outputs of the tree's own kernels at each shape (of what they write: mode
 resid's residuals only at the steps and windows that a sample runs), by
 which two trees' kernels are shown to give the same bits.
@@ -73,10 +78,13 @@ def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
     inputs ``make_inputs`` gives at ``max_t`` (the headline generator; at
     T=4000 that of ``benchmarks/long_t.py``), each scan from the carry that
     the chunks before it leave; ``mode`` is None for a backward.  Where the
-    time axis is one chunk, also B3 over mode resid's pack and B13 over mode
-    resid1's, with the act normaliser of that forward's loss."""
+    time axis is one chunk, also B3 over mode resid's pack, B13 over mode
+    resid1's and B7 over B6 mode resid's, each with the act normaliser of
+    that forward's loss, and B12 (:func:`fused_case`; its window is
+    None)."""
     from tf_seq2seq_losses_tpu_torch.ops import core
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
 
     labels, logits, label_length, logit_length = smoke.make_inputs(
@@ -113,18 +121,52 @@ def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
             out["classic_bwd_half"] = (
                 lambda a=(*s_args, a1, saf1, a0w, ops.k_win): cl.classic_bwd_half(*a),
                 None, args[-1], ops.k_win)
+        if topology == "simplified" and n_chunks == 1:
+            sa, saf, *fin = ops.fwd(*args, ops.k_win, "resid")
+            s_args = (*args, ops.lab_len, cl.ebi_from_loss(ops.loss(fin)), sa, saf,
+                      ops.k_win)
+            out["simplified_bwd_streamed"] = (
+                lambda a=s_args: cs.simplified_bwd_streamed(*a), None, args[-1],
+                ops.k_win)
+    if n_chunks == 1:
+        eargs = fused_case(smoke, torch, dev, max_t)
+        out["fused_dlogits"] = (lambda a=eargs: (cl.fused_dlogits(*a),), None, eargs[5],
+                                None)
     return out
+
+
+def fused_case(smoke, torch, dev, max_t: int):
+    """The ``fused_dlogits`` arguments at V = ``chip_smoke.SLICE_VOCAB`` on
+    the batch ``make_inputs`` gives at ``max_t``: the acts of the streamed
+    classic scheme (``chip_smoke.fused_args``)."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    labels, logits, label_length, logit_length = smoke.make_inputs(
+        torch, 0, dev, max_t=max_t, vocab=smoke.SLICE_VOCAB)
+    ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                            logit_length, 0)
+    return smoke.fused_args(ctx)[0]
 
 
 def bound_ms(smoke, torch, dev, max_t: int, cases) -> dict:
     """``{case: ms}``: the least time the card could take for each case's
     work on the data ``scan_cases`` made at ``max_t``
-    (``chip_smoke.kernel_bounds``: its bytes at the HBM rate or its
-    operations at the float32 rate, whichever is longer)."""
+    (``chip_smoke.kernel_bounds``, B12's ``chip_smoke.fused_bound``: its
+    bytes at the HBM rate or its operations at the float32 rate, whichever
+    is longer)."""
     label_length = smoke.make_inputs(torch, 0, dev, max_t=max_t,
                                      infeasible=max_t == smoke.MAX_T)[2]
-    return {name: smoke.bound(*smoke.kernel_bounds(lens, label_length, k_win)[name])[0]
-            for name, (_launch, _mode, lens, k_win) in cases.items()}
+    out = {}
+    for name, (_launch, _mode, lens, k_win) in cases.items():
+        if name == "fused_dlogits":
+            v_ll = smoke.make_inputs(torch, 0, dev, max_t=max_t,
+                                     vocab=smoke.SLICE_VOCAB)[2]
+            work = smoke.fused_bound(lens, v_ll, max_t, smoke.SLICE_VOCAB)
+        else:
+            work = smoke.kernel_bounds(lens, label_length, k_win)[name]
+        out[name] = smoke.bound(*work)[0]
+    return out
 
 
 def written(torch, outs, mode, lens, k_win) -> list:
@@ -157,18 +199,30 @@ def digest(torch, case) -> str:
 
 
 def headline_steps(smoke, torch, dev) -> dict:
-    """Host-clock and device time of the classic training step at the
-    headline, streamed (B2, B3) and half-stream (resid1, B13)."""
+    """Host-clock and device time of the training steps at the headline:
+    classic streamed (B2, B3) and half-stream (resid1, B13), simplified (B6
+    resid, B7), and each topology's fused step at V=128 (B12)."""
     from tf_seq2seq_losses_tpu_torch.utils.config import config_override
 
     labels, *inputs = smoke.make_inputs(torch, 0, dev)
-    step = smoke.make_step(torch, smoke.loss_function("classic"), labels)
+    v_labels, *v_inputs = smoke.make_inputs(torch, 0, dev, vocab=smoke.SLICE_VOCAB)
+    v = smoke.SLICE_VOCAB
+    cases = {  # name: (topology, labels, inputs, config)
+        "classic_fwd_bwd_step": ("classic", labels, inputs, {}),
+        "classic_fwd_bwd_step_half_stream": ("classic", labels, inputs,
+                                             {"half_stream": True}),
+        "simplified_fwd_bwd_step": ("simplified", labels, inputs, {}),
+        f"classic_fwd_bwd_step_v{v}_fused": ("classic", v_labels, v_inputs,
+                                             {"fused_epilogue": True}),
+        f"simplified_fwd_bwd_step_v{v}_fused": ("simplified", v_labels, v_inputs,
+                                                {"fused_epilogue": True}),
+    }
     out = {}
-    for name, half in (("classic_fwd_bwd_step", False),
-                       ("classic_fwd_bwd_step_half_stream", True)):
-        with config_override(half_stream=half):
-            host = smoke.host_ms(torch, lambda: step(*inputs))
-            prof = smoke.profile_step(torch, dev, host, lambda: step(*inputs))
+    for name, (topology, lab, args, cfg) in cases.items():
+        step = smoke.make_step(torch, smoke.loss_function(topology), lab)
+        with config_override(**cfg):
+            host = smoke.host_ms(torch, lambda: step(*args))
+            prof = smoke.profile_step(torch, dev, host, lambda: step(*args))
         out[name] = {"host_ms": host, "device_ms": prof.get("device_ms_per_step"),
                      "device_idle_share": prof.get("device_idle_share")}
     return out
