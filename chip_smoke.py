@@ -33,7 +33,11 @@ simplified):
    the lanes.  B12 runs at batch 8, blank 3, V = 32, 128 and 1000, and on
    random acts at each V over labels of 992, 2048 and 2080 lanes (two act
    rows staged a warp, then one) and the widest it holds (atol 1e-6).
-   The residual-free modes (B10, B11:
+   B4 (modes final and resid) and B5 also run, every lane live on peaked
+   logits, at a label for every lanes-per-thread instantiation up to the
+   widest label the host sends them (``log_lattice.CLASSIC_LOG_LANES``,
+   1568 lanes), and on a repair round of four full-length rows
+   (``tools/time_scans.py``).  The residual-free modes (B10, B11:
    forward modes bound and final from a carry, backward from a beta carry)
    run at the headline shape, at each batch-8 geometry above and at window
    3 (where a window's blank row is not 16-byte aligned), and chunk by
@@ -78,10 +82,12 @@ simplified):
    of the classic loss: median of 20 single calls; no PyTorch call
    computes the simplified loss) and on the host clock (each topology's
    fwd+bwd step, streamed and residual-free, and forward-only call; the
-   steps of ``drive_slice_paths``): each kernel, its plain version and its
-   bound, and the device time of the unfused epilogue that B12 replaces at
-   V=128; then a ``torch.profiler`` breakdown of each step's device time by
-   kernel (also the classic V=128 step, unfused and fused);
+   steps of ``drive_slice_paths``; the classic step with four full-length
+   rows repaired, and B4 and B5 on that repair round by CUDA events): each
+   kernel, its plain version and its bound, and the device time of the
+   unfused epilogue that B12 replaces at V=128; then a ``torch.profiler``
+   breakdown of each step's device time by kernel (also the classic V=128
+   step, unfused and fused);
 7. long T, a path of its own: B=256, T=4000, V=32 from
    ``benchmarks/long_t.py``'s generator (labels [256, 2000], 8 chunks of
    504 steps, 2016 lanes): a training step, an evaluation call and a step
@@ -307,7 +313,6 @@ def compare_kernels(ctx):
     import torch
 
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
-    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
 
     dev = ctx.logproba.device
     blank, dcu, lm, nb, rep, lens, lab_len, k_win = cl.kernel_inputs(ctx)
@@ -366,38 +371,103 @@ def compare_kernels(ctx):
     check(all(torch.equal(a, b) for a, b in zip(hb_k, b_k)),
           "classic_bwd_half pc and beta carry are B3's bit for bit")
 
-    blank_l, dc_l, pt_l, _lm, nb_, rep_, _, _ = ll._log_inputs(ctx)
-    lf_k = ll.classic_log_fwd(blank_l, dc_l, pt_l, nb_, rep_, lens, "final")
-    lf_p = ll.classic_log_fwd_plain(blank_l, dc_l, pt_l, nb_, rep_, lens, "final")
-    lfl_k, lfl_p = ll._pick_log_loss(*lf_k, lab_len), ll._pick_log_loss(*lf_p, lab_len)
-    agree(lfl_k, lfl_p, 1e-5, 0.0, "classic_log_fwd[final] loss vs plain")
-    errs["classic_log_fwd[final]"] = max_err(lfl_k, lfl_p)
+    log_errs, log_fwd, log_bwd = compare_classic_log(ctx)
+    errs.update(log_errs)
+    args = dict(fwd=(blank, dcu, lm, nb, rep, lens, k_win), bwd=b_args,
+                half_bwd=hb_args, log_fwd=log_fwd, log_bwd=log_bwd,
+                lens=lens, k_win=k_win, shape=(batch, tpad, lpad))
+    return errs, args
 
-    lr_k = ll.classic_log_fwd(blank_l, dc_l, pt_l, nb_, rep_, lens, "resid")
-    lr_p = ll.classic_log_fwd_plain(blank_l, dc_l, pt_l, nb_, rep_, lens, "resid")
+
+def compare_classic_log(ctx, where=""):
+    """Run B4 in modes final and resid, then B5 over mode resid's residuals
+    with the act normaliser of its loss, on ``ctx``, and hold each against
+    its plain version (the plain mode resid's carries are mode final's
+    too): losses rtol 1e-5, residuals rtol 1e-5 + atol 1e-5, pc atol 1e-5,
+    beta carry rtol 1e-5, inf patterns equal.  Returns ``(max abs errors,
+    B4's arguments, B5's)``."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+    blank_l, dc_l, pt_l, _lm, nb, rep, lens, lab_len = ll._log_inputs(ctx)
+    valid_t = torch.arange(dc_l.shape[1], device=lens.device)[None, :] < lens[:, None]
+    log_fwd = (blank_l, dc_l, pt_l, nb, rep, lens)
+    lr_p = ll.classic_log_fwd_plain(*log_fwd, "resid")
+    loss_p = ll._pick_log_loss(*lr_p[2:], lab_len)
+    errs = {}
+    loss_k = ll._pick_log_loss(*ll.classic_log_fwd(*log_fwd, "final"), lab_len)
+    agree(loss_k, loss_p, 1e-5, 0.0, f"classic_log_fwd[final] loss vs plain{where}")
+    errs["classic_log_fwd[final]"] = max_err(loss_k, loss_p)
+
+    lr_k = ll.classic_log_fwd(*log_fwd, "resid")
     lrl_k = ll._pick_log_loss(*lr_k[2:], lab_len)
-    agree(lrl_k, ll._pick_log_loss(*lr_p[2:], lab_len), 1e-5, 0.0,
-          "classic_log_fwd[resid] loss vs plain")
+    agree(lrl_k, loss_p, 1e-5, 0.0, f"classic_log_fwd[resid] loss vs plain{where}")
     for i, name in ((0, "x"), (1, "a1")):
         agree(lr_k[i][valid_t], lr_p[i][valid_t], 1e-5, 1e-5,
-              f"classic_log_fwd[resid] residual {name} vs plain")
+              f"classic_log_fwd[resid] residual {name} vs plain{where}")
     errs["classic_log_fwd[resid]"] = max(
         max_err(lr_k[i][valid_t], lr_p[i][valid_t]) for i in (0, 1)
     )
 
     safe = torch.where(torch.isfinite(lrl_k), lrl_k, torch.zeros_like(lrl_k))
-    lb_args = (blank_l, dc_l, pt_l, nb_, rep_, lens, lab_len, safe, lr_k[0], lr_k[1])
-    lb_k = ll.classic_log_bwd(*lb_args)
-    lb_p = ll.classic_log_bwd_plain(*lb_args)
-    agree(lb_k[0], lb_p[0], 0.0, 1e-5, "classic_log_bwd pc vs plain")
-    agree(lb_k[1][:, 0], lb_p[1][:, 0], 1e-5, 0.0, "classic_log_bwd beta0 vs plain")
+    log_bwd = (*log_fwd, lab_len, safe, lr_k[0], lr_k[1])
+    lb_k = ll.classic_log_bwd(*log_bwd)
+    lb_p = ll.classic_log_bwd_plain(*log_bwd)
+    agree(lb_k[0], lb_p[0], 0.0, 1e-5, f"classic_log_bwd pc vs plain{where}")
+    agree(lb_k[1][:, 0], lb_p[1][:, 0], 1e-5, 0.0,
+          f"classic_log_bwd beta0 vs plain{where}")
     errs["classic_log_bwd"] = max(max_err(lb_k[0], lb_p[0]),
                                   max_err(lb_k[1][:, 0], lb_p[1][:, 0]))
-    args = dict(fwd=(blank, dcu, lm, nb, rep, lens, k_win), bwd=b_args,
-                half_bwd=hb_args,
-                log_fwd=(blank_l, dc_l, pt_l, nb_, rep_, lens), log_bwd=lb_args,
-                lens=lens, k_win=k_win, shape=(batch, tpad, lpad))
-    return errs, args
+    return errs, log_fwd, log_bwd
+
+
+def log_lane_widths() -> list:
+    """Label widths for every lanes-per-thread instantiation of B4 and B5
+    (512 threads, lanes t + j * threads) up to the widest label the host
+    sends them, ``log_lattice.CLASSIC_LOG_LANES``: each instantiation's
+    widest, so that label is among them."""
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+    widest = ll.CLASSIC_LOG_LANES
+    return [min(512 * lpt, widest) - 1 for lpt in range(1, -(-widest // 512) + 1)]
+
+
+def compare_log_lanes(torch, dev, seed, batch=2) -> dict:
+    """Hold B4 and B5 against their plain versions (``compare_classic_log``)
+    at a label for every lanes-per-thread instantiation
+    (``log_lane_widths``), every lane live: labels of their full width
+    (``label_length`` the width), peaked logits (``peaked``: losses of a few
+    nats, so that float32 carries keep their digits) over a few more frames
+    than the labels and their repeats need; then on the repair round of
+    ``tools/time_scans.py`` (rows 2-5 of the headline batch flushed at one
+    frame, at their own lengths and time axis).  Returns the largest error
+    of each kernel mode."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.tools import time_scans
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    errs = {}
+    for width in log_lane_widths():
+        labels, logits, _, _ = make_inputs(torch, seed + width, dev, batch=batch,
+                                           label_width=width, max_t=2 * width,
+                                           infeasible=False)
+        # a frame for each label, one for each repeat, and a few more
+        repeats = int((labels[:, 1:] == labels[:, :-1]).sum(1).max())
+        logits = logits[:, :width + repeats + 8].contiguous()
+        full = torch.full((batch,), width, dtype=torch.int32, device=dev)
+        steps = torch.full((batch,), logits.shape[1], dtype=torch.int32, device=dev)
+        logits = peaked(torch, "classic", labels, full, steps, logits)
+        ctx = core.make_context(labels, logit_to_logproba(logits, 2), full, steps, 0)
+        e, _, log_bwd = compare_classic_log(ctx, f" at {width + 1} lanes, every lane live")
+        loss = log_bwd[7]  # B5's act normaliser: the loss, 0 where it is +inf
+        check(bool((loss > 0).all()), f"classic log lanes at {width + 1}: every row feasible")
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+    round_ctx = time_scans.repair_round(sys.modules[__name__], torch, dev, seed)
+    for name, v in compare_classic_log(round_ctx, " on the repair round")[0].items():
+        errs[name] = max(errs[name], v)
+    return errs
 
 
 def compare_simplified_kernels(ctx):
@@ -1610,8 +1680,16 @@ def run(seed: int, dev) -> dict:
     streamed_key = ("B3/B13/B7 over residuals from a random carry, (window, width) "
                     + json.dumps(streamed_cases))
     extra[streamed_key] = compare_streamed_lanes(torch, dev, seed, streamed_cases)
+    # B4 and B5 with every lane live at a label for each lanes-per-thread
+    # instantiation up to the widest label the host sends them, then on a
+    # repair round of four full-length rows
+    log_key = ("B4/B5 with every lane live, label widths "
+               + json.dumps(log_lane_widths()) + ", and the repair round")
+    t_log = time.perf_counter()
+    extra[log_key] = compare_log_lanes(torch, dev, seed)
+    t_log = time.perf_counter() - t_log
     for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"],
-                      extra[fwd_key], extra[streamed_key]):
+                      extra[fwd_key], extra[streamed_key], extra[log_key]):
         for name, e in name_errs.items():
             errs[name] = max(errs[name], e)
     # the residual-free kernels over several chunks, each from the carries
@@ -1638,7 +1716,8 @@ def run(seed: int, dev) -> dict:
         + json.dumps(fused_widest) + ") "
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
         + "; worst over the kernels at batch 8: " + json.dumps(worst)
-        + f"; {time.perf_counter() - t_phase:.1f} s")
+        + f"; {time.perf_counter() - t_phase:.1f} s, of which B4/B5's lane and "
+        f"repair-round checks {t_log:.1f} s")
 
     # ---- 3 and 4. each main path, then the guard ---------------------------
     # TF32 on, as an H100 training script sets it: the act scatter must not
@@ -1838,6 +1917,18 @@ def run(seed: int, dev) -> dict:
         ).sum().backward()
 
     steps_ms["library_ctc_loss_fwd_bwd"] = host_ms(torch, library_step)
+    # a repair round of four full-length rows (tools/time_scans.py): the
+    # classic step with rows 2-5 flushed at one frame, and B4 and B5 on the
+    # round's own time axis
+    from tf_seq2seq_losses_tpu_torch.tools import time_scans
+
+    f_logits = time_scans.flushed(labels, logits)
+    c_step = paths["classic"]["train_step"]
+    steps_ms["classic_fwd_bwd_step_4_full_rows_repaired"] = host_ms(
+        torch, lambda: c_step(f_logits, label_length, logit_length))
+    round_ctx = time_scans.repair_round(sys.modules[__name__], torch, dev, seed)
+    round_ms = {name: time_ms(torch, case[0])
+                for name, case in time_scans.log_cases(torch, round_ctx).items()}
     steps_ms["library_ctc_loss_fwd"] = lib_fwd_ms
     for name, (step, args) in slice_paths["steps"].items():
         steps_ms[name] = host_ms(torch, lambda: step(*args))
@@ -1846,6 +1937,9 @@ def run(seed: int, dev) -> dict:
         f"CUDA events, median of {RUNS} calls; the unfused epilogue at V={SLICE_VOCAB} "
         f"(act scatter, assembly, compose) by CUDA events as the kernels; "
         + card + "): " + json.dumps(steps_ms))
+    log(f"phase 6 repair round of rows 2-5 flushed at their full lengths "
+        f"({int(round_ctx.logit_length.max())} steps; ms, CUDA events as the kernels): "
+        + json.dumps(round_ms))
     for name, path in paths.items():
         step = path["train_step"]
         log(f"phase 6 profile of the {name} fwd+bwd step: " + json.dumps(profile_step(
@@ -1864,7 +1958,7 @@ def run(seed: int, dev) -> dict:
     del inputs, logits, ctx, lib_lp, paths, kargs, sargs, rfargs, table
     del fwd, bwd, logf, logb, sfwd, sbwd, slogf, slogb, rff, rfb, srff, srfb
     del slice_paths, hbwd, v_logits, v_ctx, eargs, acts, lm_, fast_loss, scale, d_loss
-    del step, args
+    del step, args, f_logits, round_ctx
     del small, wide, small_ctx, multi, multi_ctx
     long_paths = {name: drive_long_t(torch, dev, name, long_inputs, sync, seed)
                   for name in ("classic", "simplified")}

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from tf_seq2seq_losses_tpu_torch import api
-from tf_seq2seq_losses_tpu_torch.ops import _build, core
+from tf_seq2seq_losses_tpu_torch.ops import _build, core, topology
 from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
 from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
 from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
@@ -36,7 +36,7 @@ def test_the_mirrors_give_the_lanes_measured_on_the_h100():
     widest = {"classic_fwd": 4832, "classic_bwd_rf": 3040, "classic_bwd": 1792,
               "classic_bwd_half": 1856, "simplified_fwd": 4832,
               "simplified_bwd_rf": 3616, "simplified_bwd": 2624,
-              "classic_log_bwd": 1568}
+              "classic_log_bwd": 1696}
     assert {name: _widest(name) for name in widest} == widest
     # a one-chunk step with a 2016-lane label: residual-free, pure repair
     assert not _build.fits(("classic_bwd",), 2016, 8, CPU)
@@ -256,7 +256,7 @@ def test_a_label_the_log_kernels_do_not_hold_is_repaired_through_the_pure_path(
                             lambda *a, _real=real: calls.append(a) or _real(*a))
     logspace = step(use_kernels=True)
     assert calls
-    # under what B5 (4768 bytes at 32 lanes) and B9 (2336) need
+    # under what B5 (4544 bytes at 32 lanes) and B9 (2336) need
     monkeypatch.setattr(_build, "SMEM_LIMIT", 2000)
     assert not ll.fits_log_fallback(ctx, topology)
     calls.clear()
@@ -317,3 +317,95 @@ def test_a_label_no_kernel_holds_takes_the_pure_path(topology, past, monkeypatch
     assert calls == ([fwd_name] if past == "training" else [])
     np.testing.assert_allclose(kernel[0].numpy(), pure[0].numpy(), rtol=1e-5)
     assert torch.equal(kernel[1], pure[1]) and torch.equal(kernel[2], pure[2])
+
+
+# B4 and B5 before their redesign (ops/_build.py's formulas then): every
+# per-lane value in shared memory beside a chunk of 8 staged steps.
+_UNSTAGED_LOG_BYTES = {
+    "classic_log_fwd": lambda lp: 4 * (lp * (7 + 2 * 8) + 8),
+    "classic_log_bwd": lambda lp: 4 * (lp * (5 + 4 * 8) + 8),
+}
+
+
+@pytest.mark.parametrize("lanes", [32, 256, 1568, 1600, 3200])
+def test_the_log_mirrors_follow_the_staged_kernels_formulas(lanes):
+    # a ring of 8 slots (B4: dc, pt; B5: dc, pt, x, a1), the double-buffered
+    # exchange, two runs of 8 blanks, a full and an empty mbarrier a slot
+    assert _build.SMEM_BYTES["classic_log_fwd"](lanes, 0) == 4 * (lanes * 18 + 16) + 128
+    assert _build.SMEM_BYTES["classic_log_bwd"](lanes, 0) == 4 * (lanes * 34 + 16) + 128
+
+
+def test_the_log_route_keeps_the_labels_the_unstaged_pair_held():
+    # the redesigned pair holds more lanes, but the route stays where it was:
+    # the widest label of the unstaged pair, bound by B5
+    before = {name: max(lp for lp in range(32, 8192, 32) if f(lp) <= _build.SMEM_LIMIT)
+              for name, f in _UNSTAGED_LOG_BYTES.items()}
+    assert before == {"classic_log_fwd": 2496, "classic_log_bwd": 1568}
+    assert ll.CLASSIC_LOG_LANES == min(before.values())
+    assert {name: _widest(name, 0) for name in _UNSTAGED_LOG_BYTES} == {
+        "classic_log_fwd": 3200, "classic_log_bwd": 1696}
+    for lanes, held in ((ll.CLASSIC_LOG_LANES, True), (ll.CLASSIC_LOG_LANES + 32, False)):
+        ctx = _ctx(np.ones((1, lanes - 1), np.int32), np.zeros((1, 4, 3), np.float32),
+                   [2], [4])
+        assert cl.geometry(ctx)[1] == lanes
+        assert ll.fits_log_fallback(ctx) == held
+        # the simplified pair keeps its own route
+        assert ll.fits_log_fallback(ctx, "simplified")
+
+
+def _float64_step(labels, logits, lab_len, logit_len):
+    """Loss and d_logits of the classic pure path in float64 on the port's
+    own float32 log-probabilities."""
+    ctx = core.float64_context(_ctx(labels, logits, lab_len, logit_len))
+    classic = topology.TOPOLOGIES["classic"]
+    loss = classic.loss(ctx, classic.alpha(ctx))
+    grad = -torch.exp(core.gradient_log(classic, ctx, loss))
+    return loss, topology.compose_dlogits(ctx, grad, loss, torch.ones_like(loss))
+
+
+@pytest.mark.parametrize("lanes,route", [(ll.CLASSIC_LOG_LANES, "log-space kernels"),
+                                         (ll.CLASSIC_LOG_LANES + 32, "float64 pure path")])
+def test_a_flushed_row_is_repaired_through_b4_and_b5_up_to_their_widest_label(
+        lanes, route, monkeypatch):
+    rng = np.random.RandomState(lanes)
+    labels = rng.randint(1, 5, size=(2, lanes - 1)).astype(np.int32)
+    logits = rng.normal(size=(2, 12, 5)).astype(np.float32)
+    lab_len, logit_len = np.array([4, 6], np.int32), np.array([12, 10], np.int32)
+    # row 1 flushes: at frame 3 token 4, absent from its label, at +100
+    labels[1, :6] = [1, 2, 1, 3, 2, 1]
+    logits[1, 3] = -100.0
+    logits[1, 3, 4] = 100.0
+    calls = []
+    for name in ("classic_log_fwd", "classic_log_bwd"):
+        real = getattr(ll, name)
+        monkeypatch.setattr(ll, name, lambda *a, _n=name, _r=real: calls.append(
+            (_n, a[1].shape[2])) or _r(*a))
+
+    def step(**cfg):
+        x = torch.tensor(logits, requires_grad=True)
+        with config_override(**cfg):
+            loss = api.classic_ctc_loss(torch.tensor(labels), x, torch.tensor(lab_len),
+                                        torch.tensor(logit_len), 0)
+            loss.sum().backward()
+        return loss.detach(), x.grad
+
+    loss, d_logits = step(use_kernels=True)
+    with config_override(use_kernels=True, guard=False):
+        assert torch.isposinf(cl.classic_loss_fast(_ctx(labels, logits, lab_len,
+                                                        logit_len))[1])
+    if route == "log-space kernels":
+        # the loss repair (mode final), then the gradient's (resid, B5)
+        assert sorted(calls) == [("classic_log_bwd", lanes), ("classic_log_fwd", lanes),
+                                 ("classic_log_fwd", lanes)]
+    else:
+        assert not calls
+    loss64, d64 = _float64_step(labels, logits, lab_len, logit_len)
+    # PERF.md section 2: rows the log-space kernels repair within 2e-4, rows
+    # the float64 pure path repairs held to float64 as the kernel rows are
+    rtol, atol = (0.0, 2e-4) if route == "log-space kernels" else (1e-5, 1e-5)
+    np.testing.assert_allclose(loss[1].item(), loss64[1].item(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(d_logits[1].numpy(), d64[1].numpy(), atol=atol)
+    # the clean row keeps its fast values
+    unguarded = step(use_kernels=True, guard=False)
+    assert torch.equal(loss[0], unguarded[0][0])
+    assert torch.equal(d_logits[0], unguarded[1][0])

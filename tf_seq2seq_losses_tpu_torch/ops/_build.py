@@ -86,7 +86,9 @@ _SIGNATURES = {
 
 _F = _N = 4  # bytes of a float and of an int
 _BAR = 8  # bytes of an mbarrier
-_LOG_CHUNK = 8  # kChunk / kSChunk of the log-space kernels
+_LOG_CHUNK = 8  # kSChunk of the simplified log-space kernels
+_LOG_RING = 8  # kLogRing of the classic log-space kernels
+_LOG_RUN = 8  # kLogRun: steps whose blanks they stage at a time
 _SPARE_ROWS = 2  # ring rows beyond one window of the staged scans
 
 
@@ -123,6 +125,16 @@ def _fused_epilogue_bytes(lp: int, v: int) -> int:
     return _F * slots * lp + _BAR * slots + _N * (lp + v + 1)
 
 
+def _classic_log_bytes(rows: int):
+    """The classic log-space scans' formula (B4 with ``rows`` 2, B5 with 4):
+    a ring of kLogRing slots, each ``rows`` staged rows of a step, and the
+    double-buffered exchange a lane; a blank row per run slot; two
+    mbarriers per ring slot (full, empty)."""
+    def smem_bytes(lp: int, _) -> int:
+        return _F * (lp * (rows * _LOG_RING + 2) + 2 * _LOG_RUN) + _BAR * 2 * _LOG_RING
+    return smem_bytes
+
+
 def _fwd_bytes(min_ring: int):
     """The forward scans' formula (B1 and B6): a ring of k + spare staged
     rows, at least ``min_ring`` (kFwdMinRing, kSFwdMinRing), and the
@@ -145,8 +157,8 @@ SMEM_BYTES = {
     # mbarrier per ring row and one for the boundary rows
     "classic_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 9) + 2 * k)
                                      + _BAR * (k + _SPARE_ROWS + 1)),
-    "classic_log_fwd": lambda lp, _: _F * (lp * (7 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
-    "classic_log_bwd": lambda lp, _: _F * (lp * (5 + 4 * _LOG_CHUNK) + _LOG_CHUNK),
+    "classic_log_fwd": _classic_log_bytes(2),
+    "classic_log_bwd": _classic_log_bytes(4),
     "simplified_fwd": _fwd_bytes(5),
     "simplified_bwd": _simplified_bwd_bytes,
     "simplified_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 6) + 2 * k)

@@ -13,8 +13,9 @@ Counterpart of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
 Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
 kernels; CPU tensors run the plain versions.  These kernels serve a time
 axis of one chunk only (a rare repair needs no chunked scan), and labels
-whose lanes their shared memory holds: beyond either the repair takes the
-pure path (:func:`fits_log_fallback`), in float64, cast back to float32.
+whose lanes their shared memory holds (classic: at most
+:data:`CLASSIC_LOG_LANES`): beyond either the repair takes the pure path
+(:func:`fits_log_fallback`), in float64, cast back to float32.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     act_scatter,
+    check_aligned,
     check_tensor,
     chunk_plan,
     geometry,
@@ -70,16 +72,34 @@ def _log_gather_level(ctx: CtcContext, tpad: int, lpad: int):
 _LOG_KERNELS = {"classic": ("classic_log_fwd", "classic_log_bwd"),
                 "simplified": ("simplified_log_fwd", "simplified_log_bwd")}
 
+# The widest label (lanes) that B4 and B5 repair: what their first design's
+# shared memory held (B5's, 148 bytes a lane, on an H100).  The kernels
+# hold more now, but a wider label is still repaired through the pure path
+# in float64, as it was: float32 log-space carries are about 4.5e-4 from
+# float64 in the gradient at T=495 (tools/log_precision.py), so a wider
+# route would make those rows worse (ROADMAP C2).
+CLASSIC_LOG_LANES = 1568
+
 
 def fits_log_fallback(ctx: CtcContext, topology: str = "classic") -> bool:
     """The log kernels of ``topology`` repair ``ctx``: its window-padded T
     is one chunk (within chunk_time), and both kernels' shared memory holds
     its label's lanes (the loss and the gradient of a repaired row come
-    from one path)."""
+    from one path), at most :data:`CLASSIC_LOG_LANES` in the classic
+    topology."""
     if ctx.logproba.shape[1] == 0 or chunk_plan(ctx)[0] != 1:
         return False
     lpad = geometry(ctx)[1]
+    if topology == "classic" and lpad > CLASSIC_LOG_LANES:
+        return False
     return _build.fits(_LOG_KERNELS[topology], lpad, 0, ctx.logproba.device)
+
+
+def _check_classic_lanes(lpad: int, what: str) -> None:
+    """Raise for a label wider than B4 and B5 are built for."""
+    if lpad > CLASSIC_LOG_LANES:
+        raise ValueError(f"{what}: {lpad} lanes; these kernels take labels of at most "
+                         f"{CLASSIC_LOG_LANES} lanes (CLASSIC_LOG_LANES)")
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +157,8 @@ def classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
     check_tensor(nb, (batch, lpad), f32, "nb", dev)
     check_tensor(rep, (batch, lpad), f32, "rep", dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    check_aligned((("dc_l", dc_l), ("pt_l", pt_l)), "classic_log_fwd")
+    _check_classic_lanes(lpad, "classic_log_fwd")
     lib = _build.lib("classic_log")
     _build.check_smem(lib.ctc_classic_log_fwd_smem_bytes(lpad), "classic_log_fwd", dev)
     resid = mode == "resid"
@@ -224,6 +246,9 @@ def classic_log_bwd(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
     check_tensor(loss, (batch,), f32, "loss", dev)
+    check_aligned((("dc_l", dc_l), ("pt_l", pt_l), ("sx", sx), ("sa1", sa1)),
+                  "classic_log_bwd")
+    _check_classic_lanes(lpad, "classic_log_bwd")
     lib = _build.lib("classic_log")
     _build.check_smem(lib.ctc_classic_log_bwd_smem_bytes(lpad), "classic_log_bwd", dev)
     pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)

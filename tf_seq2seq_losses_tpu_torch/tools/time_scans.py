@@ -6,9 +6,12 @@ bound), the residual-free beta scans B10 (``classic_bwd``) and B11
 (``simplified_bwd``), and at the headline the streamed one-chunk beta scans
 B3 (``classic_bwd_streamed``, over mode resid's residuals), B13
 (``classic_bwd_half``, over mode resid1's) and B7
-(``simplified_bwd_streamed``, over B6 mode resid's), and the fused d_logits
+(``simplified_bwd_streamed``, over B6 mode resid's), the fused d_logits
 epilogue B12 (``fused_dlogits``) at V=128 on the headline batch, over the
-acts of the streamed classic scheme (``chip_smoke.fused_args``).
+acts of the streamed classic scheme (``chip_smoke.fused_args``), and the
+classic log-space scans B4 (``classic_log_fwd``, modes final and resid)
+and B5 (``classic_log_bwd``, over mode resid's residuals) at the headline
+and on a repair round (:func:`repair_round`).
 
     python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
@@ -25,9 +28,13 @@ modified copies of a kernel, such as one with a phase taken out.
 Shapes: the headline (B=256, T=500, V=32, labels [256, 250], one chunk;
 bursts of 20 launches) and one long-T chunk (chunk 1 of 8 at B=256,
 T=4000, labels [256, 2000]: 504 steps, 2016 lanes, from the carry chunk 0
-leaves; bursts of 5), each by CUDA events, the median of 5 bursts, as
-``chip_smoke.py`` times its kernels.  ``--steps`` also times the training
-steps at the headline (median of 20): classic streamed and half-stream,
+leaves; bursts of 5), and for B4 and B5 also a repair round (rows 2-5 of
+the headline batch, flushed at one frame, gathered by the guard's own
+``topology.take_ctx`` on their own time axis; bursts of 20), each by CUDA
+events, the median of 5 bursts, as ``chip_smoke.py`` times its kernels.
+``--steps`` also times the training steps at the headline (median of 20):
+classic streamed and half-stream, the classic step with those four rows
+flushed (the guard repairs them through B4 and B5 at their full lengths),
 simplified, and each topology's fused step at V=128; and the long-T
 training step of each topology (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
@@ -40,7 +47,8 @@ on this run's data, ``chip_smoke.kernel_bounds``; B12's
 ``chip_smoke.fused_bound``), and a digest of the
 outputs of the tree's own kernels at each shape (of what they write: mode
 resid's residuals only at the steps and windows that a sample runs), by
-which two trees' kernels are shown to give the same bits.
+which two trees' kernels are shown to give the same bits; and the steps of
+the repair round's longest row, the chain its scans run.
 """
 
 from __future__ import annotations
@@ -54,6 +62,10 @@ from pathlib import Path
 
 _FWD_MODES = {"classic": ("final", "resid", "bound", "resid1"),
               "simplified": ("final", "resid", "bound")}
+# a repair round: rows 2-5 of the headline batch, flushed at frame 3 by a
+# token at +1e2 (every other at -1e2)
+ROUND_ROWS = (2, 3, 4, 5)
+FLUSH_FRAME, FLUSH_SCALE = 3, 1e2
 
 
 def build_variant(build, library: str, source: Path) -> Path:
@@ -132,7 +144,64 @@ def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
         eargs = fused_case(smoke, torch, dev, max_t)
         out["fused_dlogits"] = (lambda a=eargs: (cl.fused_dlogits(*a),), None, eargs[5],
                                 None)
+        out.update(log_cases(torch, ctx))
     return out
+
+
+def log_cases(torch, ctx) -> dict:
+    """``{case: (launch, mode, lens, window)}`` of B4 in modes final and
+    resid and B5 over mode resid's residuals, with the act normaliser of
+    that forward's loss, on ``ctx`` (a time axis of one chunk); mode
+    ``"log_resid"`` marks B4's residuals for :func:`written`."""
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+    blank_l, dc_l, pt_l, _lm, nb, rep, lens, lab_len = ll._log_inputs(ctx)
+    args = (blank_l, dc_l, pt_l, nb, rep, lens)
+    sx, sa1, f0, f1 = ll.classic_log_fwd(*args, "resid")
+    loss = ll._pick_log_loss(f0, f1, lab_len)
+    b_args = (*args, lab_len, torch.where(torch.isfinite(loss), loss,
+                                          torch.zeros_like(loss)), sx, sa1)
+    k_win = cl.geometry(ctx)[2]
+    return {
+        "classic_log_fwd[final]": (lambda: ll.classic_log_fwd(*args, "final"), None,
+                                   lens, k_win),
+        "classic_log_fwd[resid]": (lambda: ll.classic_log_fwd(*args, "resid"),
+                                   "log_resid", lens, k_win),
+        "classic_log_bwd": (lambda: ll.classic_log_bwd(*b_args), None, lens, k_win),
+    }
+
+
+def flushed(labels, logits, rows=ROUND_ROWS):
+    """``logits`` with ``rows`` flushed: at frame ``FLUSH_FRAME`` one token
+    at +``FLUSH_SCALE`` and every other at -``FLUSH_SCALE``, the token one
+    that no path can emit there (blank, and the row's first ``FLUSH_FRAME +
+    2`` labels, are all that a path can have reached by then; every token
+    is somewhere in a full-length label).  Every path pays about 2
+    ``FLUSH_SCALE`` nats there, far below float32's normal range: the
+    block-float scans flush the row, the log-space ones do not.  The
+    lengths are kept."""
+    logits = logits.clone()
+    for row in rows:
+        used = set(labels[row, :FLUSH_FRAME + 2].tolist()) | {0}
+        token = min(set(range(logits.shape[2])) - used)
+        logits[row, FLUSH_FRAME] = -FLUSH_SCALE
+        logits[row, FLUSH_FRAME, token] = FLUSH_SCALE
+    return logits
+
+
+def repair_round(smoke, torch, dev, seed=0):
+    """The context of one repair round: rows ``ROUND_ROWS`` of the
+    headline batch (``make_inputs`` at ``seed``), flushed (:func:`flushed`),
+    gathered by the guard's own ``topology.take_ctx``, which cuts the time
+    axis to their longest ``logit_length``; their lengths are kept."""
+    from tf_seq2seq_losses_tpu_torch.ops import core, topology
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    labels, logits, label_length, logit_length = smoke.make_inputs(torch, seed, dev)
+    ctx = core.make_context(labels, logit_to_logproba(flushed(labels, logits), 2),
+                            label_length, logit_length, 0)
+    return topology.take_ctx(ctx, torch.tensor(ROUND_ROWS, device=dev))
 
 
 def fused_case(smoke, torch, dev, max_t: int):
@@ -149,14 +218,16 @@ def fused_case(smoke, torch, dev, max_t: int):
     return smoke.fused_args(ctx)[0]
 
 
-def bound_ms(smoke, torch, dev, max_t: int, cases) -> dict:
+def bound_ms(smoke, torch, dev, max_t: int, cases, label_length=None) -> dict:
     """``{case: ms}``: the least time the card could take for each case's
-    work on the data ``scan_cases`` made at ``max_t``
+    work on the data ``scan_cases`` made at ``max_t``, or on a batch whose
+    ``label_length`` is given (the repair round)
     (``chip_smoke.kernel_bounds``, B12's ``chip_smoke.fused_bound``: its
     bytes at the HBM rate or its operations at the float32 rate, whichever
     is longer)."""
-    label_length = smoke.make_inputs(torch, 0, dev, max_t=max_t,
-                                     infeasible=max_t == smoke.MAX_T)[2]
+    if label_length is None:
+        label_length = smoke.make_inputs(torch, 0, dev, max_t=max_t,
+                                         infeasible=max_t == smoke.MAX_T)[2]
     out = {}
     for name, (_launch, _mode, lens, k_win) in cases.items():
         if name == "fused_dlogits":
@@ -172,9 +243,10 @@ def bound_ms(smoke, torch, dev, max_t: int, cases) -> dict:
 def written(torch, outs, mode, lens, k_win) -> list:
     """A scan's outputs with what the kernel leaves unwritten set to 0: the
     residual steps and windows past each sample's length (modes resid and
-    resid1: the residuals, the frames, then in resid1 ``a0w``)."""
+    resid1: the residuals, the frames, then in resid1 ``a0w``; B4's mode
+    resid, ``"log_resid"``: its two residual streams)."""
     outs = list(outs)
-    if mode not in ("resid", "resid1"):
+    if mode not in ("resid", "resid1", "log_resid"):
         return outs
     steps = torch.arange(outs[0].shape[1], device=lens.device)
     run_t = steps[None, :] < lens[:, None]
@@ -184,7 +256,9 @@ def written(torch, outs, mode, lens, k_win) -> list:
         ok = ok.reshape(ok.shape + (1,) * (x.dim() - 2))
         return torch.where(ok, x, torch.zeros_like(x))
 
-    for i, ok in enumerate((run_t, run_w, run_w)[:3 if mode == "resid1" else 2]):
+    masks = {"resid": (run_t, run_w), "resid1": (run_t, run_w, run_w),
+             "log_resid": (run_t, run_t)}[mode]
+    for i, ok in enumerate(masks):
         outs[i] = keep(outs[i], ok)
     return outs
 
@@ -200,17 +274,21 @@ def digest(torch, case) -> str:
 
 def headline_steps(smoke, torch, dev) -> dict:
     """Host-clock and device time of the training steps at the headline:
-    classic streamed (B2, B3) and half-stream (resid1, B13), simplified (B6
-    resid, B7), and each topology's fused step at V=128 (B12)."""
+    classic streamed (B2, B3) and half-stream (resid1, B13), classic with
+    rows ``ROUND_ROWS`` flushed (:func:`flushed`; the guard repairs them in
+    one round through B4 final, B4 resid and B5), simplified (B6 resid,
+    B7), and each topology's fused step at V=128 (B12)."""
     from tf_seq2seq_losses_tpu_torch.utils.config import config_override
 
     labels, *inputs = smoke.make_inputs(torch, 0, dev)
+    f_inputs = (flushed(labels, inputs[0]), *inputs[1:])
     v_labels, *v_inputs = smoke.make_inputs(torch, 0, dev, vocab=smoke.SLICE_VOCAB)
     v = smoke.SLICE_VOCAB
     cases = {  # name: (topology, labels, inputs, config)
         "classic_fwd_bwd_step": ("classic", labels, inputs, {}),
         "classic_fwd_bwd_step_half_stream": ("classic", labels, inputs,
                                              {"half_stream": True}),
+        "classic_fwd_bwd_step_4_full_rows_repaired": ("classic", labels, f_inputs, {}),
         "simplified_fwd_bwd_step": ("simplified", labels, inputs, {}),
         f"classic_fwd_bwd_step_v{v}_fused": ("classic", v_labels, v_inputs,
                                              {"fused_epilogue": True}),
@@ -279,21 +357,27 @@ def main() -> int:
     shapes = {"headline": (smoke.MAX_T, 0, 20), "long_t_chunk": (smoke.LONG_T, 1, 5)}
     cases = {shape: scan_cases(smoke, torch, dev, max_t, chunk)
              for shape, (max_t, chunk, _) in shapes.items()}
-    digests = {f"{name} {shape}": digest(torch, case)
-               for shape in shapes for name, case in cases[shape].items()}
     bounds = {f"{name} {shape}": ms for shape, (max_t, _, _) in shapes.items()
               for name, ms in bound_ms(smoke, torch, dev, max_t, cases[shape]).items()}
+    round_ctx = repair_round(smoke, torch, dev)
+    cases["repair_round"] = log_cases(torch, round_ctx)
+    bounds.update({f"{name} repair_round": ms for name, ms in bound_ms(
+        smoke, torch, dev, None, cases["repair_round"], round_ctx.label_length).items()})
+    bursts = {shape: burst for shape, (_, _, burst) in shapes.items()}
+    bursts["repair_round"] = 20
+    digests = {f"{name} {shape}": digest(torch, case)
+               for shape in cases for name, case in cases[shape].items()}
     times = {}
     for tag, override in [(args.tag or tree.name, {}), *variants.items()]:
         _build._libs.clear()
         _build._libs.update({**libs, **override})
-        times[tag] = {f"{name} {shape}": smoke.time_ms(torch, case[0], burst=burst)
-                      for shape, (_, _, burst) in shapes.items()
-                      for name, case in cases[shape].items()}
+        times[tag] = {f"{name} {shape}": smoke.time_ms(torch, case[0], burst=bursts[shape])
+                      for shape in cases for name, case in cases[shape].items()}
     _build._libs.clear()
     _build._libs.update(libs)
     out = {"tree": str(args.tag or tree.name), "card": smoke.card_line(),
-           "ms": times, "bound_ms": bounds, "digest": digests}
+           "ms": times, "bound_ms": bounds, "digest": digests,
+           "repair_round_steps": int(round_ctx.logit_length.max())}
     if args.steps:
         out["headline_steps"] = headline_steps(smoke, torch, dev)
         out["long_t_steps"] = long_steps(smoke, torch, dev)
