@@ -37,8 +37,10 @@ simplified):
    logits, at a label for every lanes-per-thread instantiation up to the
    widest label the host sends them (``log_lattice.CLASSIC_LOG_LANES``,
    1568 lanes), and on a repair round of four full-length rows
-   (``tools/time_scans.py``).  The residual-free modes (B10, B11:
-   forward modes bound and final from a carry, backward from a beta carry)
+   (``tools/time_scans.py``); so do B8 (modes final and resid) and B9, up
+   to ``log_lattice.SIMPLIFIED_LOG_LANES`` (3200 lanes).  The
+   residual-free modes (B10, B11: forward modes bound and final from a
+   carry, backward from a beta carry)
    run at the headline shape, at each batch-8 geometry above and at window
    3 (where a window's blank row is not 16-byte aligned), and chunk by
    chunk over T=1500, labels [8, 600], in 3 and in 24 chunks, each chunk
@@ -82,8 +84,9 @@ simplified):
    of the classic loss: median of 20 single calls; no PyTorch call
    computes the simplified loss) and on the host clock (each topology's
    fwd+bwd step, streamed and residual-free, and forward-only call; the
-   steps of ``drive_slice_paths``; the classic step with four full-length
-   rows repaired, and B4 and B5 on that repair round by CUDA events): each
+   steps of ``drive_slice_paths``; each topology's step with four
+   full-length rows repaired, and B4, B5, B8 and B9 on that repair round
+   by CUDA events): each
    kernel, its plain version and its bound, and the device time of the
    unfused epilogue that B12 replaces at V=128; then a ``torch.profiler``
    breakdown of each step's device time by kernel (also the classic V=128
@@ -422,24 +425,27 @@ def compare_classic_log(ctx, where=""):
     return errs, log_fwd, log_bwd
 
 
-def log_lane_widths() -> list:
-    """Label widths for every lanes-per-thread instantiation of B4 and B5
-    (512 threads, lanes t + j * threads) up to the widest label the host
-    sends them, ``log_lattice.CLASSIC_LOG_LANES``: each instantiation's
-    widest, so that label is among them."""
+def log_lane_widths(topology="classic") -> list:
+    """Label widths for every lanes-per-thread instantiation of the log
+    kernels of ``topology`` (B4 and B5, or B8 and B9; 512 threads, lanes
+    t + j * threads) up to the widest label the host sends them,
+    ``log_lattice.CLASSIC_LOG_LANES`` or ``SIMPLIFIED_LOG_LANES``: each
+    instantiation's widest, so that label is among them."""
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
 
-    widest = ll.CLASSIC_LOG_LANES
+    widest = {"classic": ll.CLASSIC_LOG_LANES,
+              "simplified": ll.SIMPLIFIED_LOG_LANES}[topology]
     return [min(512 * lpt, widest) - 1 for lpt in range(1, -(-widest // 512) + 1)]
 
 
-def compare_log_lanes(torch, dev, seed, batch=2) -> dict:
-    """Hold B4 and B5 against their plain versions (``compare_classic_log``)
-    at a label for every lanes-per-thread instantiation
-    (``log_lane_widths``), every lane live: labels of their full width
-    (``label_length`` the width), peaked logits (``peaked``: losses of a few
-    nats, so that float32 carries keep their digits) over a few more frames
-    than the labels and their repeats need; then on the repair round of
+def compare_log_lanes(torch, dev, seed, topology="classic", batch=2) -> dict:
+    """Hold the log kernels of ``topology`` against their plain versions
+    (``compare_classic_log``, ``compare_simplified_log``) at a label for
+    every lanes-per-thread instantiation (``log_lane_widths``), every lane
+    live: labels of their full width (``label_length`` the width), peaked
+    logits (``peaked``: losses of a few nats, so that float32 carries keep
+    their digits) over a few more frames than the labels (and in the
+    classic topology their repeats) need; then on the repair round of
     ``tools/time_scans.py`` (rows 2-5 of the headline batch flushed at one
     frame, at their own lengths and time axis).  Returns the largest error
     of each kernel mode."""
@@ -447,8 +453,10 @@ def compare_log_lanes(torch, dev, seed, batch=2) -> dict:
     from tf_seq2seq_losses_tpu_torch.tools import time_scans
     from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
 
+    compare = {"classic": compare_classic_log, "simplified": compare_simplified_log}[
+        topology]
     errs = {}
-    for width in log_lane_widths():
+    for width in log_lane_widths(topology):
         labels, logits, _, _ = make_inputs(torch, seed + width, dev, batch=batch,
                                            label_width=width, max_t=2 * width,
                                            infeasible=False)
@@ -457,15 +465,17 @@ def compare_log_lanes(torch, dev, seed, batch=2) -> dict:
         logits = logits[:, :width + repeats + 8].contiguous()
         full = torch.full((batch,), width, dtype=torch.int32, device=dev)
         steps = torch.full((batch,), logits.shape[1], dtype=torch.int32, device=dev)
-        logits = peaked(torch, "classic", labels, full, steps, logits)
+        logits = peaked(torch, topology, labels, full, steps, logits)
         ctx = core.make_context(labels, logit_to_logproba(logits, 2), full, steps, 0)
-        e, _, log_bwd = compare_classic_log(ctx, f" at {width + 1} lanes, every lane live")
-        loss = log_bwd[7]  # B5's act normaliser: the loss, 0 where it is +inf
-        check(bool((loss > 0).all()), f"classic log lanes at {width + 1}: every row feasible")
+        e, _, log_bwd = compare(ctx, f" at {width + 1} lanes, every lane live")
+        # the backward's act normaliser: the loss, 0 where it is +inf
+        loss = log_bwd[-3] if topology == "classic" else log_bwd[-2]
+        check(bool((loss > 0).all()),
+              f"{topology} log lanes at {width + 1}: every row feasible")
         for name, v in e.items():
             errs[name] = max(errs.get(name, 0.0), v)
     round_ctx = time_scans.repair_round(sys.modules[__name__], torch, dev, seed)
-    for name, v in compare_classic_log(round_ctx, " on the repair round")[0].items():
+    for name, v in compare(round_ctx, " on the repair round")[0].items():
         errs[name] = max(errs[name], v)
     return errs
 
@@ -516,36 +526,54 @@ def compare_simplified_kernels(ctx):
         agree_carry(b_k, b_p, "simplified_bwd_streamed pd and beta carry"),
         max_err(beta_loss(b_k), beta_loss(b_p)))
 
-    blank_l, dg_l, _lm, _, _ = ll.simplified_log_inputs(ctx)
+    log_errs, log_fwd, log_bwd = compare_simplified_log(ctx)
+    errs.update(log_errs)
+    args = dict(fwd=(blank, dg, lens, k_win), bwd=b_args, log_fwd=log_fwd,
+                log_bwd=log_bwd)
+    return errs, args
+
+
+def compare_simplified_log(ctx, where=""):
+    """Run B8 in modes final and resid, then B9 over mode resid's residual
+    with the act normaliser of its loss, on ``ctx``, and hold each against
+    its plain version, at ``compare_classic_log``'s tolerances.  Returns
+    ``(max abs errors, B8's arguments, B9's)``."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+    blank_l, dg_l, _lm, lens, lab_len = ll.simplified_log_inputs(ctx)
+    valid_t = torch.arange(dg_l.shape[1], device=lens.device)[None, :] < lens[:, None]
+    log_fwd = (blank_l, dg_l, lens)
+    errs = {}
 
     def log_pick(f):
         return ll._pick_single_log_loss(f, lab_len)
 
-    lfl_k = log_pick(ll.simplified_log_fwd(blank_l, dg_l, lens, "final"))
-    lfl_p = log_pick(ll.simplified_log_fwd_plain(blank_l, dg_l, lens, "final"))
-    agree(lfl_k, lfl_p, 1e-5, 0.0, "simplified_log_fwd[final] loss vs plain")
+    lfl_k = log_pick(ll.simplified_log_fwd(*log_fwd, "final"))
+    lfl_p = log_pick(ll.simplified_log_fwd_plain(*log_fwd, "final"))
+    agree(lfl_k, lfl_p, 1e-5, 0.0, f"simplified_log_fwd[final] loss vs plain{where}")
     errs["simplified_log_fwd[final]"] = max_err(lfl_k, lfl_p)
 
-    lr_k = ll.simplified_log_fwd(blank_l, dg_l, lens, "resid")
-    lr_p = ll.simplified_log_fwd_plain(blank_l, dg_l, lens, "resid")
+    lr_k = ll.simplified_log_fwd(*log_fwd, "resid")
+    lr_p = ll.simplified_log_fwd_plain(*log_fwd, "resid")
     lrl_k, lrl_p = log_pick(lr_k[1]), log_pick(lr_p[1])
-    agree(lrl_k, lrl_p, 1e-5, 0.0, "simplified_log_fwd[resid] loss vs plain")
+    agree(lrl_k, lrl_p, 1e-5, 0.0, f"simplified_log_fwd[resid] loss vs plain{where}")
     agree(lr_k[0][valid_t], lr_p[0][valid_t], 1e-5, 1e-5,
-          "simplified_log_fwd[resid] residual alpha vs plain")
+          f"simplified_log_fwd[resid] residual alpha vs plain{where}")
     errs["simplified_log_fwd[resid]"] = max(max_err(lrl_k, lrl_p),
                                             max_err(lr_k[0][valid_t], lr_p[0][valid_t]))
 
     safe = torch.where(torch.isfinite(lrl_k), lrl_k, torch.zeros_like(lrl_k))
-    lb_args = (blank_l, dg_l, lens, lab_len, safe, lr_k[0])
-    lb_k = ll.simplified_log_bwd(*lb_args)
-    lb_p = ll.simplified_log_bwd_plain(*lb_args)
-    agree(lb_k[0], lb_p[0], 0.0, 1e-5, "simplified_log_bwd pd vs plain")
-    agree(lb_k[1][:, 0], lb_p[1][:, 0], 1e-5, 0.0, "simplified_log_bwd beta0 vs plain")
+    log_bwd = (*log_fwd, lab_len, safe, lr_k[0])
+    lb_k = ll.simplified_log_bwd(*log_bwd)
+    lb_p = ll.simplified_log_bwd_plain(*log_bwd)
+    agree(lb_k[0], lb_p[0], 0.0, 1e-5, f"simplified_log_bwd pd vs plain{where}")
+    agree(lb_k[1][:, 0], lb_p[1][:, 0], 1e-5, 0.0,
+          f"simplified_log_bwd beta0 vs plain{where}")
     errs["simplified_log_bwd"] = max(max_err(lb_k[0], lb_p[0]),
                                      max_err(lb_k[1][:, 0], lb_p[1][:, 0]))
-    args = dict(fwd=(blank, dg, lens, k_win), bwd=b_args,
-                log_fwd=(blank_l, dg_l, lens), log_bwd=lb_args)
-    return errs, args
+    return errs, log_fwd, log_bwd
 
 
 def fused_args(ctx):
@@ -1688,8 +1716,15 @@ def run(seed: int, dev) -> dict:
     t_log = time.perf_counter()
     extra[log_key] = compare_log_lanes(torch, dev, seed)
     t_log = time.perf_counter() - t_log
+    # the same for B8 and B9, up to the widest label the host sends them
+    slog_key = ("B8/B9 with every lane live, label widths "
+                + json.dumps(log_lane_widths("simplified")) + ", and the repair round")
+    t_slog = time.perf_counter()
+    extra[slog_key] = compare_log_lanes(torch, dev, seed, "simplified")
+    t_slog = time.perf_counter() - t_slog
     for name_errs in (extra[key], extra["B10/B11 from random carries at window 3"],
-                      extra[fwd_key], extra[streamed_key], extra[log_key]):
+                      extra[fwd_key], extra[streamed_key], extra[log_key],
+                      extra[slog_key]):
         for name, e in name_errs.items():
             errs[name] = max(errs[name], e)
     # the residual-free kernels over several chunks, each from the carries
@@ -1717,7 +1752,7 @@ def run(seed: int, dev) -> dict:
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()})
         + "; worst over the kernels at batch 8: " + json.dumps(worst)
         + f"; {time.perf_counter() - t_phase:.1f} s, of which B4/B5's lane and "
-        f"repair-round checks {t_log:.1f} s")
+        f"repair-round checks {t_log:.1f} s, B8/B9's {t_slog:.1f} s")
 
     # ---- 3 and 4. each main path, then the guard ---------------------------
     # TF32 on, as an H100 training script sets it: the act scatter must not
@@ -1917,18 +1952,20 @@ def run(seed: int, dev) -> dict:
         ).sum().backward()
 
     steps_ms["library_ctc_loss_fwd_bwd"] = host_ms(torch, library_step)
-    # a repair round of four full-length rows (tools/time_scans.py): the
-    # classic step with rows 2-5 flushed at one frame, and B4 and B5 on the
-    # round's own time axis
+    # a repair round of four full-length rows (tools/time_scans.py): each
+    # topology's step with rows 2-5 flushed at one frame, and B4, B5, B8
+    # and B9 on the round's own time axis
     from tf_seq2seq_losses_tpu_torch.tools import time_scans
 
     f_logits = time_scans.flushed(labels, logits)
-    c_step = paths["classic"]["train_step"]
-    steps_ms["classic_fwd_bwd_step_4_full_rows_repaired"] = host_ms(
-        torch, lambda: c_step(f_logits, label_length, logit_length))
+    for name, path in paths.items():
+        steps_ms[f"{name}_fwd_bwd_step_4_full_rows_repaired"] = host_ms(
+            torch, lambda step=path["train_step"]: step(f_logits, label_length,
+                                                        logit_length))
     round_ctx = time_scans.repair_round(sys.modules[__name__], torch, dev, seed)
-    round_ms = {name: time_ms(torch, case[0])
-                for name, case in time_scans.log_cases(torch, round_ctx).items()}
+    round_cases = {**time_scans.log_cases(torch, round_ctx),
+                   **time_scans.simplified_log_cases(torch, round_ctx)}
+    round_ms = {name: time_ms(torch, case[0]) for name, case in round_cases.items()}
     steps_ms["library_ctc_loss_fwd"] = lib_fwd_ms
     for name, (step, args) in slice_paths["steps"].items():
         steps_ms[name] = host_ms(torch, lambda: step(*args))
@@ -1958,7 +1995,7 @@ def run(seed: int, dev) -> dict:
     del inputs, logits, ctx, lib_lp, paths, kargs, sargs, rfargs, table
     del fwd, bwd, logf, logb, sfwd, sbwd, slogf, slogb, rff, rfb, srff, srfb
     del slice_paths, hbwd, v_logits, v_ctx, eargs, acts, lm_, fast_loss, scale, d_loss
-    del step, args, f_logits, round_ctx
+    del step, args, f_logits, round_ctx, round_cases
     del small, wide, small_ctx, multi, multi_ctx
     long_paths = {name: drive_long_t(torch, dev, name, long_inputs, sync, seed)
                   for name in ("classic", "simplified")}

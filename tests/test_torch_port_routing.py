@@ -36,7 +36,8 @@ def test_the_mirrors_give_the_lanes_measured_on_the_h100():
     widest = {"classic_fwd": 4832, "classic_bwd_rf": 3040, "classic_bwd": 1792,
               "classic_bwd_half": 1856, "simplified_fwd": 4832,
               "simplified_bwd_rf": 3616, "simplified_bwd": 2624,
-              "classic_log_bwd": 1696}
+              "classic_log_bwd": 1696, "simplified_log_fwd": 5792,
+              "simplified_log_bwd": 3200}
     assert {name: _widest(name) for name in widest} == widest
     # a one-chunk step with a 2016-lane label: residual-free, pure repair
     assert not _build.fits(("classic_bwd",), 2016, 8, CPU)
@@ -256,7 +257,7 @@ def test_a_label_the_log_kernels_do_not_hold_is_repaired_through_the_pure_path(
                             lambda *a, _real=real: calls.append(a) or _real(*a))
     logspace = step(use_kernels=True)
     assert calls
-    # under what B5 (4544 bytes at 32 lanes) and B9 (2336) need
+    # under what B5 (4544 bytes at 32 lanes) and B9 (2496) need
     monkeypatch.setattr(_build, "SMEM_LIMIT", 2000)
     assert not ll.fits_log_fallback(ctx, topology)
     calls.clear()
@@ -333,6 +334,9 @@ def test_the_log_mirrors_follow_the_staged_kernels_formulas(lanes):
     # exchange, two runs of 8 blanks, a full and an empty mbarrier a slot
     assert _build.SMEM_BYTES["classic_log_fwd"](lanes, 0) == 4 * (lanes * 18 + 16) + 128
     assert _build.SMEM_BYTES["classic_log_bwd"](lanes, 0) == 4 * (lanes * 34 + 16) + 128
+    # the same design with one state: B8 stages dg, B9 dg and the residual
+    assert _build.SMEM_BYTES["simplified_log_fwd"](lanes, 0) == 4 * (lanes * 10 + 16) + 128
+    assert _build.SMEM_BYTES["simplified_log_bwd"](lanes, 0) == 4 * (lanes * 18 + 16) + 128
 
 
 def test_the_log_route_keeps_the_labels_the_unstaged_pair_held():
@@ -409,3 +413,42 @@ def test_a_flushed_row_is_repaired_through_b4_and_b5_up_to_their_widest_label(
     unguarded = step(use_kernels=True, guard=False)
     assert torch.equal(loss[0], unguarded[0][0])
     assert torch.equal(d_logits[0], unguarded[1][0])
+
+
+# B8 and B9 before their redesign (ops/_build.py's formulas then): every
+# per-lane value in shared memory beside a chunk of 8 staged steps.
+_UNSTAGED_SLOG_BYTES = {
+    "simplified_log_fwd": lambda lp: 4 * (lp * (3 + 8) + 8),
+    "simplified_log_bwd": lambda lp: 4 * (lp * (2 + 2 * 8) + 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_UNSTAGED_SLOG_BYTES))
+def test_the_redesigned_b8_and_b9_hold_at_least_the_lanes_of_the_unstaged_pair(name):
+    before = max(lp for lp in range(32, 8192, 32)
+                 if _UNSTAGED_SLOG_BYTES[name](lp) <= _build.SMEM_LIMIT)
+    assert before == {"simplified_log_fwd": 5280, "simplified_log_bwd": 3200}[name]
+    assert _widest(name, 0) >= before
+    # the pair, bound by B9, holds the route's widest label
+    assert _build.fits(tuple(_UNSTAGED_SLOG_BYTES), ll.SIMPLIFIED_LOG_LANES, 0, CPU)
+    assert ll.SIMPLIFIED_LOG_LANES == min(
+        max(lp for lp in range(32, 8192, 32) if f(lp) <= _build.SMEM_LIMIT)
+        for f in _UNSTAGED_SLOG_BYTES.values())
+
+
+@pytest.mark.parametrize("lanes,held", [(3200, True), (3232, False)])
+def test_a_one_chunk_simplified_label_takes_the_log_kernels_up_to_3200_lanes(lanes, held):
+    ctx = _ctx(np.ones((1, lanes - 1), np.int32), np.zeros((1, 4, 3), np.float32), [2], [4])
+    assert cl.geometry(ctx)[1] == lanes and cl.chunk_plan(ctx)[0] == 1
+    assert ll.fits_log_fallback(ctx, "simplified") == held
+    # the classic pair stops at its own, narrower route
+    assert not ll.fits_log_fallback(ctx)
+
+
+def test_the_log_wrappers_refuse_labels_wider_than_their_route():
+    ll._check_lanes(ll.SIMPLIFIED_LOG_LANES, "simplified", "simplified_log_fwd")
+    ll._check_lanes(ll.CLASSIC_LOG_LANES, "classic", "classic_log_fwd")
+    with pytest.raises(ValueError, match="at most 3200 lanes .SIMPLIFIED_LOG_LANES."):
+        ll._check_lanes(ll.SIMPLIFIED_LOG_LANES + 32, "simplified", "simplified_log_bwd")
+    with pytest.raises(ValueError, match="at most 1568 lanes .CLASSIC_LOG_LANES."):
+        ll._check_lanes(ll.CLASSIC_LOG_LANES + 32, "classic", "classic_log_bwd")

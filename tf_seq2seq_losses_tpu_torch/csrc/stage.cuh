@@ -4,7 +4,8 @@
 // the thread mapping of the kernels that hold a thread's lanes in
 // registers.  Used by classic_fwd.cu, simplified_fwd.cu, classic_bwd_rf.cu,
 // simplified_bwd_rf.cu, classic_bwd.cuh (classic_bwd.cu and
-// classic_bwd_half.cu), simplified_bwd.cu and fused_epilogue.cu.
+// classic_bwd_half.cu), simplified_bwd.cu, classic_log.cu, simplified_log.cu
+// and fused_epilogue.cu.
 //
 // A bulk copy needs its global and shared addresses and its size to be
 // multiples of 16 bytes; the wrappers check the base pointers, and rows of

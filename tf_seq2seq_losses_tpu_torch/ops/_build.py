@@ -86,9 +86,8 @@ _SIGNATURES = {
 
 _F = _N = 4  # bytes of a float and of an int
 _BAR = 8  # bytes of an mbarrier
-_LOG_CHUNK = 8  # kSChunk of the simplified log-space kernels
-_LOG_RING = 8  # kLogRing of the classic log-space kernels
-_LOG_RUN = 8  # kLogRun: steps whose blanks they stage at a time
+_LOG_RING = 8  # kLogRing and kSLogRing of the log-space kernels
+_LOG_RUN = 8  # kLogRun and kSLogRun: steps whose blanks they stage at a time
 _SPARE_ROWS = 2  # ring rows beyond one window of the staged scans
 
 
@@ -125,8 +124,9 @@ def _fused_epilogue_bytes(lp: int, v: int) -> int:
     return _F * slots * lp + _BAR * slots + _N * (lp + v + 1)
 
 
-def _classic_log_bytes(rows: int):
-    """The classic log-space scans' formula (B4 with ``rows`` 2, B5 with 4):
+def _log_bytes(rows: int):
+    """The log-space scans' formula (classic B4 with ``rows`` 2, B5 with 4;
+    simplified B8 with 1, B9 with 2):
     a ring of kLogRing slots, each ``rows`` staged rows of a step, and the
     double-buffered exchange a lane; a blank row per run slot; two
     mbarriers per ring slot (full, empty)."""
@@ -157,14 +157,14 @@ SMEM_BYTES = {
     # mbarrier per ring row and one for the boundary rows
     "classic_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 9) + 2 * k)
                                      + _BAR * (k + _SPARE_ROWS + 1)),
-    "classic_log_fwd": _classic_log_bytes(2),
-    "classic_log_bwd": _classic_log_bytes(4),
+    "classic_log_fwd": _log_bytes(2),
+    "classic_log_bwd": _log_bytes(4),
     "simplified_fwd": _fwd_bytes(5),
     "simplified_bwd": _simplified_bwd_bytes,
     "simplified_bwd_rf": lambda lp, k: (_F * (lp * (k + _SPARE_ROWS + 6) + 2 * k)
                                         + _BAR * (k + _SPARE_ROWS + 1)),
-    "simplified_log_fwd": lambda lp, _: _F * (lp * (3 + _LOG_CHUNK) + _LOG_CHUNK),
-    "simplified_log_bwd": lambda lp, _: _F * (lp * (2 + 2 * _LOG_CHUNK) + _LOG_CHUNK),
+    "simplified_log_fwd": _log_bytes(1),
+    "simplified_log_bwd": _log_bytes(2),
     "fused_epilogue": _fused_epilogue_bytes,
 }
 

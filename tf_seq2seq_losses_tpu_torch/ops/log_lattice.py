@@ -13,9 +13,9 @@ Counterpart of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
 Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
 kernels; CPU tensors run the plain versions.  These kernels serve a time
 axis of one chunk only (a rare repair needs no chunked scan), and labels
-whose lanes their shared memory holds (classic: at most
-:data:`CLASSIC_LOG_LANES`): beyond either the repair takes the pure path
-(:func:`fits_log_fallback`), in float64, cast back to float32.
+whose lanes their shared memory holds (at most :data:`CLASSIC_LOG_LANES`
+and :data:`SIMPLIFIED_LOG_LANES`): beyond either the repair takes the pure
+path (:func:`fits_log_fallback`), in float64, cast back to float32.
 """
 
 from __future__ import annotations
@@ -79,27 +79,34 @@ _LOG_KERNELS = {"classic": ("classic_log_fwd", "classic_log_bwd"),
 # float64 in the gradient at T=495 (tools/log_precision.py), so a wider
 # route would make those rows worse (ROADMAP C2).
 CLASSIC_LOG_LANES = 1568
+# The widest label (lanes) that B8 and B9 repair: what B9's shared memory
+# holds on an H100 (72 bytes a lane), as in their first design.  B8's
+# holds more, but the loss and the gradient of a repaired row come from one
+# route, and the kernels are built for seven lanes a thread.
+SIMPLIFIED_LOG_LANES = 3200
+_LOG_LANES = {"classic": CLASSIC_LOG_LANES, "simplified": SIMPLIFIED_LOG_LANES}
 
 
 def fits_log_fallback(ctx: CtcContext, topology: str = "classic") -> bool:
     """The log kernels of ``topology`` repair ``ctx``: its window-padded T
     is one chunk (within chunk_time), and both kernels' shared memory holds
     its label's lanes (the loss and the gradient of a repaired row come
-    from one path), at most :data:`CLASSIC_LOG_LANES` in the classic
-    topology."""
+    from one path), at most :data:`CLASSIC_LOG_LANES` or
+    :data:`SIMPLIFIED_LOG_LANES`."""
     if ctx.logproba.shape[1] == 0 or chunk_plan(ctx)[0] != 1:
         return False
     lpad = geometry(ctx)[1]
-    if topology == "classic" and lpad > CLASSIC_LOG_LANES:
+    if lpad > _LOG_LANES[topology]:
         return False
     return _build.fits(_LOG_KERNELS[topology], lpad, 0, ctx.logproba.device)
 
 
-def _check_classic_lanes(lpad: int, what: str) -> None:
-    """Raise for a label wider than B4 and B5 are built for."""
-    if lpad > CLASSIC_LOG_LANES:
+def _check_lanes(lpad: int, topology: str, what: str) -> None:
+    """Raise for a label wider than the log kernels of ``topology`` are
+    built for."""
+    if lpad > _LOG_LANES[topology]:
         raise ValueError(f"{what}: {lpad} lanes; these kernels take labels of at most "
-                         f"{CLASSIC_LOG_LANES} lanes (CLASSIC_LOG_LANES)")
+                         f"{_LOG_LANES[topology]} lanes ({topology.upper()}_LOG_LANES)")
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +165,7 @@ def classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
     check_tensor(rep, (batch, lpad), f32, "rep", dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_aligned((("dc_l", dc_l), ("pt_l", pt_l)), "classic_log_fwd")
-    _check_classic_lanes(lpad, "classic_log_fwd")
+    _check_lanes(lpad, "classic", "classic_log_fwd")
     lib = _build.lib("classic_log")
     _build.check_smem(lib.ctc_classic_log_fwd_smem_bytes(lpad), "classic_log_fwd", dev)
     resid = mode == "resid"
@@ -248,7 +255,7 @@ def classic_log_bwd(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
     check_tensor(loss, (batch,), f32, "loss", dev)
     check_aligned((("dc_l", dc_l), ("pt_l", pt_l), ("sx", sx), ("sa1", sa1)),
                   "classic_log_bwd")
-    _check_classic_lanes(lpad, "classic_log_bwd")
+    _check_lanes(lpad, "classic", "classic_log_bwd")
     lib = _build.lib("classic_log")
     _build.check_smem(lib.ctc_classic_log_bwd_smem_bytes(lpad), "classic_log_bwd", dev)
     pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
@@ -436,6 +443,8 @@ def simplified_log_fwd(blank_l, dg_l, lens, mode: str):
     check_tensor(blank_l, (batch, tpad), f32, "blank_l", dev)
     check_tensor(dg_l, (batch, tpad, lpad), f32, "dg_l", dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
+    check_aligned((("dg_l", dg_l),), "simplified_log_fwd")
+    _check_lanes(lpad, "simplified", "simplified_log_fwd")
     lib = _build.lib("simplified_log")
     _build.check_smem(
         lib.ctc_simplified_log_fwd_smem_bytes(lpad), "simplified_log_fwd", dev
@@ -501,6 +510,8 @@ def simplified_log_bwd(blank_l, dg_l, lens, lab_len, loss, sa):
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
     check_tensor(loss, (batch,), f32, "loss", dev)
+    check_aligned((("dg_l", dg_l), ("sa", sa)), "simplified_log_bwd")
+    _check_lanes(lpad, "simplified", "simplified_log_bwd")
     lib = _build.lib("simplified_log")
     _build.check_smem(
         lib.ctc_simplified_log_bwd_smem_bytes(lpad), "simplified_log_bwd", dev

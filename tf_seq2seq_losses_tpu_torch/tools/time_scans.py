@@ -9,9 +9,11 @@ B3 (``classic_bwd_streamed``, over mode resid's residuals), B13
 (``simplified_bwd_streamed``, over B6 mode resid's), the fused d_logits
 epilogue B12 (``fused_dlogits``) at V=128 on the headline batch, over the
 acts of the streamed classic scheme (``chip_smoke.fused_args``), and the
-classic log-space scans B4 (``classic_log_fwd``, modes final and resid)
-and B5 (``classic_log_bwd``, over mode resid's residuals) at the headline
-and on a repair round (:func:`repair_round`).
+log-space scans, classic B4 (``classic_log_fwd``, modes final and resid)
+and B5 (``classic_log_bwd``, over mode resid's residuals) and simplified
+B8 (``simplified_log_fwd``, modes final and resid) and B9
+(``simplified_log_bwd``, over mode resid's residual), at the headline and
+on a repair round (:func:`repair_round`).
 
     python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
@@ -28,14 +30,15 @@ modified copies of a kernel, such as one with a phase taken out.
 Shapes: the headline (B=256, T=500, V=32, labels [256, 250], one chunk;
 bursts of 20 launches) and one long-T chunk (chunk 1 of 8 at B=256,
 T=4000, labels [256, 2000]: 504 steps, 2016 lanes, from the carry chunk 0
-leaves; bursts of 5), and for B4 and B5 also a repair round (rows 2-5 of
-the headline batch, flushed at one frame, gathered by the guard's own
+leaves; bursts of 5), and for B4, B5, B8 and B9 also a repair round (rows
+2-5 of the headline batch, flushed at one frame, gathered by the guard's own
 ``topology.take_ctx`` on their own time axis; bursts of 20), each by CUDA
 events, the median of 5 bursts, as ``chip_smoke.py`` times its kernels.
 ``--steps`` also times the training steps at the headline (median of 20):
 classic streamed and half-stream, the classic step with those four rows
 flushed (the guard repairs them through B4 and B5 at their full lengths),
-simplified, and each topology's fused step at V=128; and the long-T
+simplified, the simplified step with the same rows flushed (B8 and B9),
+and each topology's fused step at V=128; and the long-T
 training step of each topology (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
 through the pure path), each on the host clock and its device time by
@@ -145,6 +148,7 @@ def scan_cases(smoke, torch, dev, max_t: int, chunk: int) -> dict:
         out["fused_dlogits"] = (lambda a=eargs: (cl.fused_dlogits(*a),), None, eargs[5],
                                 None)
         out.update(log_cases(torch, ctx))
+        out.update(simplified_log_cases(torch, ctx))
     return out
 
 
@@ -169,6 +173,31 @@ def log_cases(torch, ctx) -> dict:
         "classic_log_fwd[resid]": (lambda: ll.classic_log_fwd(*args, "resid"),
                                    "log_resid", lens, k_win),
         "classic_log_bwd": (lambda: ll.classic_log_bwd(*b_args), None, lens, k_win),
+    }
+
+
+def simplified_log_cases(torch, ctx) -> dict:
+    """``{case: (launch, mode, lens, window)}`` of B8 in modes final and
+    resid and B9 over mode resid's residual, with the act normaliser of
+    that forward's loss, on ``ctx`` (a time axis of one chunk); mode
+    ``"slog_resid"`` marks B8's residual for :func:`written`."""
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+    blank_l, dg_l, _lm, lens, lab_len = ll.simplified_log_inputs(ctx)
+    args = (blank_l, dg_l, lens)
+    sa, f = ll.simplified_log_fwd(*args, "resid")
+    loss = ll._pick_single_log_loss(f, lab_len)
+    b_args = (*args, lab_len, torch.where(torch.isfinite(loss), loss,
+                                          torch.zeros_like(loss)), sa)
+    k_win = cl.geometry(ctx)[2]
+    return {
+        "simplified_log_fwd[final]": (lambda: (ll.simplified_log_fwd(*args, "final"),),
+                                      None, lens, k_win),
+        "simplified_log_fwd[resid]": (lambda: ll.simplified_log_fwd(*args, "resid"),
+                                      "slog_resid", lens, k_win),
+        "simplified_log_bwd": (lambda: ll.simplified_log_bwd(*b_args), None, lens,
+                               k_win),
     }
 
 
@@ -244,9 +273,10 @@ def written(torch, outs, mode, lens, k_win) -> list:
     """A scan's outputs with what the kernel leaves unwritten set to 0: the
     residual steps and windows past each sample's length (modes resid and
     resid1: the residuals, the frames, then in resid1 ``a0w``; B4's mode
-    resid, ``"log_resid"``: its two residual streams)."""
+    resid, ``"log_resid"``: its two residual streams; B8's,
+    ``"slog_resid"``: its one)."""
     outs = list(outs)
-    if mode not in ("resid", "resid1", "log_resid"):
+    if mode not in ("resid", "resid1", "log_resid", "slog_resid"):
         return outs
     steps = torch.arange(outs[0].shape[1], device=lens.device)
     run_t = steps[None, :] < lens[:, None]
@@ -257,7 +287,7 @@ def written(torch, outs, mode, lens, k_win) -> list:
         return torch.where(ok, x, torch.zeros_like(x))
 
     masks = {"resid": (run_t, run_w), "resid1": (run_t, run_w, run_w),
-             "log_resid": (run_t, run_t)}[mode]
+             "log_resid": (run_t, run_t), "slog_resid": (run_t,)}[mode]
     for i, ok in enumerate(masks):
         outs[i] = keep(outs[i], ok)
     return outs
@@ -277,7 +307,8 @@ def headline_steps(smoke, torch, dev) -> dict:
     classic streamed (B2, B3) and half-stream (resid1, B13), classic with
     rows ``ROUND_ROWS`` flushed (:func:`flushed`; the guard repairs them in
     one round through B4 final, B4 resid and B5), simplified (B6 resid,
-    B7), and each topology's fused step at V=128 (B12)."""
+    B7), simplified with the same rows flushed (B8 final, B8 resid and
+    B9), and each topology's fused step at V=128 (B12)."""
     from tf_seq2seq_losses_tpu_torch.utils.config import config_override
 
     labels, *inputs = smoke.make_inputs(torch, 0, dev)
@@ -290,6 +321,8 @@ def headline_steps(smoke, torch, dev) -> dict:
                                              {"half_stream": True}),
         "classic_fwd_bwd_step_4_full_rows_repaired": ("classic", labels, f_inputs, {}),
         "simplified_fwd_bwd_step": ("simplified", labels, inputs, {}),
+        "simplified_fwd_bwd_step_4_full_rows_repaired": ("simplified", labels, f_inputs,
+                                                         {}),
         f"classic_fwd_bwd_step_v{v}_fused": ("classic", v_labels, v_inputs,
                                              {"fused_epilogue": True}),
         f"simplified_fwd_bwd_step_v{v}_fused": ("simplified", v_labels, v_inputs,
@@ -360,7 +393,8 @@ def main() -> int:
     bounds = {f"{name} {shape}": ms for shape, (max_t, _, _) in shapes.items()
               for name, ms in bound_ms(smoke, torch, dev, max_t, cases[shape]).items()}
     round_ctx = repair_round(smoke, torch, dev)
-    cases["repair_round"] = log_cases(torch, round_ctx)
+    cases["repair_round"] = {**log_cases(torch, round_ctx),
+                             **simplified_log_cases(torch, round_ctx)}
     bounds.update({f"{name} repair_round": ms for name, ms in bound_ms(
         smoke, torch, dev, None, cases["repair_round"], round_ctx.label_length).items()})
     bursts = {shape: burst for shape, (_, _, burst) in shapes.items()}
