@@ -1,10 +1,12 @@
 """PyTorch and CUDA port of tf-seq2seq-losses-tpu: the classic and simplified
-CTC losses with analytic gradients and Hessians.
+CTC losses with analytic gradients and Hessians, token posteriors, the
+Hessian-vector product, forced alignment, alignment sampling, and greedy
+and beam-search decoding.
 
-On CUDA tensors the loss and its gradient run through hand-written Hopper
-kernels (``csrc/``); on CPU tensors through the pure log-space path.  The
-JAX package ``tf_seq2seq_losses_tpu`` is the reference this port is tested
-against.
+On CUDA tensors the loss, its gradient and the posteriors run through
+hand-written Hopper kernels (``csrc/``); on CPU tensors through the pure
+log-space path.  The JAX package ``tf_seq2seq_losses_tpu`` is the
+reference this port is tested against.
 """
 
 from tf_seq2seq_losses_tpu_torch.api import (
@@ -12,10 +14,16 @@ from tf_seq2seq_losses_tpu_torch.api import (
     ClassicCtcLossData,
     SimplifiedCtcLossData,
     classic_ctc_loss,
+    ctc_beam_search_decode,
+    ctc_forced_alignment,
+    ctc_greedy_decode,
     ctc_loss,
     ctc_loss_from_logproba,
     ctc_loss_gradient,
     ctc_loss_hessian,
+    ctc_loss_hessian_vector_product,
+    ctc_sample_alignments,
+    ctc_token_posteriors,
     simplified_ctc_loss,
 )
 
@@ -27,6 +35,12 @@ __all__ = [
     "ctc_loss_from_logproba",
     "ctc_loss_gradient",
     "ctc_loss_hessian",
+    "ctc_loss_hessian_vector_product",
+    "ctc_forced_alignment",
+    "ctc_beam_search_decode",
+    "ctc_greedy_decode",
+    "ctc_token_posteriors",
+    "ctc_sample_alignments",
     "BaseCtcLossData",
     "ClassicCtcLossData",
     "SimplifiedCtcLossData",

@@ -1,23 +1,33 @@
-"""Public API of the PyTorch port: the classic and simplified CTC losses and
-their analytic derivatives.
+"""Public API of the PyTorch port: the classic and simplified CTC losses,
+their analytic derivatives, token posteriors, the Hessian-vector product,
+forced alignment, alignment sampling, and greedy and beam-search decoding.
 
 Signatures follow ``tf_seq2seq_losses_tpu/api.py`` (the ``tf.nn.ctc_loss``
-argument order with batch-major tensors).  Every function computes on the
-device of ``logits``/``logprobas``: the CUDA kernels for CUDA tensors, the
-pure log-space path for CPU tensors (see ``utils/config.py``).  Logits that
-are not a tensor (a numpy array, a list) go to the current CUDA device, as
-the JAX package puts them on its accelerator; without a CUDA device they
-raise ``ValueError``: pass a CPU tensor to compute on the CPU.
+argument order with batch-major tensors); where the JAX package takes a
+PRNG key, the port takes a ``torch.Generator``.  Every function computes on
+the device of ``logits``/``logprobas``: the losses, their gradient and the
+posteriors through the CUDA kernels for CUDA tensors and the pure
+log-space path for CPU tensors (see ``utils/config.py``); the
+Hessian-vector product, alignment, sampling and decoding run their
+PyTorch code on either device, as the JAX package runs them as XLA
+programs.  Logits that are not a tensor (a numpy array, a list) go to the
+current CUDA device, as the JAX package puts them on its accelerator;
+without a CUDA device they raise ``ValueError``: pass a CPU tensor to
+compute on the CPU.  Integer outputs are int32, as the JAX package's.
 """
 
 from __future__ import annotations
 
 from functools import cached_property
-from typing import Union
+from typing import Optional, Union
 
 import torch
+from torch.autograd import forward_ad
 
+from tf_seq2seq_losses_tpu_torch.ops import align as _align
 from tf_seq2seq_losses_tpu_torch.ops import core as _core
+from tf_seq2seq_losses_tpu_torch.ops import decode as _decode
+from tf_seq2seq_losses_tpu_torch.ops import sample as _sample
 from tf_seq2seq_losses_tpu_torch.ops.autodiff import (
     Gradient,
     Hessian,
@@ -102,6 +112,137 @@ def ctc_loss_hessian(
     topo = _check_topology(topology)
     return Hessian.apply(_core.values_tensor(logprobas), labels, label_length,
                          logit_length, blank_index, topo)
+
+
+def ctc_token_posteriors(
+    labels, logprobas, label_length, logit_length, blank_index: IntLike,
+    topology: str = "classic",
+) -> torch.Tensor:
+    """Per-frame token posteriors ``P(token v emitted at frame t | labels)``
+    [B, T, V]: minus the loss gradient w.r.t. log-probabilities.  Each valid
+    frame's posteriors sum to 1; frames past ``logit_length`` and infeasible
+    samples are all zero.  On CUDA tensors this is the gradient's kernel
+    path (and its guard)."""
+    return -ctc_loss_gradient(labels, logprobas, label_length, logit_length,
+                              blank_index, topology)
+
+
+def ctc_forced_alignment(
+    labels, logprobas, label_length, logit_length, blank_index: IntLike,
+    topology: str = "classic",
+) -> tuple:
+    """Viterbi forced alignment: ``(alignment [B, T] int32, path_logproba
+    [B])``.  ``alignment[b, t]`` is the token (or blank) that the most
+    probable valid path emits at frame ``t``; infeasible samples get
+    ``-inf`` and all-blank frames, frames past ``logit_length`` are blank
+    (``ops/align.py``)."""
+    topo = _check_topology(topology)
+    ctx = _core.make_context(labels, logprobas, label_length, logit_length, blank_index)
+    path_lp, alignment = _align.VITERBI[topo.name](ctx)
+    return alignment, path_lp
+
+
+def ctc_sample_alignments(
+    labels, logprobas, label_length, logit_length, blank_index: IntLike,
+    generator: Optional[torch.Generator], num_samples: int = 1,
+    topology: str = "classic",
+) -> tuple:
+    """Exact samples from the alignment posterior ``P(path | label,
+    logits)``: ``(alignments [B, S, T] int32, path_logprobas [B, S])``.
+
+    Forward filtering, backward sampling (``ops/sample.py``): one alpha
+    pass shared by the ``S`` samples, then a Gumbel-max walk backwards,
+    its noise drawn from ``generator`` (a generator of the log-probabilities'
+    device; None draws from PyTorch's default one).  Frames past
+    ``logit_length`` are blank; infeasible samples get ``-inf`` and
+    all-blank alignments."""
+    topo = _check_topology(topology)
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    ctx = _core.make_context(labels, logprobas, label_length, logit_length, blank_index)
+    return _sample.sample(ctx, topo.name, generator, num_samples)
+
+
+def _decode_inputs(logprobas, logit_length, blank_index):
+    logprobas = _core.values_tensor(logprobas)
+    if logprobas.ndim != 3:
+        raise ValueError(f"logprobas must be rank 3, got {tuple(logprobas.shape)}")
+    device = logprobas.device
+    return (logprobas, torch.as_tensor(logit_length, device=device),
+            torch.as_tensor(blank_index, device=device))
+
+
+def ctc_greedy_decode(
+    logprobas, logit_length, blank_index: IntLike, topology: str = "classic",
+    max_length: Optional[int] = None,
+) -> tuple:
+    """Best-path (greedy) decoding: ``(tokens [B, Lcap] int32, lengths [B]
+    int32, log_probs [B])``, the ``tf.nn.ctc_greedy_decoder`` analogue.  The
+    arg-max token per frame below ``logit_length``, consecutive repeats
+    collapsed for ``topology='classic'`` (blank removal alone for
+    ``'simplified'``), blanks dropped, survivors left-compacted; the score
+    is the greedy frame path's log-probability.  ``Lcap`` is ``max_length``,
+    by default T."""
+    topo = _check_topology(topology)
+    logprobas, logit_length, blank = _decode_inputs(logprobas, logit_length, blank_index)
+    l_cap = logprobas.shape[1] if max_length is None else max_length
+    return _decode.greedy_decode(logprobas, logit_length, blank, l_cap,
+                                 topo.name == "classic")
+
+
+def ctc_beam_search_decode(
+    logprobas, logit_length, blank_index: IntLike, beam_width: int = 8,
+    topology: str = "classic", max_length: Optional[int] = None,
+) -> tuple:
+    """CTC prefix beam search: ``(tokens [B, K, Lcap] int32, lengths [B, K]
+    int32, log_probs [B, K])``, beams sorted by descending total
+    probability (``ops/decode.py``).  Duplicate prefixes merge exactly; with
+    ``beam_width`` at least the number of reachable prefixes the scores are
+    the sequences' exact total CTC probabilities.  ``topology='classic'``
+    collapses repeats, ``'simplified'`` removes blanks only.  Frames past
+    ``logit_length`` are ignored."""
+    topo = _check_topology(topology)
+    logprobas, logit_length, blank = _decode_inputs(logprobas, logit_length, blank_index)
+    if beam_width < 1:
+        raise ValueError(f"beam_width must be >= 1, got {beam_width}")
+    l_cap = logprobas.shape[1] if max_length is None else max_length
+    return _decode.beam_search(logprobas, logit_length, blank, beam_width, l_cap,
+                               topo.name == "classic")
+
+
+def ctc_loss_hessian_vector_product(
+    labels, logprobas, label_length, logit_length, blank_index: IntLike, vector,
+    topology: str = "classic",
+) -> torch.Tensor:
+    """``Hessian @ vector`` [B, T, V] float32 in O(B·T·(L+V)) memory.
+
+    Forward-mode differentiation (``torch.autograd.forward_ad``) of the
+    pure analytic gradient (``core.gradient``), as the JAX package applies
+    ``jax.jvp``: the tangent runs through the alpha and beta recursions
+    beside their values, and the [B, T, V, T, V] Hessian is never built.
+    Equals ``einsum('btvxy,bxy->btv', ctc_loss_hessian(...), vector)``;
+    infeasible samples and steps past ``logit_length`` give exact zeros.
+
+    Primal and tangent are cast to float32, as the JAX package casts them;
+    the recursions then run in float64 (``core.float64_context``, as the
+    guard's pure repairs do): in float32 their log-space values near -1e3
+    keep only about 6e-5 of a unit, and the product drifts 1e-3 from
+    float64 at T=500."""
+    topo = _check_topology(topology)
+    logprobas = _core.values_tensor(logprobas).to(torch.float32)
+    vector = torch.as_tensor(vector, device=logprobas.device).to(torch.float32)
+    if vector.shape != logprobas.shape:
+        raise ValueError(
+            "ctc_loss_hessian_vector_product: vector must match logprobas "
+            f"shape {tuple(logprobas.shape)}, got {tuple(vector.shape)}"
+        )
+
+    with forward_ad.dual_level():
+        ctx = _core.float64_context(_core.make_context(
+            labels, forward_ad.make_dual(logprobas, vector), label_length,
+            logit_length, blank_index))
+        grad = _core.gradient(topo, ctx)
+        return forward_ad.unpack_dual(grad).tangent.to(torch.float32)
 
 
 class BaseCtcLossData:

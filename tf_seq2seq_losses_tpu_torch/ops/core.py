@@ -193,11 +193,14 @@ def select_from_act(act: torch.Tensor, label: torch.Tensor, num_tokens: int):
     return m_safe + torch.where(empty, torch.full_like(safe_log, NEG_INF), safe_log)
 
 
-def gradient_log(topology, ctx: CtcContext, loss: torch.Tensor) -> torch.Tensor:
+def gradient_log(topology, ctx: CtcContext, loss: torch.Tensor,
+                 alpha: torch.Tensor = None) -> torch.Tensor:
     """Log of minus the loss gradient w.r.t. log-probabilities:
     ``loss + combine(alpha[:, :-1], beta[:, 1:])``, -inf for infinite-loss
-    samples and for steps past ``logit_length``."""
-    alpha = topology.alpha(ctx)
+    samples and for steps past ``logit_length``; ``alpha`` is
+    ``topology.alpha(ctx)`` where the caller has it already."""
+    if alpha is None:
+        alpha = topology.alpha(ctx)
     beta = topology.beta(ctx)
     combined = topology.combine(ctx, alpha[:, :-1], beta[:, 1:])
     out = loss[:, None, None] + combined
@@ -208,10 +211,12 @@ def gradient_log(topology, ctx: CtcContext, loss: torch.Tensor) -> torch.Tensor:
 
 
 def gradient(topology, ctx: CtcContext, loss: torch.Tensor = None) -> torch.Tensor:
-    """Analytic loss gradient w.r.t. log-probabilities (pure path)."""
+    """Analytic loss gradient w.r.t. log-probabilities (pure path); one
+    alpha recursion serves the loss and the gradient."""
+    alpha = topology.alpha(ctx)
     if loss is None:
-        loss = topology.loss(ctx, topology.alpha(ctx))
-    return -torch.exp(gradient_log(topology, ctx, loss))
+        loss = topology.loss(ctx, alpha)
+    return -torch.exp(gradient_log(topology, ctx, loss, alpha))
 
 
 def hessian(topology, ctx: CtcContext, loss: torch.Tensor) -> torch.Tensor:

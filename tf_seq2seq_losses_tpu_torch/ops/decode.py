@@ -1,0 +1,262 @@
+"""CTC decoding: best-path (greedy) and prefix beam search, in PyTorch.
+
+Counterpart of ``tf_seq2seq_losses_tpu/ops/decode.py``.  The JAX package
+vmaps a one-sample beam search over the batch; here every step is batched
+over ``B`` directly.  The beam state is fixed-shape: ``tokens [B, K,
+Lcap]``, ``length/last [B, K]``, per-prefix probability components ``(pb,
+pnb)`` (paths ending in blank / non-blank), and a pair of independent
+rolling 32-bit prefix hashes.  Each frame pools the ``K`` "stay"
+candidates with the ``K x V`` single-token extensions, merges duplicate
+prefixes exactly by sorting the pool on the hash pair, combining runs of
+equal hashes and keeping one representative per run, then prunes to the
+top ``K`` by total probability.
+
+The merges and their order of ties are the JAX package's:
+
+* the hashes are uint32 there; here int64 holding 32 bits, updated by
+  :func:`hash_step` without overflow (16-bit halves);
+* ``jnp.lexsort((h2, h1))`` is a stable sort by ``h1`` then ``h2``: two
+  stable sorts here, by ``h2`` then by ``h1`` (a single ``(h1 << 32) | h2``
+  int64 key would order the sentinels with bit 31 set as negative);
+* ``jax.lax.top_k`` puts the lower index first on ties, and the pool is
+  full of ``-inf`` ties: a stable descending sort here, not ``torch.topk``;
+* the final ``jnp.argsort(-score)`` is a stable argsort.
+
+The pool's tokens are not materialised: each selected candidate's tokens
+are its parent beam's with at most one position written, the write the
+JAX package makes in the pool.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from tf_seq2seq_losses_tpu_torch.utils.numerics import (
+    logsumexp as _lse,
+    unsorted_segment_logsumexp,
+)
+
+NEG_INF = float("-inf")
+# independent multiplicative rolling-hash constants (odd, so invertible
+# mod 2^32: single-token extensions never collide trivially)
+H1_MULT = 0x85EBCA6B
+H2_MULT = 0xC2B2AE35
+_MASK32 = 0xFFFFFFFF
+_BIT31 = 1 << 31
+
+
+def hash_step(h: torch.Tensor, mult: int, token: torch.Tensor) -> torch.Tensor:
+    """``(h * mult + token + 1) mod 2^32`` on int64 tensors holding uint32
+    values, as the JAX package's uint32 arithmetic wraps.  ``h * mult``
+    needs 64 bits and would overflow int64, so ``h`` is split into 16-bit
+    halves: ``lo * mult < 2^48`` and only the low 16 bits of ``hi * mult``
+    reach the result."""
+    lo = h & 0xFFFF
+    hi = h >> 16
+    prod = lo * mult + (((hi * mult) & 0xFFFF) << 16)
+    return (prod + token + 1) & _MASK32
+
+
+def greedy_decode(
+    logprobas: torch.Tensor,  # [B, T, V]
+    logit_length: torch.Tensor,  # [B]
+    blank_index: torch.Tensor,  # [] int
+    max_length: int,
+    merge_repeats: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Best-path (greedy) decoding, the ``tf.nn.ctc_greedy_decoder``
+    analogue: the arg-max token of every frame ``t < logit_length``
+    (the first maximum on ties, as ``jnp.argmax``), consecutive repeats
+    collapsed when ``merge_repeats`` (classic topology), blanks dropped,
+    survivors left-compacted.
+
+    Returns ``(tokens [B, max_length] int32, lengths [B] int32, scores [B])``
+    where ``scores`` is the log-probability of the greedy frame path and
+    token slots at and after ``lengths`` are zero.  Decodes longer than
+    ``max_length`` are truncated (the length reports the clipped value).
+    """
+    num_b, num_t, _ = logprobas.shape
+    device = logprobas.device
+    lp = logprobas.to(torch.float32)
+    best_lp = torch.amax(lp, dim=2)  # [B, T]
+    am = torch.argmax(lp, dim=2)  # [B, T], first maximum
+
+    t_ids = torch.arange(num_t, device=device)[None, :]
+    valid = t_ids < logit_length.to(device)[:, None]
+    scores = torch.sum(torch.where(valid, best_lp, torch.zeros_like(best_lp)), dim=1)
+
+    keep = valid & (am != blank_index)
+    if merge_repeats:
+        prev = torch.cat(
+            [torch.full((num_b, 1), -1, dtype=am.dtype, device=device), am[:, :-1]],
+            dim=1,
+        )
+        # frame 0 always starts a run; lengths mask a contiguous prefix, so
+        # for t >= 1 the previous frame is valid whenever frame t is
+        keep &= am != prev
+
+    pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1  # [B, T]
+    lengths = torch.clamp(pos[:, -1] + 1, max=max_length)
+    # kept tokens go to their compacted slot; dropped and overflowing frames
+    # all land in a sacrificial slot `max_length` that is sliced off (kept
+    # in-range slots are written at most once, so order is irrelevant)
+    idx = torch.where(keep & (pos < max_length), pos, torch.full_like(pos, max_length))
+    tokens = torch.zeros((num_b, max_length + 1), dtype=torch.int64, device=device)
+    tokens = tokens.scatter_(1, idx, am)[:, :max_length]
+    return tokens.to(torch.int32), lengths.to(torch.int32), scores
+
+
+def _initial_beams(num_b: int, k: int, l_cap: int, device):
+    """Beam 0 is the empty prefix with probability 1; the rest are dead
+    slots with distinct sentinel hashes (bit 31 set, the two derived from
+    different constants so the pair stays independent), which can never
+    merge with a live prefix."""
+    tokens = torch.zeros((num_b, k, l_cap), dtype=torch.int32, device=device)
+    length = torch.zeros((num_b, k), dtype=torch.int64, device=device)
+    last = torch.full((num_b, k), -1, dtype=torch.int64, device=device)
+    iota = torch.arange(k, dtype=torch.int64, device=device)
+    h1 = iota | _BIT31
+    h2 = ((iota * H2_MULT) & _MASK32) | _BIT31
+    h1[0] = 0
+    h2[0] = 0
+    pb = torch.full((num_b, k), NEG_INF, device=device)
+    pb[:, 0] = 0.0
+    pnb = torch.full((num_b, k), NEG_INF, device=device)
+    return (tokens, length, last, h1.expand(num_b, k).clone(),
+            h2.expand(num_b, k).clone(), pb, pnb)
+
+
+def _lexsort(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((h2, h1))`` along dim 1: a stable sort by ``h1``, ties
+    by ``h2``, as two stable sorts (the minor key first)."""
+    by_h2 = torch.sort(h2, dim=1, stable=True).indices
+    by_h1 = torch.sort(torch.gather(h1, 1, by_h2), dim=1, stable=True).indices
+    return torch.gather(by_h2, 1, by_h1)
+
+
+def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
+    """One frame of the batched prefix beam search."""
+    tokens, length, last, h1, h2, pb, pnb = state
+    num_b, k = pb.shape
+    vocab = lp_t.shape[1]
+    n_cand = k * (1 + vocab)
+    device = lp_t.device
+    tok_ids = torch.arange(vocab, dtype=torch.int64, device=device)
+    neg_inf = torch.full((), NEG_INF, device=device)
+
+    # frames past logit_length behave as forced blank: stay with +0
+    blank_lp = torch.where(live, lp_t.index_select(1, blank.reshape(1))[:, 0],
+                           torch.zeros((), device=device))  # [B]
+    tok_lp = torch.where(live[:, None], lp_t, neg_inf)  # [B, V]
+    tot = _lse(pb, pnb)  # [B, K]
+
+    # stay candidates (prefix unchanged)
+    stay_pb = tot + blank_lp[:, None]
+    if merge_repeats:
+        # classic: a repeated last token continues the same prefix
+        last_lp = torch.where(last >= 0,
+                              torch.gather(tok_lp, 1, torch.clamp(last, min=0)),
+                              neg_inf)
+        stay_pnb = pnb + last_lp
+        # extending with the last token requires paths ending in blank
+        base = torch.where(tok_ids == last[..., None], pb[..., None], tot[..., None])
+    else:
+        stay_pnb = torch.full_like(pb, NEG_INF)
+        base = tot[..., None]
+    ext_pnb = base + tok_lp[:, None, :]  # [B, K, V]
+    dead = ((tok_ids == blank)[None, None, :] | (length >= l_cap)[..., None]
+            | ~live[:, None, None])
+    ext_pnb = torch.where(dead, neg_inf, ext_pnb)
+
+    ext_length = torch.clamp(length + 1, max=l_cap)[..., None].expand(-1, -1, vocab)
+    ext_last = tok_ids.expand(num_b, k, vocab)
+    ext_h1 = hash_step(h1[..., None], H1_MULT, tok_ids)
+    ext_h2 = hash_step(h2[..., None], H2_MULT, tok_ids)
+
+    def pool(stay, ext):  # [B, K], [B, K, V] -> [B, K * (1 + V)]
+        return torch.cat([stay[..., None], ext], dim=2).reshape(num_b, n_cand)
+
+    c_length = pool(length, ext_length)
+    c_last = pool(last, ext_last)
+    c_h1, c_h2 = pool(h1, ext_h1), pool(h2, ext_h2)
+    # (pb, pnb) of each candidate, merged together below
+    c_p = torch.stack([pool(stay_pb, torch.full_like(ext_pnb, NEG_INF)),
+                       pool(stay_pnb, ext_pnb)], dim=2)  # [B, n_cand, 2]
+
+    # exact merge of duplicate prefixes: sort on the hash pair, combine
+    # runs, keep one representative per run
+    order = _lexsort(c_h1, c_h2)
+    s_h1, s_h2 = torch.gather(c_h1, 1, order), torch.gather(c_h2, 1, order)
+    new_run = torch.ones_like(order, dtype=torch.bool)
+    new_run[:, 1:] = (s_h1[:, 1:] != s_h1[:, :-1]) | (s_h2[:, 1:] != s_h2[:, :-1])
+    seg = torch.cumsum(new_run.to(torch.int64), dim=1) - 1
+    # one segment space for the whole batch: row b's runs at b * n_cand + seg
+    flat_seg = (seg + n_cand * torch.arange(num_b, device=device)[:, None]).reshape(-1)
+
+    sorted_p = torch.gather(c_p, 1, order[..., None].expand(-1, -1, 2)).reshape(-1, 2)
+    merged = unsorted_segment_logsumexp(sorted_p, flat_seg, num_b * n_cand)
+    rep = merged.index_select(0, flat_seg).reshape(num_b, n_cand, 2)
+    rep = torch.where(new_run[..., None], rep, neg_inf)
+    rep_pb, rep_pnb = rep[..., 0], rep[..., 1]
+
+    # prune to the top K by total probability, lower position first on ties
+    score = _lse(rep_pb, rep_pnb)
+    top = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :k]
+    sel = torch.gather(order, 1, top)
+
+    # the selected candidates' tokens: the parent beam's, and for an
+    # extension its token written at min(length, Lcap - 1)
+    parent = sel // (1 + vocab)
+    ext_token = sel % (1 + vocab) - 1  # -1 for a stay candidate
+    new_tokens = torch.gather(tokens, 1, parent[..., None].expand(-1, -1, l_cap))
+    if l_cap > 0:
+        slot = torch.clamp(torch.gather(length, 1, parent), max=l_cap - 1)
+        write = (torch.arange(l_cap, device=device) == slot[..., None]) \
+            & (ext_token >= 0)[..., None]
+        new_tokens = torch.where(write, ext_token.to(torch.int32)[..., None], new_tokens)
+    return (
+        new_tokens,
+        torch.gather(c_length, 1, sel),
+        torch.gather(c_last, 1, sel),
+        torch.gather(c_h1, 1, sel),
+        torch.gather(c_h2, 1, sel),
+        torch.gather(rep_pb, 1, top),
+        torch.gather(rep_pnb, 1, top),
+    )
+
+
+def beam_search(
+    logprobas: torch.Tensor,  # [B, T, V]
+    logit_length: torch.Tensor,  # [B]
+    blank_index: torch.Tensor,  # [] int
+    beam_width: int,
+    max_length: int,
+    merge_repeats: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched prefix beam search (see the module docstring).
+
+    Returns ``(tokens [B, K, max_length] int32, lengths [B, K] int32,
+    scores [B, K])``, beams sorted by descending total log-probability.
+    With ``beam_width`` at least the number of reachable prefixes nothing
+    is pruned and every score is the sequence's exact total CTC
+    probability.
+    """
+    num_b, num_t, _ = logprobas.shape
+    device = logprobas.device
+    lp = logprobas.to(torch.float32)
+    logit_length = logit_length.to(device)
+    blank = blank_index.to(device=device, dtype=torch.int64).reshape(())
+    state = _initial_beams(num_b, beam_width, max_length, device)
+    for t in range(num_t):
+        state = _frame(state, lp[:, t], t < logit_length, blank, max_length,
+                       merge_repeats)
+    tokens, length, _, _, _, pb, pnb = state
+    score = _lse(pb, pnb)
+    # the last frame's beams are in top-K order already; re-sort as the
+    # JAX package does, stably
+    order = torch.argsort(-score, dim=1, stable=True)
+    tokens = torch.gather(tokens, 1, order[..., None].expand_as(tokens))
+    return (tokens, torch.gather(length, 1, order).to(torch.int32),
+            torch.gather(score, 1, order))

@@ -36,9 +36,11 @@ def _alpha_init(ctx: CtcContext) -> torch.Tensor:
     return init
 
 
-def alpha(ctx: CtcContext) -> torch.Tensor:
-    """Forward lattice log-probabilities [B, T+1, Lp1]."""
-    diag_lp = expected_token_lp(ctx)
+def alpha(ctx: CtcContext, diag_lp: torch.Tensor = None) -> torch.Tensor:
+    """Forward lattice log-probabilities [B, T+1, Lp1]; ``diag_lp`` is
+    ``expected_token_lp(ctx)`` where the caller has it already."""
+    if diag_lp is None:
+        diag_lp = expected_token_lp(ctx)
     carry = _alpha_init(ctx)
     out = [carry]
     for k in range(ctx.logproba.shape[1]):
