@@ -128,15 +128,35 @@ simplified):
    0-7: peak memory under 2 GB, atol 1e-4 from the central difference of
    the float64 gradient, zero on infeasible rows; then each function's
    time (CUDA events around single calls, median of 5), and a profile of
-   the classic forced alignment.
+   the classic forced alignment;
+9. the flagship encoder at full width (F=80, H=512, V=128, 4 layers;
+   ``drive_encoder``) on B=256 utterances of 1000 frames (T=500 logit
+   frames, ``make_inputs(vocab=128)``'s labels and lengths, features
+   N(0, 1) from ``--seed``), trained by ``parallel.make_train_step`` on a
+   1 x 1 ``('data', 'model')`` mesh over a one-rank NCCL group (``file://``
+   rendezvous; no fallback to gloo or the CPU): 5 classic Adam steps, each
+   launching B2 and B3 once, every loss finite, step 1's masked mean rtol
+   1e-5 from the float64 pure path on the step's own logits, and those
+   logits of rows 0-7 within ``ENC_LOGITS_ATOL`` of the same parameters on
+   the CPU; a fused and an unfused step from the same parameters (B12
+   once, the loss bit for bit, each parameter gradient within
+   ``ENC_GRAD_SHARE`` of its largest entry); 2 simplified steps (B6 resid
+   and B7 once each); a forward-only call of each topology (B1 final, B6
+   final); ``tools/train_ctc_asr.py``'s demo for 150 steps at the JAX
+   demo's global batch of 64 (greedy token accuracy at least 90%) and the
+   scan gaps of its trained logits in both topologies; then the step's
+   host-clock time, a profile of one step, the loss's forward and backward
+   by CUDA events with its roofline (``utils/roofline.py``), and the
+   step's peak device memory.
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
-phase 7, each posteriors call of phase 8) and read after it: a kernel that its path never launched fails
-the run, and the ``kernels`` line gives each kernel's launches summed over
-the paths.  The last lines are
-the ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
-"device": ...}``.  Any failed check exits non-zero.
+phase 7, each posteriors call of phase 8, each step and call of phase 9)
+and read after it: a kernel that its path never launched fails the run,
+and the ``kernels`` line gives each kernel's launches summed over the
+paths.  The last lines are the ``kernels`` JSON, the card's name and power
+limit, and ``{"ok": true, "device": ...}``.  Any failed check exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -1877,6 +1897,247 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
     return dict(launches=launches, times=times)
 
 
+# phase 9: the flagship encoder's training step at full width
+ENC_FEATURES, ENC_HIDDEN, ENC_VOCAB, ENC_LAYERS = 80, 512, 128, 4  # the reference's
+ENC_FRAMES = 2 * MAX_T  # feature frames: the stride-2 stem gives T=500 logit frames
+ENC_STEPS, ENC_SIMPLIFIED_STEPS = 5, 2
+ENC_CPU_ROWS = 8  # rows whose step-1 logits are held against the CPU
+# cuDNN runs the float32 stem in TF32 on the card (10-bit mantissas, 2^-11
+# relative a product); the bf16 roundings after it then flip where the CPU's
+# do not, each moving a frame's logits by a bf16 ulp of what it rounds
+ENC_LOGITS_ATOL = 5e-2
+# a flipped bf16 cotangent moves a weight-gradient entry by 2^-8 of itself
+# (tests/test_torch_port_encoder.py): each tensor within 1e-2 of its largest
+ENC_GRAD_SHARE = 1e-2
+DEMO_STEPS = 150
+DEMO_BATCH = 64  # the JAX demo's global batch: 8 devices of 8 rows
+
+
+def encoder_batch(torch, seed, dev):
+    """Phase 9's batch: ``make_inputs(vocab=128)``'s labels [256, 250] and
+    lengths (rows 0 and 1 infeasible), ``feature_length = 2 *
+    logit_length``, features [B, 1000, 80] N(0, 1) from ``seed``."""
+    labels, _, label_length, logit_length = make_inputs(torch, seed, dev,
+                                                        vocab=ENC_VOCAB)
+    gen = torch.Generator().manual_seed(seed)
+    features = torch.randn((len(labels), ENC_FRAMES, ENC_FEATURES), generator=gen)
+    return {"features": features.to(dev), "feature_length": 2 * logit_length,
+            "labels": labels, "label_length": label_length}
+
+
+def param_grads(model) -> dict:
+    return {name: p.grad.clone() for name, p in model.named_parameters()}
+
+
+def drive_encoder(torch, dev, seed, sync, card) -> dict:
+    """Phase 9: the flagship encoder (F=80, H=512, V=128, 4 layers) trained
+    by ``parallel.make_train_step`` on a 1 x 1 ``('data', 'model')`` mesh
+    over a one-rank NCCL group (a ``file://`` rendezvous).  Classic Adam
+    steps (B2 and B3 once each a step, step 1's masked mean against the
+    float64 pure path and its logits against the CPU), a fused and an
+    unfused step from the same parameters, simplified steps (B6 resid and
+    B7), forward-only calls (B1 final, B6 final), the demo of
+    ``tools/train_ctc_asr.py`` and the scan gaps of its trained logits, and
+    the step's times.  The launch counts are set to 0 before each path and
+    read after it.  Returns the launches."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    import tf_seq2seq_losses_tpu_torch as ctc
+    from tf_seq2seq_losses_tpu_torch.models import encoder as enc
+    from tf_seq2seq_losses_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_train_step,
+    )
+    from tf_seq2seq_losses_tpu_torch.tools import train_ctc_asr
+    from tf_seq2seq_losses_tpu_torch.utils import roofline
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    t_phase = time.perf_counter()
+    launches = Counter()
+
+    def launched(call):
+        """``call()``'s result and the launches it made (counts reset first)."""
+        reset_launches()
+        out = call()
+        sync()
+        got = Counter()
+        for path in ("classic", "simplified"):
+            got.update({k: n for k, n in read_launches(path).items() if n})
+        got["fused_dlogits"] = read_launches("classic")["fused_dlogits"]
+        got = +got
+        launches.update(got)
+        return out, dict(got)
+
+    # ---- 1. rendezvous: one NCCL rank (gloo for a CPU rehearsal) ----
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    tmp = tempfile.TemporaryDirectory()
+    init_distributed(f"file://{tmp.name}/rendezvous", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+              f"phase 9 process group backend {backend}")
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        batch = encoder_batch(torch, seed, dev)
+        params = enc.init_encoder(torch.Generator().manual_seed(seed), ENC_FEATURES,
+                                  ENC_HIDDEN, ENC_VOCAB, ENC_LAYERS, device=dev)
+        logit_length = enc.subsampled_length(batch["feature_length"])
+        labels, label_length = batch["labels"], batch["label_length"]
+
+        # ---- 2. classic Adam steps ----
+        init_state, shard, train_step = make_train_step(mesh, topology="classic")
+        state = init_state(params)
+        cpu_model = enc.Encoder(ENC_FEATURES, ENC_HIDDEN, ENC_VOCAB, ENC_LAYERS,
+                                device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   state.params.state_dict().items()})
+        local = shard(batch)
+        seen = []
+        hook = state.params.register_forward_hook(
+            lambda _m, _i, out: seen.append(out.detach()) if not seen else None)
+        losses, per_step = [], []
+        for _ in range(ENC_STEPS):
+            (_, loss), got = launched(lambda: train_step(state, local))
+            losses.append(float(loss))
+            per_step.append(got)
+        hook.remove()
+        for i, got in enumerate(per_step):
+            check(got.get("classic_fwd[resid]") == 1
+                  and got.get("classic_bwd_streamed") == 1,
+                  f"phase 9 classic step {i + 1} launched {got}")
+        check(all(math.isfinite(v) for v in losses), f"phase 9 classic losses {losses}")
+        logits1 = seen[0]
+        loss64, _ = pure_float64(labels, logits1, label_length, logit_length)
+        finite = torch.isfinite(loss64)
+        mean64 = float(loss64[finite].mean())
+        check(abs(losses[0] - mean64) <= 1e-5 * abs(mean64),
+              f"phase 9 step 1 masked mean {losses[0]} vs float64 {mean64}")
+        with torch.no_grad():
+            cpu_logits = cpu_model(batch["features"][:ENC_CPU_ROWS].cpu())
+        cpu_err = max_err(logits1[:ENC_CPU_ROWS].cpu(), cpu_logits)
+        check(cpu_err <= ENC_LOGITS_ATOL,
+              f"phase 9 step 1 logits card vs CPU: max abs err {cpu_err:.3g}")
+        log(f"phase 9 classic: ok, {ENC_STEPS} Adam steps, losses "
+            f"{[round(v, 4) for v in losses]}, launches a step {json.dumps(per_step[0])}; "
+            f"step 1 masked mean vs float64 rel err {abs(losses[0] - mean64) / mean64:.3g}"
+            f" ({int((~finite).sum())} infeasible rows); logits of rows "
+            f"0-{ENC_CPU_ROWS - 1} card vs CPU max abs err {cpu_err:.3g} (max |logit| "
+            f"{float(cpu_logits.abs().max()):.3g})")
+
+        # ---- 3. one fused and one unfused step from the same parameters ----
+        steps = {}
+        for fused in (True, False):
+            with config_override(fused_epilogue=fused):
+                f_state = init_state(params)
+                (_, loss), got = launched(lambda: train_step(f_state, local))
+            steps[fused] = (loss, param_grads(f_state.params), got)
+        check(steps[True][2].get("fused_dlogits") == 1,
+              f"phase 9 fused step launched {steps[True][2]}")
+        check("fused_dlogits" not in steps[False][2], "phase 9 unfused step took B12")
+        check(torch.equal(steps[True][0], steps[False][0]),
+              "phase 9 fused step loss bit for bit the unfused step's")
+        shares = {name: max_err(g, steps[False][1][name])
+                  / float(steps[False][1][name].abs().max())
+                  for name, g in steps[True][1].items()}
+        worst = max(shares, key=shares.get)
+        check(shares[worst] <= ENC_GRAD_SHARE,
+              f"phase 9 fused vs unfused gradient of {worst}: {shares[worst]:.3g} of its "
+              f"largest entry")
+        log(f"phase 9 fused step: ok, launches {json.dumps(steps[True][2])}, loss bit "
+            f"for bit; parameter gradients vs unfused, largest share of a tensor's "
+            f"largest entry {shares[worst]:.3g} ({worst})")
+
+        # ---- 4. simplified steps ----
+        s_init, _, s_step = make_train_step(mesh, topology="simplified")
+        s_state = s_init(params)
+        s_losses = []
+        for i in range(ENC_SIMPLIFIED_STEPS):
+            (_, loss), got = launched(lambda: s_step(s_state, local))
+            s_losses.append(float(loss))
+            check(got.get("simplified_fwd[resid]") == 1
+                  and got.get("simplified_bwd_streamed") == 1,
+                  f"phase 9 simplified step {i + 1} launched {got}")
+        check(all(math.isfinite(v) for v in s_losses),
+              f"phase 9 simplified losses {s_losses}")
+
+        # ---- 5. evaluation: forward-only calls ----
+        evals = {}
+        for topology in ("classic", "simplified"):
+            def evaluate():
+                with torch.no_grad():
+                    return ctc.ctc_loss(labels, state.params(local["features"]),
+                                        label_length, logit_length, 0, topology)
+            loss, got = launched(evaluate)
+            check(got.get(f"{topology}_fwd[final]") == 1
+                  and bool(torch.isfinite(loss[2:]).all()),
+                  f"phase 9 {topology} evaluation launched {got}")
+            evals[topology] = got
+        log(f"phase 9 simplified: ok, losses {[round(v, 4) for v in s_losses]}; "
+            f"evaluation launches {json.dumps(evals)}")
+
+        # ---- 6. the demo, then the scan gaps of its trained logits ----
+        t_demo = time.perf_counter()
+        demo, got = launched(lambda: train_ctc_asr.train(
+            DEMO_STEPS, DEMO_BATCH, "classic", device=dev,
+            log=lambda msg: log("phase 9 demo " + msg)))
+        check(demo["greedy_accuracy"] >= train_ctc_asr.MIN_ACCURACY,
+              f"phase 9 demo greedy accuracy {demo['greedy_accuracy']:.3f}")
+        d_batch = demo["eval_batch"]
+        d_args = [torch.as_tensor(d_batch[k], device=dev)
+                  for k in ("labels", "label_length")]
+        gaps = {topology: scan_gaps(torch, topology, d_args[0], demo["logits"],
+                                    d_args[1], demo["logit_length"])
+                for topology in ("classic", "simplified")}
+        log(f"phase 9 demo: ok, {DEMO_STEPS} steps at batch {DEMO_BATCH}, greedy "
+            f"{demo['greedy_accuracy']:.3f}, beam-{train_ctc_asr.BEAM_WIDTH} "
+            f"{demo['beam_accuracy']:.3f}, launches {json.dumps(got)}, "
+            f"{time.perf_counter() - t_demo:.1f} s; scan gaps of its trained logits "
+            f"(flagged rows, which the guard repairs): {json.dumps(gaps)}")
+
+        # ---- 7. timing ----
+        step = lambda: train_step(state, local)  # noqa: E731
+        step_ms = host_ms(torch, step, runs=5)
+        profile = profile_step(torch, dev, step_ms, step, steps=1)
+        with torch.no_grad():
+            x = state.params(local["features"])
+
+        def loss_fwd_bwd():
+            xg = x.detach().requires_grad_(True)
+            losses = ctc.classic_ctc_loss(labels, xg, label_length, logit_length, 0)
+            torch.where(torch.isfinite(losses), losses,
+                        torch.zeros_like(losses)).sum().backward()
+
+        loss_ms = time_ms(torch, loss_fwd_bwd, runs=5, burst=1)
+        streams = roofline.classic_grad_streams(
+            len(labels), x.shape[1], ENC_VOCAB, labels.shape[1] + 1)
+        try:
+            line = roofline.roofline(streams, loss_ms)
+        except ValueError as exc:  # a card without a known HBM peak
+            line = {"not measured": str(exc)}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        step()
+        sync()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+        log(f"phase 9 timing ({card}; B={len(labels)}, T={x.shape[1]}, V={ENC_VOCAB}, "
+            f"H={ENC_HIDDEN}, {ENC_LAYERS} layers): step {step_ms:.3f} ms (host clock, "
+            f"median of 5); profile of one step {json.dumps(profile)}; the loss's "
+            f"forward and backward {loss_ms:.3f} ms (CUDA events, median of 5), "
+            f"{loss_ms / step_ms:.3f} of the step; roofline of the loss "
+            f"{json.dumps(line)}; peak device memory of a step {peak:.3f} GB")
+    finally:
+        # ---- 8. tear down ----
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -2308,6 +2569,10 @@ def run(seed: int, dev) -> dict:
             b_ms, b_by = bound(*chunk_bounds[kname])
             long_kernels[kname] = {"ms": time_ms(torch, fn, burst=5), "bound_ms": b_ms,
                                    "bound_by": b_by}
+        # mode resid is not on the chunked path: its bound only, for
+        # tools/time_scans.py's time of it on this chunk
+        b_ms, b_by = bound(*chunk_bounds[f"{name}_fwd[resid]"])
+        long_kernels[f"{name}_fwd[resid]"] = {"bound_ms": b_ms, "bound_by": b_by}
         del l_ctx, ops, args0, args1, carry, bounds1
     lib_lp_long = logit_to_logproba(l_logits, 2).transpose(0, 1).contiguous()
 
@@ -2339,6 +2604,9 @@ def run(seed: int, dev) -> dict:
     # ---- 8. the rest of the public API at the headline shape ------------------
     del long_inputs, l_labels, l_logits, l_ll, l_gl, long_paths, step
     launches.update(drive_extras(torch, dev, seed, sync, card)["launches"])
+
+    # ---- 9. the flagship encoder's training step ------------------------------
+    launches.update(drive_encoder(torch, dev, seed, sync, card)["launches"])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

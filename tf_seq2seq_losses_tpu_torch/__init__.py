@@ -7,6 +7,13 @@ On CUDA tensors the loss, its gradient and the posteriors run through
 hand-written Hopper kernels (``csrc/``); on CPU tensors through the pure
 log-space path.  The JAX package ``tf_seq2seq_losses_tpu`` is the
 reference this port is tested against.
+
+Beside the API: ``models`` (the flagship CTC encoder and the greedy
+decoders), ``parallel`` (the rank mesh, the batch-sharded losses and the
+data- and tensor-parallel training step over ``torch.distributed``),
+``utils`` (kernel config, numerics, profiling, the debug guard and the
+roofline model) and ``entry`` (the flagship forward and a multi-rank dry
+run).
 """
 
 from tf_seq2seq_losses_tpu_torch.api import (
