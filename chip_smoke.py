@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one line each (phases 3, 4 and 7 once per topology, classic then
-simplified):
+Phases, one line each (phases 3, 4, 7 and 10 once per topology, classic
+then simplified):
 
 1. build the CUDA kernels of ``tf_seq2seq_losses_tpu_torch/csrc/``, hold
    the Python mirror of each library's shared-memory formula, by which the
@@ -147,12 +147,44 @@ simplified):
    scan gaps of its trained logits in both topologies; then the step's
    host-clock time, a profile of one step, the loss's forward and backward
    by CUDA events with its roofline (``utils/roofline.py``), and the
-   step's peak device memory.
+   step's peak device memory;
+10. the guard's structures, placements and fallback cap
+   (``drive_guard_ladder``), for each topology at the headline shape with
+   n in ``LADDER_N`` = 0, 1, 20, 40, 80 rows (rows 2 to n + 1) flushed by
+   ``saturate`` at 1e2: a training step and a forward-only call under
+   ``guard_struct`` "while", "cond" and "while" with ``guard_tier1``, each
+   launching what its tier runs (``ladder_tier``: B4 final, B4 resid and
+   B5, or B8 final, B8 resid and B9, once a round on the round's rows; a
+   "while" round takes 32 rows; "cond" repairs n = 1 through the pure
+   path, n = 20 through one gathered round of the flushed rows, and 40 and
+   80 through the whole batch of 256 rows); repaired rows atol 2e-4 from
+   the float64 pure path (the pure path's 1e-5), clean rows bit for bit
+   the clean step's, except under the whole-batch tier, where the loss is
+   held to float64 (rtol 1e-5) and loss and d_logits to the same step run
+   with the log-space kernels' plain versions (rtol 1e-5, atol 1e-5: the
+   float32 log-space route's own distance from float64 grows with the
+   row, 1.5e-3 to 2.6e-3 in d_logits at T=500, and is printed), infeasible
+   rows +inf with zero d_logits,
+   the forward-only loss the step's; ``guard_mode`` "post", "pre" and
+   "grad" at n = 0 and 20 with the same loss and d_logits bit for bit,
+   "pre" at n = 0 launching what ``guard=False`` launches with one guard
+   synchronisation (``nonzero``) a step, where "post" and "grad" take two;
+   the fused step at V=128 under "cond" at n = 40 (B12 once, the whole
+   batch rerouted, bit for bit the unfused step); under "cond" at n = 40
+   with ``CTC_TPU_GUARD_FALLBACK_BYTES`` set for one step, then restored:
+   at a tier-2 round's working set the warning "whole-batch exact reroute
+   disabled" and rows past the first 32 flushed at +inf, at 1 byte
+   "saturation guard disabled" and every flushed row at +inf; then the
+   whole-batch tier's B4, B5, B8 and B9 against their plain versions on
+   the batch of 256 rows with 80 flushed (phase 2's tolerances), each
+   step's and call's host-clock time (median of 20) and its ratio to the
+   n=0 step of its struct or mode, profiles of the n=0 steps, and the
+   peak device memory of the clean and n=80 steps.
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
-phase 7, each posteriors call of phase 8, each step and call of phase 9)
-and read after it: a kernel that its path never launched fails the run,
+phase 7, each posteriors call of phase 8, each step and call of phase 9,
+each step, call and pair of them of phase 10) and read after it: a kernel that its path never launched fails the run,
 and the ``kernels`` line gives each kernel's launches summed over the
 paths.  The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.  Any failed check exits
@@ -2138,6 +2170,401 @@ def drive_encoder(torch, dev, seed, sync, card) -> dict:
     return dict(launches=launches)
 
 
+# phase 10: the guard's structures, placements and fallback cap
+LADDER_N = (0, 1, 20, 40, 80)  # flushed rows, the JAX package's r5b ladder
+LADDER_SCALE = 1e2
+# The whole-batch tier recomputes every row of up to 499 steps through the
+# float32 log-space route, whose own distance from float64 grows with the
+# row (tools/log_precision.py: 4.5e-4 in the gradient at T=495) and reached
+# 1.5e-3 to 2.6e-3 in d_logits at T=500 on an H100.  That is the route's
+# precision, not the kernels': the tier is held to the route's plain
+# versions run on the same step (the kernels are theirs bit for bit,
+# phase 2), its float64 distance printed.
+PLAIN_ROUTE_ATOL = 1e-5
+LADDER_PATHS = (("while", False), ("cond", False), ("while", True))
+FLUSHED_ATOL = 2e-4  # rows the log-space kernels repair (phase 4)
+
+
+def ladder_tier(struct, tier1, n, batch):
+    """``(tier, rows of each log-space round)`` that the guard takes for
+    ``n`` flushed rows, each one chunk long, at the config's buckets and a
+    cap that admits every tier: "clean", "pure" (no log-space launch),
+    "rounds" or "gathered" (the flushed rows), "whole" (every row)."""
+    from tf_seq2seq_losses_tpu_torch.utils.config import get_config
+
+    cfg = get_config()
+    bucket, bucket2 = min(cfg.repair_bucket, batch), min(cfg.repair_bucket2, batch)
+    if n == 0:
+        return "clean", []
+    if struct == "while":
+        if tier1 and bucket < batch and n <= bucket:
+            return "pure", []
+        size = max(bucket2, bucket)
+        return "rounds", [size] * (n // size) + ([n % size] if n % size else [])
+    if n <= bucket:
+        return "pure", []
+    if n <= bucket2:
+        return "gathered", [n]
+    return "whole", [batch]
+
+
+class LogRows:
+    """Records ``(kernel, rows)`` of every log-space kernel call while it is
+    entered, by a spy in each wrapper's place in its module; with ``plain``
+    the spy runs the kernel's plain version instead.  A wrapper counts its
+    launches on the function its module names, so each spy carries the
+    wrapper's counts and gives them back on exit."""
+
+    NAMES = ("classic_log_fwd", "classic_log_bwd", "simplified_log_fwd",
+             "simplified_log_bwd")
+
+    def __init__(self, plain=False):
+        self.plain = plain
+
+    def __enter__(self):
+        from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+        self.rows, self.spies = [], {}
+        for name in self.NAMES:
+            real = getattr(ll, name)
+            run = getattr(ll, name + "_plain") if self.plain else real
+
+            def spy(*args, _run=run, _name=name):
+                key = _name if _name.endswith("bwd") else f"{_name}[{args[-1]}]"
+                self.rows.append((key, int(args[0].shape[0])))
+                return _run(*args)
+
+            spy.launches = real.launches
+            if hasattr(real, "mode_launches"):
+                spy.mode_launches = real.mode_launches  # shared: updated in place
+            self.spies[name] = (real, spy)
+            setattr(ll, name, spy)
+        return self.rows
+
+    def __exit__(self, *exc):
+        from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+
+        for name, (real, spy) in self.spies.items():
+            real.launches = spy.launches
+            setattr(ll, name, real)
+        return False
+
+
+class FallbackBytes:
+    """``CTC_TPU_GUARD_FALLBACK_BYTES`` set to ``cap`` in this process while
+    entered, then restored."""
+
+    VAR = "CTC_TPU_GUARD_FALLBACK_BYTES"
+
+    def __init__(self, cap):
+        self.cap = cap
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get(self.VAR)
+        os.environ[self.VAR] = str(self.cap)
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop(self.VAR, None)
+        else:
+            os.environ[self.VAR] = self.old
+        return False
+
+
+def drive_guard_ladder(torch, dev, seed, sync, card) -> dict:
+    """Phase 10, for each topology at the headline shape with n of
+    ``LADDER_N`` rows (2 to n + 1) flushed by ``saturate`` at 1e2: the
+    training step and the forward-only call under ``guard_struct`` "while"
+    and "cond" and under "while" with ``guard_tier1``; the step under
+    ``guard_mode`` "pre" and "grad" at n = 0 and 20; the fused step (V=128)
+    under "cond" at n = 40; two steps under a shrunk fallback cap.  Each a
+    path of its own (launch counts set to 0 just before, read just after,
+    with the rows of every log-space launch).  Then the whole-batch tier's
+    B4/B5 (B8/B9) against their plain versions, and the times.  Returns the
+    launches and the log-space kernels' errors."""
+    import warnings
+    from collections import Counter
+
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import topology as topo_mod
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES, est_fallback_bytes
+    from tf_seq2seq_losses_tpu_torch.utils.config import get_config
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    t_phase = time.perf_counter()
+    launches, errs = Counter(), {}
+
+    def path(topology, fn):
+        """``fn()``, its launches and the rows of its log-space launches."""
+        reset_launches()
+        with LogRows() as rows:
+            out = fn()
+            sync()
+        got = {k: n for k, n in read_launches(topology).items() if n}
+        launches.update(got)
+        return out, got, Counter(rows)
+
+    inputs = make_inputs(torch, seed, dev)
+    labels, logits, label_length, logit_length = inputs
+    batch, top = len(labels), max(LADDER_N)
+    mode_n = (0, LADDER_N[2])
+    beyond = LADDER_N[3]  # past tier 2 (n > repair_bucket2 = 32)
+
+    def flushed(base, n):
+        return saturate(torch, *base, rows=tuple((r, LADDER_SCALE) for r in range(2, 2 + n)))
+
+    batches = {n: flushed(inputs, n) for n in LADDER_N}
+    row_ids = torch.arange(batch, device=dev)
+    syncs = []
+    real_flushed_rows = topo_mod.flushed_rows
+
+    def counting_flushed_rows(*a):
+        syncs.append(1)
+        return real_flushed_rows(*a)
+
+    for name in ("classic", "simplified"):
+        t_top = time.perf_counter()
+        loss_fn = loss_function(name)
+        step = make_step(torch, loss_fn, labels)
+        fwd_resid, fwd_final = f"{name}_fwd[resid]", f"{name}_fwd[final]"
+        bwd = f"{name}_bwd_streamed"
+        log_final, log_resid, log_bwd = (f"{name}_log_{m}" for m in
+                                         ("fwd[final]", "fwd[resid]", "bwd"))
+
+        def expected(sizes, evaluation=True):
+            """The launches and the log-space ``(kernel, rows)`` of a
+            training step whose repair rounds take ``sizes`` rows, and of a
+            forward-only call after it (``evaluation``)."""
+            want = Counter({fwd_resid: 1, bwd: 1, fwd_final: int(evaluation)})
+            rows = Counter()
+            for size in sizes:
+                rows.update({(log_final, size): 1 + evaluation, (log_resid, size): 1,
+                             (log_bwd, size): 1})
+            for (kernel, _), k in rows.items():
+                want[kernel] += k
+            return dict(+want), rows
+
+        def evaluate(x, ll_, gl_, _fn=loss_fn):
+            with torch.no_grad():
+                return _fn(labels, x, ll_, gl_, 0)
+
+        loss64_0, d64_0 = pure_float64(labels, logits, label_length, logit_length, name)
+        loss64_s, d64_s = pure_float64(labels, *batches[top], name)
+
+        def reference(n):
+            sat = (row_ids >= 2) & (row_ids < 2 + n)
+            return (torch.where(sat, loss64_s, loss64_0),
+                    torch.where(sat[:, None, None], d64_s, d64_0), sat)
+
+        def feasible(batch_n):
+            _, ll_, gl_ = batch_n
+            ctx = core.make_context(labels, logit_to_logproba(logits[:, :1], 2), ll_, gl_, 0)
+            return TOPOLOGIES[name].feasible(ctx)
+
+        def hold(tag, loss, d, n, tier, clean_ref, batch_n=None, ref=None, plain=None):
+            """The checks of a step's loss and d_logits with rows 2..n+1
+            flushed (``plain``: the same step with the log-space kernels'
+            plain versions, for the whole-batch tier); returns the largest
+            errors against float64."""
+            lref, dref, sat = ref or reference(n)
+            feas = feasible(batch_n or batches[n])
+            check(bool(torch.isposinf(loss[~feas]).all()) and bool((d[~feas] == 0).all()),
+                  f"{tag}: infeasible rows +inf with zero d_logits")
+            clean = feas & ~sat
+            out = {}
+            if tier == "whole":
+                agree(loss[clean], lref[clean], 1e-5, 0.0,
+                      f"{tag}: rerouted clean rows' loss vs float64")
+                agree(loss, plain[0], 1e-5, 0.0, f"{tag}: loss vs the plain log-space route")
+                agree(d, plain[1], 0.0, PLAIN_ROUTE_ATOL,
+                      f"{tag}: d_logits vs the plain log-space route")
+                out["clean_d_err"] = max_err(d[clean], dref[clean])
+                out["d_err_vs_plain_route"] = max_err(d, plain[1])
+            else:
+                check(torch.equal(loss[clean], clean_ref[0][clean])
+                      and torch.equal(d[clean], clean_ref[1][clean]),
+                      f"{tag}: clean rows bit for bit the clean step's")
+            if n:
+                tol = 1e-5 if tier == "pure" else FLUSHED_ATOL
+                agree(loss[sat], lref[sat], 1e-5 if tier == "pure" else 0.0,
+                      0.0 if tier == "pure" else tol, f"{tag}: repaired loss vs float64")
+                agree(d[sat], dref[sat], 0.0, tol, f"{tag}: repaired d_logits vs float64")
+                out["repaired_d_err"] = max_err(d[sat], dref[sat])
+            return out
+
+        # ---- the structs, each n: a step and a forward-only call ----------
+        results, report, steps, evals = {}, {}, {}, {}
+        clean_ref = None
+        for struct, tier1 in LADDER_PATHS:
+            tag = struct + ("+tier1" if tier1 else "")
+            run_step = configured(step, guard_struct=struct, guard_tier1=tier1)
+            run_eval = configured(evaluate, guard_struct=struct, guard_tier1=tier1)
+            for n in LADDER_N:
+                b = batches[n]
+                ((loss, d), loss_eval), got, rows = path(name, lambda: (run_step(*b),
+                                                                        run_eval(*b)))
+                tier, sizes = ladder_tier(struct, tier1, n, batch)
+                want, want_rows = expected(sizes)
+                check(got == want and rows == want_rows,
+                      f"{name} {tag} n={n} ({tier}): launches {got}, log-space rows "
+                      f"{dict(rows)}; expected {want}, {dict(want_rows)}")
+                check(torch.equal(loss_eval, loss),
+                      f"{name} {tag} n={n}: the forward-only loss is the step's")
+                if clean_ref is None:
+                    clean_ref = (loss, d)
+                with LogRows(plain=True):
+                    plain = run_step(*b) if tier == "whole" else None
+                report[f"{tag} n={n}"] = dict(tier=tier, rounds=sizes, **hold(
+                    f"{name} {tag} n={n}", loss, d, n, tier, clean_ref, plain=plain))
+                results[tag, n] = (loss, d)
+                steps[f"{tag}_n{n}"] = (run_step, b)
+                evals[f"{tag}_n{n}"] = (run_eval, b)
+        log(f"phase 10 {name} structs: ok; tiers, log-space rounds and largest errors "
+            f"vs float64 {json.dumps(report)}")
+
+        # ---- the placements: "pre" and "grad" against "post" --------------
+        modes = {}
+        topo_mod.flushed_rows = counting_flushed_rows
+        try:
+            for n in mode_n:
+                b = batches[n]
+                post = results["while", n]
+                for mode in ("post", "pre", "grad"):
+                    run_step = configured(step, guard_mode=mode)
+                    syncs.clear()
+                    (loss, d), got, rows = path(name, lambda: run_step(*b))
+                    want, want_rows = expected(ladder_tier("while", False, n, batch)[1],
+                                               evaluation=False)
+                    check(got == want and rows == want_rows,
+                          f"{name} guard_mode={mode} n={n}: launches {got}")
+                    check(torch.equal(loss, post[0]) and torch.equal(d, post[1]),
+                          f"{name} guard_mode={mode} n={n}: loss and d_logits bit for "
+                          "bit those of post")
+                    modes[f"{mode} n={n}"] = dict(launches=got, guard_syncs=len(syncs))
+                    steps[f"{mode}_n{n}"] = (run_step, b)
+                check(modes[f"pre n={n}"]["guard_syncs"] == (1 if n == 0 else 2),
+                      f"{name} pre n={n}: guard synchronisations {modes}")
+            off_step = configured(step, guard=False)
+            syncs.clear()
+            (loss, d), got, _ = path(name, lambda: off_step(*batches[0]))
+            check(got == modes["pre n=0"]["launches"] and not syncs,
+                  f"{name}: guard=False launches {got}, pre at n=0 "
+                  f"{modes['pre n=0']['launches']}")
+            check(torch.equal(d, results["while", 0][1]),
+                  f"{name}: the clean step's d_logits are guard=False's")
+            steps["guard_off_n0"] = (off_step, batches[0])
+        finally:
+            topo_mod.flushed_rows = real_flushed_rows
+        log(f"phase 10 {name} guard modes: ok, post, pre and grad give the same loss "
+            f"and d_logits bit for bit at n = {list(mode_n)}; launches and the guard's "
+            f"host synchronisations (nonzero) per step {json.dumps(modes)}; pre at n=0 "
+            "launches what guard=False launches")
+
+        # ---- the fused step (V=128) under "cond" beyond tier 2 -------------
+        v_inputs = make_inputs(torch, seed, dev, vocab=SLICE_VOCAB)
+        v_labels = v_inputs[0]
+        v_sat = flushed(v_inputs, beyond)
+        v_step = make_step(torch, loss_fn, v_labels)
+        fused = configured(v_step, fused_epilogue=True, guard_struct="cond")
+        (f_loss, f_d), got, rows = path(name, lambda: fused(*v_sat))
+        tier, sizes = ladder_tier("cond", False, beyond, batch)
+        check(tier == "whole", f"n={beyond} is past tier 2 ({tier})")
+        want, want_rows = expected(sizes, evaluation=False)
+        want["fused_dlogits"] = 1
+        check(got == want and rows == want_rows,
+              f"{name} fused cond n={beyond}: launches {got}, rows {dict(rows)}")
+        u_loss, u_d = configured(v_step, guard_struct="cond")(*v_sat)
+        check(torch.equal(f_loss, u_loss) and torch.equal(f_d, u_d),
+              f"{name} fused cond n={beyond}: the unfused step's bits (both the whole "
+              "batch's exact path)")
+        v64 = pure_float64(v_labels, *v_sat, name)
+        v_sat_rows = (row_ids >= 2) & (row_ids < 2 + beyond)
+        with LogRows(plain=True):
+            v_plain = fused(*v_sat)
+        v_report = hold(f"{name} fused cond n={beyond}", f_loss, f_d, beyond, tier,
+                        None, batch_n=v_sat, ref=(*v64, v_sat_rows), plain=v_plain)
+        steps[f"fused_v{SLICE_VOCAB}_cond_n{beyond}"] = (fused, v_sat)
+        steps[f"fused_v{SLICE_VOCAB}_cond_n0"] = (fused, v_inputs[1:])
+        log(f"phase 10 {name} fused step at V={SLICE_VOCAB} under cond, n={beyond}: ok "
+            f"({tier}), bit for bit the unfused step; launches {json.dumps(got)}, "
+            f"log-space rows {json.dumps({k[0]: k[1] for k in rows})}; errors vs "
+            f"float64 {json.dumps(v_report)}")
+        del v_inputs, v_sat, v64, v_plain, f_d, u_d
+
+        # ---- the fallback cap ----------------------------------------------
+        bucket2 = min(get_config().repair_bucket2, batch)
+        cap_mid = est_fallback_bytes(bucket2, logits.shape[1], labels.shape[1] + 1,
+                                     lane_pad=True)
+        cond_step = configured(step, guard_struct="cond")
+        caps = {}
+        for cap, text, kept in ((cap_mid, "whole-batch exact reroute disabled", bucket2),
+                                (1, "saturation guard disabled", 0)):
+            with FallbackBytes(cap), warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                (loss, d), got, rows = path(name, lambda: cond_step(*batches[beyond]))
+            said = [str(w.message) for w in caught if text in str(w.message)]
+            check(len(said) == 2, f"{name} cap {cap}: warned {[str(w.message) for w in caught]}")
+            lref, dref, sat = reference(beyond)
+            kept_rows = sat & (row_ids < 2 + kept)
+            inf_rows = sat & ~kept_rows
+            check(bool(torch.isposinf(loss[inf_rows]).all())
+                  and bool((d[inf_rows] == 0).all()) and int(inf_rows.sum()) == beyond - kept,
+                  f"{name} cap {cap}: rows past the first {kept} flushed keep +inf")
+            if kept:
+                agree(loss[kept_rows], lref[kept_rows], 0.0, FLUSHED_ATOL,
+                      f"{name} cap {cap}: tier-2 rows' loss")
+                agree(d[kept_rows], dref[kept_rows], 0.0, FLUSHED_ATOL,
+                      f"{name} cap {cap}: tier-2 rows' d_logits")
+            clean = feasible(batches[beyond]) & ~sat
+            check(torch.equal(loss[clean], clean_ref[0][clean])
+                  and torch.equal(d[clean], clean_ref[1][clean]),
+                  f"{name} cap {cap}: clean rows bit for bit")
+            want, want_rows = expected([kept] if kept else [], evaluation=False)
+            check(got == want and rows == want_rows, f"{name} cap {cap}: launches {got}")
+            caps[str(cap)] = dict(warning=said[0], inf_rows=int(inf_rows.sum()),
+                                  launches=got)
+        log(f"phase 10 {name} fallback cap (CTC_TPU_GUARD_FALLBACK_BYTES, restored "
+            f"after): ok, cond at n={beyond}: {json.dumps(caps)}")
+
+        # ---- the whole-batch tier's kernels against their plain versions ----
+        ctx_top = core.make_context(labels, logit_to_logproba(batches[top][0], 2),
+                                    *batches[top][1:], 0)
+        compare = compare_classic_log if name == "classic" else compare_simplified_log
+        errs.update(compare(ctx_top, f" (phase 10, the whole batch of {batch} rows, "
+                                     f"{top} flushed)")[0])
+        del ctx_top
+
+        # ---- times -----------------------------------------------------------
+        step_ms = {k: host_ms(torch, lambda: fn(*b)) for k, (fn, b) in steps.items()}
+        eval_ms = {k: host_ms(torch, lambda: fn(*b)) for k, (fn, b) in evals.items()}
+        ratios = {k: v / step_ms[k.rsplit("_n", 1)[0] + "_n0"] for k, v in step_ms.items()
+                  if k.rsplit("_n", 1)[0] + "_n0" in step_ms}
+        profiles = {k: profile_step(torch, dev, step_ms[k], lambda: steps[k][0](*steps[k][1]))
+                    for k in ("while_n0", "cond_n0", "while+tier1_n0", "pre_n0",
+                              "grad_n0", "guard_off_n0")}
+        peaks = {}
+        for k in ("while_n0", f"while_n{top}", f"cond_n{top}"):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            steps[k][0](*steps[k][1])
+            sync()
+            peaks[k] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else 0.0)
+        log(f"phase 10 {name} timing ({card}; B={batch}, T={logits.shape[1]}, "
+            f"V={logits.shape[2]}, fused at V={SLICE_VOCAB}; host clock, median of "
+            f"{RUNS}): steps {json.dumps(step_ms)}; forward-only calls "
+            f"{json.dumps(eval_ms)}; each step over its n=0 step {json.dumps(ratios)}; "
+            f"profiles of the n=0 steps {json.dumps(profiles)}; peak device memory GB "
+            f"{json.dumps(peaks)}; {time.perf_counter() - t_top:.1f} s")
+        del steps, evals, results, clean_ref, loss64_0, d64_0, loss64_s, d64_s
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, errs=errs)
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -2607,6 +3034,13 @@ def run(seed: int, dev) -> dict:
 
     # ---- 9. the flagship encoder's training step ------------------------------
     launches.update(drive_encoder(torch, dev, seed, sync, card)["launches"])
+
+    # ---- 10. the guard's structures, placements and fallback cap --------------
+    ladder = drive_guard_ladder(torch, dev, seed, sync, card)
+    launches.update(ladder["launches"])
+    for entry in kernels:
+        if entry["name"] in ladder["errs"]:
+            entry["max_abs_err"] = max(entry["max_abs_err"], ladder["errs"][entry["name"]])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

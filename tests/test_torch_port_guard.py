@@ -89,7 +89,7 @@ def test_clean_rows_keep_their_fast_values_bit_for_bit():
 
 
 @pytest.mark.parametrize(
-    "cfg", [dict(repair_bucket2=1), dict(log_fallback=False)],
+    "cfg", [dict(repair_bucket=1, repair_bucket2=1), dict(log_fallback=False)],
     ids=["one-row-rounds", "pure-repair"],
 )
 def test_repair_rounds_and_routes_agree(cfg, monkeypatch):

@@ -106,3 +106,62 @@ def test_unfold_matches_jax(d_i):
 
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("axis,size,value", [(1, 5, 7.0), (0, 4, -1.0), (1, 3, 0)])
+def test_pad_until_matches_jax(axis, size, value):
+    x = np.random.RandomState(1).normal(size=(2, 3)).astype(np.float32)
+    ours = tn.pad_until(torch.tensor(x), size, axis=axis, pad_value=value)
+    ref = jn.pad_until(jnp.asarray(x), size, axis=axis, pad_value=value)
+    assert tuple(ours.shape) == ref.shape and ours.dtype == torch.float32
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    for bad in (dict(desired_size=2, axis=1), dict(desired_size=5, axis=2)):
+        with pytest.raises(ValueError):
+            tn.pad_until(torch.tensor(x), **bad)
+
+
+@pytest.mark.parametrize("case", ["reference", "validation", "random", "no mask"])
+def test_insert_zeros_matches_jax(case):
+    # tests/test_numerics.py (the reference's docstring example) and
+    # tests/test_validation.py's eager case; its data-dependent width
+    if case == "reference":
+        tensor = np.array([[1, 2, 3, 4, 5], [10, 20, 30, 40, 50]], np.int32)
+        mask = np.array([[False, True, False, False, True],
+                         [False, True, True, True, False]])
+    elif case == "validation":
+        tensor, mask = np.array([[1, 2, 3]], np.int32), np.array([[False, True, True]])
+    else:
+        rng = np.random.RandomState(2)
+        tensor = rng.normal(size=(4, 7)).astype(np.float32)
+        mask = rng.rand(4, 7) < (0.4 if case == "random" else 0.0)
+    ours = tn.insert_zeros(torch.tensor(tensor), torch.tensor(mask))
+    ref = np.asarray(jn.insert_zeros(jnp.asarray(tensor), jnp.asarray(mask)))
+    assert ours.numpy().dtype == ref.dtype
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def test_reduce_max_with_default_matches_jax():
+    for x, default in ((np.array([1, 5, 2], np.int32), 0),
+                       (np.array([], np.int32), 7),
+                       (np.array([[-1.5, -0.5]], np.float32), 3.0)):
+        ours = tn.reduce_max_with_default(torch.tensor(x), default)
+        ref = jn.reduce_max_with_default(jnp.asarray(x), default)
+        assert ours.item() == ref.item() and ours.ndim == 0
+
+
+def test_expand_transpose_reshape_match_jax():
+    x = np.random.RandomState(3).normal(size=(2, 3, 4, 5, 6)).astype(np.float32)
+    for ours, ref in (
+        (tn.expand_many_dims(torch.zeros(5, 1, 3), [0, 4, 5]),
+         jn.expand_many_dims(jnp.zeros((5, 1, 3)), [0, 4, 5])),
+        (tn.smart_transpose(torch.tensor(x), [2, 1, 0]),
+         jn.smart_transpose(jnp.asarray(x), [2, 1, 0])),
+        (tn.smart_reshape(torch.tensor(x[:, :, :, :, 0]), [8, None, 1]),
+         jn.smart_reshape(jnp.asarray(x[:, :, :, :, 0]), [8, None, 1])),
+    ):
+        assert tuple(ours.shape) == ref.shape
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    with pytest.raises(ValueError):
+        tn.smart_transpose(torch.zeros(2, 3), [1, 0, 2])
+    with pytest.raises(ValueError):
+        tn.smart_reshape(torch.zeros(2, 3), [6, None, 1])

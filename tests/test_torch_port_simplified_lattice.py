@@ -286,7 +286,7 @@ def test_repaired_step_scans_each_way_once(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "cfg", [dict(repair_bucket2=1), dict(log_fallback=False)],
+    "cfg", [dict(repair_bucket=1, repair_bucket2=1), dict(log_fallback=False)],
     ids=["one-row-rounds", "pure-repair"],
 )
 def test_repair_rounds_and_routes_agree(cfg, monkeypatch):

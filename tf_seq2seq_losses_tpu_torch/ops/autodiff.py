@@ -29,6 +29,7 @@ import torch
 
 from tf_seq2seq_losses_tpu_torch.ops import core
 from tf_seq2seq_losses_tpu_torch.ops.topology import compose_dlogits, kernels_enabled
+from tf_seq2seq_losses_tpu_torch.utils.config import get_config
 from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
 
 # gradient slots of labels, label_length, logit_length, blank and topology
@@ -97,7 +98,12 @@ class LossFromLogits(torch.autograd.Function):
     """Loss from logits with the log-softmax cotangent applied analytically:
     every valid frame's gradient row sums to -1, so
     ``d_logits = d_loss * (grad + softmax * mask)`` with
-    ``mask = (t < logit_length) & isfinite(loss)``."""
+    ``mask = (t < logit_length) & isfinite(loss)``.
+
+    On the kernel path the backward is ``topology.dlogits_fast``, guarded at
+    the d_logits level; under ``guard_mode="grad"`` it guards the gradient
+    (``Gradient``) and composes the cotangent after it, as the JAX
+    package's ``llf_bwd`` does when ``dlogits_ok`` is false."""
 
     @staticmethod
     def forward(ctx, logits, labels, label_length, logit_length, blank, topology):
@@ -117,9 +123,11 @@ class LossFromLogits(torch.autograd.Function):
         logprobas = logit_to_logproba(logits, dim=2)
         *lengths, topology = ctx.args
         c = _context(logprobas, *lengths)
-        if not torch.is_grad_enabled() and kernels_enabled(c):
+        if (not torch.is_grad_enabled() and kernels_enabled(c)
+                and get_config().guard_mode != "grad"):
             # the main path: kernel gradient, guarded at the d_logits level
             return (topology.dlogits_fast(c, d_loss, ctx.pack),) + _NO_GRAD
-        # differentiable composition (double backward, or the pure path)
+        # differentiable composition (double backward, the pure path, or
+        # guard_mode="grad": the guarded gradient, then the cotangent)
         grad = Gradient.apply(logprobas, *ctx.args, ctx.pack)
         return (compose_dlogits(c, grad, loss, d_loss),) + _NO_GRAD

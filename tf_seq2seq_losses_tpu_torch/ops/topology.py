@@ -8,23 +8,47 @@ functions, its exact log-space functions and its feasibility rule.
 
 The block-float kernels flush a lattice entry that falls 2^-126 below its
 window's neighbourhood; a feasible row whose fast loss comes out +inf is
-then recomputed exactly.  The guard's contract, ported without the XLA
-control-flow structure that served it there:
+then recomputed exactly (``flushed = isposinf(fast_loss) & feasible``; NaN
+inputs flow through, NaN is not +inf).  :func:`_guarded` takes the JAX
+package's decisions, as Python branches on the flushed count, with no
+imitation of the XLA control flow that served them there:
 
-* ``flushed = isposinf(fast_loss) & feasible``;
-* every flushed row is recomputed, in rounds of ``repair_bucket2`` rows,
-  each on its own rows' time axis, through the log-space kernels
-  (``log_fallback``; a time axis of one chunk and a label whose lanes they
-  hold) or the pure path in float64, and scattered back;
-* clean rows keep their fast values bit for bit;
-* NaN inputs flow through (NaN is not +inf).
+* ``guard_struct="while"`` (the default): every flushed row is repaired, in
+  rounds of ``max(min(repair_bucket2, B), repair_bucket)`` rows through the
+  exact path (the log-space kernels with ``log_fallback``, else the pure
+  path), shrinking to ``repair_bucket`` rows and then to pure-path rounds
+  where :func:`fallback_cap` does not admit them; with ``guard_tier1`` up
+  to ``repair_bucket`` flushed rows go through the pure path instead.
+  Clean rows keep their fast values bit for bit.
+* ``guard_struct="cond"``: tier 1, up to ``repair_bucket`` flushed rows
+  through the pure path; tier 2, up to ``repair_bucket2`` through the
+  log-space kernels; beyond that the whole batch through the exact path,
+  so clean rows get exact values too.  Where the whole batch's working set
+  is over the cap, the guard warns and rows past the largest tier that
+  fits keep +inf.  With ``repair_bucket=0`` (the whole batch fitting) any
+  flushed row reroutes the whole batch, under either struct.
+* nothing fitting the cap: the guard warns and returns the fast value.
+
+A repair tier runs on its rows' own time axis (:func:`take_ctx`), where
+the JAX package's runs on the batch's; rows never interact, so the values
+are the same computation on fewer steps (the steps cut off are zeros),
+and agree within the log-space repair's tolerance.  Pure-path repairs run
+in float64 (``core.float64_context``), their results cast back; an exact
+function on a context that the log-space kernels do not serve (a chunked
+time axis, a label wider than they hold) falls back to the same float64
+pure path (``ops/log_lattice.py``).
 
 Finding the flushed rows is a ``nonzero()``, which waits for the device:
 one host synchronisation per guarded call (and a few more per call that
-repairs rows).
+repairs rows).  ``guard_mode="pre"`` spends the training forward's one on
+the backward as well: a clean step's backward runs unguarded.
 """
 
 from __future__ import annotations
+
+import os
+import warnings
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -90,33 +114,142 @@ def _repair_rounds(ctx: CtcContext, rows: torch.Tensor, bucket: int):
             for r in torch.split(part, bucket) if r.numel()]
 
 
-def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None):
-    """``fast_value`` with every flushed feasible row recomputed exactly.
+def fallback_cap() -> int:
+    """The largest working set, in bytes, that a repair tier of the guard
+    may take: ``CTC_TPU_GUARD_FALLBACK_BYTES``, read at each call as the
+    JAX package reads it, 4 GiB by default."""
+    return int(os.environ.get("CTC_TPU_GUARD_FALLBACK_BYTES", 4 << 30))
 
-    ``exact_fn``/``pure_fn`` take a (mini-batch) context, plus the gathered
-    rows of ``aux`` when it is given.  The mini-batch's time axis is cut to
-    its rows' lengths (:func:`take_ctx`); a repaired gradient or d_logits
-    is zero past ``logit_length``, so the steps cut off are zeros.
-    ``pure_fn`` runs in float64 (``core.float64_context``), its result cast
-    back."""
-    cfg = get_config()
-    if not cfg.guard:
-        return fast_value
-    flushed = torch.isposinf(loss_like) & feasible
-    rows = torch.nonzero(flushed)[:, 0]  # host sync
-    if rows.numel() == 0:
-        return fast_value
-    fn = exact_fn if cfg.log_fallback else pure_fn
+
+def est_fallback_bytes(batch: int, num_t: int, lp1: int, lane_pad: bool = False) -> int:
+    """The JAX package's estimate of a repair tier's working set, verbatim
+    (``tf_seq2seq_losses_tpu/ops/topology.py`` ``_est_fallback_bytes``):
+    eight float32 ``[batch, num_t + 1, width]`` tensors, ``width`` the
+    ``lp1`` label lanes, rounded up to 128 (a TPU lane tile) for a tier of
+    the log-space kernels (``lane_pad``).
+
+    Held against :func:`fallback_cap`, it decides which tiers run and so
+    which flushed rows keep +inf, which users see; it is kept as the JAX
+    package computes it so that the port leaves the same rows at +inf.  It
+    does not model this card's memory: the port's tiers run on their rows'
+    own time axis with lanes padded to 32."""
+    width = -(-lp1 // 128) * 128 if lane_pad else lp1
+    return batch * (num_t + 1) * width * 4 * 8
+
+
+_GUARD_DISABLED = (
+    "ctc saturation guard disabled at this shape: even the {bucket}-sample "
+    "repair branch's working set exceeds the {cap_mb} MB fallback cap "
+    "(CTC_TPU_GUARD_FALLBACK_BYTES). Feasible-but-float32-saturated samples will "
+    "return +inf loss / zero gradient on the fast path."
+)
+_WHOLE_BATCH_DISABLED = (
+    "ctc saturation guard: whole-batch exact reroute disabled at this shape "
+    "(working set over the {cap_mb} MB cap); up to {rows} flushed samples per "
+    "batch are repaired exactly, any beyond that keep their +inf fast-path value."
+)
+
+
+def flushed_rows(loss_like: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """Indices of the feasible rows whose fast loss is +inf, ascending (a
+    host synchronisation)."""
+    return torch.nonzero(torch.isposinf(loss_like) & feasible)[:, 0]
+
+
+def _repair(fast_value, fn, ctx, rounds, aux):
+    """``fast_value`` with the rows of each round replaced by ``fn`` of the
+    round's gathered context (and rows of ``aux``); a ``[B, T, V]`` value is
+    zero past the round's cut time axis."""
     out = fast_value.clone()
-    for idx in _repair_rounds(ctx, rows, cfg.repair_bucket2):
+    for idx in rounds:
         sub = take_ctx(ctx, idx)
-        if not cfg.log_fallback:
-            sub = _core.float64_context(sub)
         mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
-        if out.dim() == 3:  # zeros past the cut time axis
+        if out.dim() == 3:
             mini = torch.nn.functional.pad(mini, (0, 0, 0, out.shape[1] - mini.shape[1]))
         out[idx] = mini.to(out.dtype)
     return out
+
+
+def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
+             rows=None):
+    """``fast_value`` with flushed feasible rows recomputed, by the tiers of
+    the module docstring.
+
+    ``exact_fn`` runs the log-space kernels (with ``log_fallback``);
+    ``pure_fn`` the pure path in float64, its result cast back.  Both take a
+    context, plus its rows of ``aux`` when that is given, and serve a
+    gathered round (:func:`take_ctx`) and the whole batch alike.  ``rows``:
+    the flushed rows where the caller has found them already
+    (:func:`flushed_rows`)."""
+    cfg = get_config()
+    if not cfg.guard:
+        return fast_value
+    batch, num_t, _ = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    cap = fallback_cap()
+
+    def fits(n, lane_pad=False):
+        return est_fallback_bytes(n, num_t, lp1, lane_pad) <= cap
+
+    has_exact = cfg.log_fallback
+    exact = exact_fn if has_exact else pure_fn
+    full_fits = fits(batch, lane_pad=has_exact)
+    bucket = min(cfg.repair_bucket, batch)
+    bucket_fits = bucket > 0 and fits(bucket)
+    if not (full_fits or bucket_fits):
+        warnings.warn(_GUARD_DISABLED.format(bucket=bucket, cap_mb=cap >> 20),
+                      stacklevel=2)
+        return fast_value
+    if cfg.guard_struct == "while" and bucket_fits:
+        fn, size = exact, max(min(cfg.repair_bucket2, batch), bucket)
+        if not fits(size, lane_pad=has_exact):
+            size = bucket
+            if not fits(bucket, lane_pad=has_exact):
+                fn = pure_fn
+        rows = flushed_rows(loss_like, feasible) if rows is None else rows
+        if rows.numel() == 0:
+            return fast_value
+        if cfg.guard_tier1 and bucket < batch and rows.numel() <= bucket:
+            fn, size = pure_fn, bucket
+        return _repair(fast_value, fn, ctx, _repair_rounds(ctx, rows, size), aux)
+
+    bucket2 = min(cfg.repair_bucket2, batch)
+    tier2 = has_exact and bucket2 > bucket and bucket_fits and fits(bucket2, True)
+    if bucket_fits and not full_fits:
+        warnings.warn(_WHOLE_BATCH_DISABLED.format(
+            cap_mb=cap >> 20, rows=bucket2 if tier2 else bucket), stacklevel=2)
+    rows = flushed_rows(loss_like, feasible) if rows is None else rows
+    n = rows.numel()
+    if n == 0:
+        return fast_value
+    if bucket_fits and n <= bucket:
+        return _repair(fast_value, pure_fn, ctx, _repair_rounds(ctx, rows, bucket), aux)
+    if tier2 and (n <= bucket2 or not full_fits):
+        return _repair(fast_value, exact_fn, ctx,
+                       _repair_rounds(ctx, rows[:bucket2], bucket2), aux)
+    if not full_fits:
+        return _repair(fast_value, pure_fn, ctx,
+                       _repair_rounds(ctx, rows[:bucket], bucket), aux)
+    # the whole batch, clean rows too (and the two-way guard of bucket 0)
+    whole = exact(ctx) if aux is None else exact(ctx, aux)
+    return whole.to(fast_value.dtype)
+
+
+class GuardedPack(NamedTuple):
+    """The training forward's pack (``inner``: the kernel path's, which
+    carries the forward's raw fast loss as ``loss``) with the number of
+    flushed feasible rows that the forward's guard found (None where it did
+    not look), which ``guard_mode="pre"`` branches on before the
+    backward."""
+
+    inner: object
+    flushed: Optional[int]
+
+
+def _unwrap_pack(pack):
+    if isinstance(pack, GuardedPack):
+        return pack.inner, pack.flushed
+    return pack, None
 
 
 def compose_dlogits(ctx: CtcContext, grad, loss, d_loss):
@@ -172,13 +305,24 @@ class Topology:
     def _pure_grad(self, c: CtcContext):
         return _core.gradient(self, c)
 
+    def _pure_repair(self, c: CtcContext):
+        """``(loss, gradient)`` of the pure path in float64, cast back: the
+        guard's pure route."""
+        c64 = _core.float64_context(c)
+        alpha = self.alpha(c64)
+        loss = self.loss(c64, alpha)
+        grad = -torch.exp(_core.gradient_log(self, c64, loss, alpha))
+        return loss.float(), grad.float()
+
+    def _pure_repair_loss(self, c: CtcContext):
+        return self.pure_loss(_core.float64_context(c)).float()
+
     def _exact_grad(self, c: CtcContext):
         return -torch.exp(self._loss_and_gradient_log_exact(c)[1])
 
-    def _guarded_loss(self, ctx: CtcContext, fast):
-        return _guarded(
-            fast, self._loss_exact, self.pure_loss, fast, self.feasible(ctx), ctx
-        )
+    def _guarded_loss(self, ctx: CtcContext, fast, rows=None):
+        return _guarded(fast, self._loss_exact, self._pure_repair_loss, fast,
+                        self.feasible(ctx), ctx, rows=rows)
 
     def loss_fast(self, ctx: CtcContext):
         """Forward-only loss: the forward kernel in mode final on the
@@ -189,22 +333,24 @@ class Topology:
 
     def loss_and_pack_fast(self, ctx: CtcContext):
         """Training forward: the guarded loss plus the pack that the
-        backward reads (see ``cuda_lattice.classic_loss_and_pack``); the
-        pack is None on the pure path."""
+        backward reads, a :class:`GuardedPack` around the kernel path's
+        (see ``cuda_lattice.classic_loss_and_pack``); the pack is None on
+        the pure path."""
         if not self._kernel_path(ctx, training=True):
             return self.pure_loss(ctx), None
         fast, pack = self._loss_and_pack(ctx)
-        return self._guarded_loss(ctx, fast), pack
+        rows = flushed_rows(fast, self.feasible(ctx)) if get_config().guard else None
+        return (self._guarded_loss(ctx, fast, rows),
+                GuardedPack(pack, None if rows is None else rows.numel()))
 
     def gradient_fast(self, ctx: CtcContext, pack=None):
         """Gradient w.r.t. log-probabilities; the backward kernel on the
         kernel path."""
         if not self._kernel_path(ctx, training=True):
             return self._pure_grad(ctx)
-        fast, fast_loss = self._gradient_with_loss(ctx, None, pack)
-        return _guarded(
-            fast, self._exact_grad, self._pure_grad, fast_loss, self.feasible(ctx), ctx
-        )
+        fast, fast_loss = self._gradient_with_loss(ctx, None, _unwrap_pack(pack)[0])
+        return _guarded(fast, self._exact_grad, lambda c: self._pure_repair(c)[1],
+                        fast_loss, self.feasible(ctx), ctx)
 
     def dlogits_fast(self, ctx: CtcContext, d_loss, pack=None):
         """Logits cotangent ``d_loss * (grad + softmax * valid)`` on the
@@ -212,11 +358,24 @@ class Topology:
         With ``fused_epilogue`` and a pack of the streamed scheme, kernel
         B12 assembles it from the acts in one pass
         (``cuda_lattice.fused_epilogue_ok``); the rows the guard repairs
-        are composed unfused either way."""
+        are composed unfused either way.
+
+        ``guard_mode="pre"`` (unfused only, as in the JAX package): where
+        the forward's guard found no flushed row (:class:`GuardedPack`), the
+        backward runs unguarded, with no host synchronisation; otherwise
+        the guard runs as under ``"post"``, on the backward's flush signal,
+        so the two give the same d_logits.  The port's backward also flags
+        a row whose scans disagree (``cuda_lattice.beta_carry_loss``); under
+        ``"pre"`` a clean forward trusts the forward's signal, as the JAX
+        package's does, and such a row keeps zero d_logits."""
 
         def pure(c, dl):
             loss = self.pure_loss(c)
             return compose_dlogits(c, _core.gradient(self, c, loss), loss, dl)
+
+        def pure_repair(c, dl):
+            loss, grad = self._pure_repair(c)
+            return compose_dlogits(c, grad, loss, dl)
 
         def exact(c, dl):
             loss, grad_log = self._loss_and_gradient_log_exact(c)
@@ -224,14 +383,17 @@ class Topology:
 
         if not self._kernel_path(ctx, training=True):
             return pure(ctx, d_loss)
+        pack, forward_flushed = _unwrap_pack(pack)
         if _kernels.fused_epilogue_ok(ctx, pack):
             fast, fast_loss = _kernels.streamed_dlogits(
                 ctx, d_loss, *self._streamed_acts(ctx, pack))
         else:
             grad, fast_loss = self._gradient_with_loss(ctx, None, pack)
             fast = compose_dlogits(ctx, grad, fast_loss, d_loss)
+            if get_config().guard_mode == "pre" and forward_flushed == 0:
+                return fast
         return _guarded(
-            fast, exact, pure, fast_loss, self.feasible(ctx), ctx, aux=d_loss
+            fast, exact, pure_repair, fast_loss, self.feasible(ctx), ctx, aux=d_loss
         )
 
 

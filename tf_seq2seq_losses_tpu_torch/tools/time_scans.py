@@ -42,7 +42,8 @@ and each topology's fused step at V=128; and the long-T
 training step of each topology (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
 through the pure path), each on the host clock and its device time by
-``torch.profiler``.
+``torch.profiler``, with a digest of the step's loss and d_logits, by
+which two trees' steps are shown to give the same bits.
 
 Prints one JSON line: the tag, the card's name and power limit, the times
 in ms, each case's bound (the least time the card could take for its work
@@ -302,6 +303,15 @@ def digest(torch, case) -> str:
     return h.hexdigest()[:16]
 
 
+def step_digest(outputs) -> str:
+    """The first 16 hex digits of a SHA-256 of a step's outputs (its loss
+    and d_logits)."""
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def headline_steps(smoke, torch, dev) -> dict:
     """Host-clock and device time of the training steps at the headline:
     classic streamed (B2, B3) and half-stream (resid1, B13), classic with
@@ -334,8 +344,10 @@ def headline_steps(smoke, torch, dev) -> dict:
         with config_override(**cfg):
             host = smoke.host_ms(torch, lambda: step(*args))
             prof = smoke.profile_step(torch, dev, host, lambda: step(*args))
+            digest_ = step_digest(step(*args))
         out[name] = {"host_ms": host, "device_ms": prof.get("device_ms_per_step"),
-                     "device_idle_share": prof.get("device_idle_share")}
+                     "device_idle_share": prof.get("device_idle_share"),
+                     "digest": digest_}
     return out
 
 
@@ -354,9 +366,10 @@ def long_steps(smoke, torch, dev) -> dict:
             prof = smoke.profile_step(torch, dev, host,
                                       lambda: step(logits, label_length, logit_length),
                                       steps=2)
+            digest_ = step_digest(step(logits, label_length, logit_length))
         out[f"{topology}_fwd_bwd_step"] = {
             "host_ms": host, "device_ms": prof.get("device_ms_per_step"),
-            "device_idle_share": prof.get("device_idle_share")}
+            "device_idle_share": prof.get("device_idle_share"), "digest": digest_}
     return out
 
 

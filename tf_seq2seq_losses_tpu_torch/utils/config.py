@@ -1,14 +1,34 @@
 """Kernel configuration of the PyTorch port.
 
-Only the knobs that the port honours are fields here, at the JAX package's
-defaults.  Knobs whose code path is not ported yet are accepted by
-:func:`config_from_reference` at their default value only, and raise
-``NotImplementedError`` naming their ROADMAP item otherwise.
+Every knob of the JAX package's ``KernelConfig`` whose behaviour the port
+has is a field here, at the JAX package's default.  The TPU geometry and
+lowering knobs (``_DROPPED``) have no counterpart on the card: they are
+dropped by :func:`config_from_reference`, and :func:`config_override`
+accepts and ignores them, so that code written for the JAX package's config
+runs unchanged.
+
+At import the defaults are read from the environment, as the JAX package
+reads them (:func:`_env_default`): ``CTC_TPU_GUARD``,
+``CTC_TPU_STREAM_RESIDUALS``, ``CTC_TPU_LOG_FALLBACK``,
+``CTC_TPU_FUSED_EPILOGUE``, ``CTC_TPU_HALF_STREAM``, ``CTC_TPU_GUARD_MODE``,
+``CTC_TPU_GUARD_STRUCT``, ``CTC_TPU_GUARD_TIER1``, ``CTC_TPU_WINDOW``,
+``CTC_TPU_REPAIR_BUCKET``, ``CTC_TPU_REPAIR_BUCKET2`` and
+``CTC_TPU_CHUNK_TIME``.  Ignored: the TPU-only ``CTC_TPU_PALLAS_INTERPRET``,
+``CTC_TPU_UNROLL``, ``CTC_TPU_FOLD_PT``, ``CTC_TPU_SORT_BY_LENGTH``,
+``CTC_TPU_BLOCK_BATCH``, ``CTC_TPU_BLOCK_TIME``, ``CTC_TPU_VMEM_BUDGET_MB``
+and ``CTC_TPU_VMEM_LIMIT_MB``; and ``CTC_TPU_USE_PALLAS``, which does not
+map to ``use_kernels``: it selects the TPU kernels, and the port picks its
+path from the tensor's device, as :func:`config_from_reference` drops
+``use_pallas`` (a JAX test setting of it would force the plain versions
+onto every CPU tensor).  The saturation guard's fallback cap,
+``CTC_TPU_GUARD_FALLBACK_BYTES``, is read at call time
+(``ops/topology.py`` ``fallback_cap``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from contextlib import contextmanager
 from typing import Optional
 
@@ -46,9 +66,28 @@ class KernelConfig:
     ``num_tokens % 128 == 0`` clause was a TPU lane rule; the CUDA kernel
     takes any vocabulary that its shared memory holds.
     ``guard``: recompute feasible rows whose fast loss flushed to +inf.
-    ``repair_bucket2``: rows per exact repair round of the guard.
+    ``repair_bucket``: up to this many flushed rows are repaired through
+    the pure path (in float64) by ``guard_struct="cond"``, and by
+    ``"while"`` with ``guard_tier1``; 0 disables that tier (the guard then
+    reroutes the whole batch whenever a row flushed).
+    ``repair_bucket2``: rows per exact repair round of the ``"while"``
+    guard (at least ``repair_bucket``); under ``"cond"`` the most flushed
+    rows that the log-space kernels repair as one gathered batch (tier 2;
+    0 disables it) before the whole batch is rerouted.
     ``log_fallback``: repair through the log-space kernels (else through
     the pure path).
+    ``guard_mode``: where the training step's guard sits.  ``"post"``
+    guards the composed ``d_logits``; ``"pre"`` branches before the
+    backward on the forward's flushed count (a clean step runs the
+    unguarded backward); ``"grad"`` guards the gradient and composes the
+    log-softmax cotangent after it.  They give the same ``d_logits``
+    (``ops/topology.py``).
+    ``guard_struct``: ``"while"`` repairs every flushed row in gathered
+    rounds and keeps clean rows' fast values; ``"cond"`` is the JAX
+    package's tiered lattice, whose tier 3 reroutes the whole batch, clean
+    rows too, through the exact path.
+    ``guard_tier1``: under ``"while"``, up to ``repair_bucket`` flushed rows
+    go through the pure path instead of one log-space round.
     """
 
     use_kernels: Optional[bool] = None
@@ -58,8 +97,12 @@ class KernelConfig:
     half_stream: bool = False
     fused_epilogue: bool = False
     guard: bool = True
+    repair_bucket: int = 16
     repair_bucket2: int = 32
     log_fallback: bool = True
+    guard_mode: str = "post"
+    guard_struct: str = "while"
+    guard_tier1: bool = False
 
     def __post_init__(self):
         if self.use_kernels not in (None, True, False):
@@ -67,15 +110,20 @@ class KernelConfig:
                 f"use_kernels must be None, True or False, got {self.use_kernels!r}"
             )
         for name in ("stream_residuals", "half_stream", "fused_epilogue", "guard",
-                     "log_fallback"):
+                     "log_fallback", "guard_tier1"):
             if not isinstance(getattr(self, name), bool):
                 raise ValueError(
                     f"{name} must be a bool, got {getattr(self, name)!r}"
                 )
-        for name, lo in (("window", 1), ("chunk_time", 1), ("repair_bucket2", 1)):
+        for name, lo in (("window", 1), ("chunk_time", 1), ("repair_bucket", 0),
+                         ("repair_bucket2", 0)):
             val = getattr(self, name)
             if isinstance(val, bool) or not isinstance(val, int) or val < lo:
                 raise ValueError(f"{name} must be an int >= {lo}, got {val!r}")
+        for name, allowed in _ENUMS.items():
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
+                                 f"expected one of {list(allowed)}")
 
     def kernels_enabled(self, device: torch.device) -> bool:
         if self.use_kernels is not None:
@@ -83,13 +131,10 @@ class KernelConfig:
         return device.type == "cuda"
 
 
-# Knobs of the JAX KernelConfig whose code paths the port does not have yet:
-# field -> (the default this port implements, ROADMAP item).
-_UNPORTED = {
-    "guard_struct": ("while", "A7 (cond-lattice guard structure)"),
-}
+_ENUMS = {"guard_mode": ("grad", "post", "pre"), "guard_struct": ("cond", "while")}
 
-# TPU-only geometry and lowering knobs, dropped by config_from_reference.
+# TPU geometry and lowering knobs of the JAX KernelConfig: dropped by
+# config_from_reference, accepted and ignored by config_override.
 _DROPPED = (
     "use_pallas",
     "interpret",
@@ -100,26 +145,40 @@ _DROPPED = (
     "vmem_limit_mb",
     "sort_by_length",
     "fold_pt",
-    "guard_tier1",
-    "guard_mode",
-    "repair_bucket",
 )
 
-_ENUMS = {"guard_struct": ("cond", "while"), "guard_mode": ("grad", "post", "pre")}
+_FALSE = ("0", "false", "False")
 
 
-def _check_unported(fields: dict) -> None:
-    for name, allowed in _ENUMS.items():
-        if name in fields and fields[name] not in allowed:
-            raise ValueError(
-                f"unknown {name} {fields[name]!r}; expected one of {list(allowed)}"
-            )
-    for name, (default, item) in _UNPORTED.items():
-        if name in fields and fields[name] != default:
-            raise NotImplementedError(
-                f"{name}={fields[name]!r} is not ported yet (ROADMAP {item}); "
-                f"the port implements {name}={default!r}"
-            )
+def _env_default() -> KernelConfig:
+    """The default config with the ``CTC_TPU_*`` variables of the fields
+    that the port honours applied, each parsed as the JAX package's
+    ``_env_default`` parses it: a value outside a variable's words leaves
+    its field at the default."""
+    env = os.environ.get
+    kw = {}
+    for field, name in (("guard", "CTC_TPU_GUARD"),
+                        ("stream_residuals", "CTC_TPU_STREAM_RESIDUALS"),
+                        ("log_fallback", "CTC_TPU_LOG_FALLBACK")):
+        if env(name) in _FALSE:
+            kw[field] = False
+    for field, name in (("fused_epilogue", "CTC_TPU_FUSED_EPILOGUE"),
+                        ("guard_tier1", "CTC_TPU_GUARD_TIER1")):
+        if env(name) is not None:
+            kw[field] = env(name) not in _FALSE
+    if env("CTC_TPU_HALF_STREAM") in ("1", "true", "True"):
+        kw["half_stream"] = True
+    for field, name in (("guard_mode", "CTC_TPU_GUARD_MODE"),
+                        ("guard_struct", "CTC_TPU_GUARD_STRUCT")):
+        if env(name) in _ENUMS[field]:
+            kw[field] = env(name)
+    for field, name in (("window", "CTC_TPU_WINDOW"),
+                        ("repair_bucket", "CTC_TPU_REPAIR_BUCKET"),
+                        ("repair_bucket2", "CTC_TPU_REPAIR_BUCKET2"),
+                        ("chunk_time", "CTC_TPU_CHUNK_TIME")):
+        if env(name) is not None:
+            kw[field] = int(env(name))
+    return KernelConfig(**kw)
 
 
 def config_from_reference(fields: dict) -> KernelConfig:
@@ -128,40 +187,24 @@ def config_from_reference(fields: dict) -> KernelConfig:
     The loss has no learned parameters; its behaviour is fixed by this
     config, so carrying it across is what reproduces the reference run.
 
-    Mapped: ``window``, ``chunk_time``, ``stream_residuals``,
-    ``half_stream``, ``fused_epilogue``, ``guard``, ``repair_bucket2`` and
-    ``log_fallback``; ``use_pallas`` is dropped,
-    since the port picks its path from the tensor's device (see
-    ``KernelConfig.use_kernels``).
+    Mapped: every field of the port but ``use_kernels``.  Dropped (TPU
+    geometry and lowering, same values either way): ``use_pallas``, since
+    the port picks its path from the tensor's device (see
+    ``KernelConfig.use_kernels``), ``interpret``, ``unroll``,
+    ``block_batch``, ``block_time``, ``vmem_budget_mb``, ``vmem_limit_mb``,
+    ``sort_by_length`` and ``fold_pt`` (the CUDA kernels always take the
+    folded transition stream).
 
-    Dropped (TPU geometry and lowering, same values either way):
-    ``interpret``, ``unroll``, ``block_batch``, ``block_time``,
-    ``vmem_budget_mb``, ``vmem_limit_mb``, ``sort_by_length``, ``fold_pt``
-    (the CUDA kernels always take the folded transition stream),
-    ``guard_tier1``, ``guard_mode`` and ``repair_bucket`` (the port's guard
-    always repairs every flushed row in rounds of ``repair_bucket2``).
-
-    Raises ``NotImplementedError`` for an unported knob off its default
-    (``guard_struct="cond"``) and ``ValueError`` for an unknown field or
-    enum value.
+    Raises ``ValueError`` for an unknown field or enum value.
     """
-    known = set(_UNPORTED) | set(_DROPPED) | {
-        f.name for f in dataclasses.fields(KernelConfig) if f.name != "use_kernels"
-    }
-    unknown = sorted(set(fields) - known)
+    mapped = {f.name for f in dataclasses.fields(KernelConfig)} - {"use_kernels"}
+    unknown = sorted(set(fields) - mapped - set(_DROPPED))
     if unknown:
         raise ValueError(f"unknown KernelConfig fields {unknown}")
-    _check_unported(fields)
-    kw = {
-        name: fields[name]
-        for name in ("window", "chunk_time", "stream_residuals", "half_stream",
-                     "fused_epilogue", "guard", "repair_bucket2", "log_fallback")
-        if name in fields
-    }
-    return KernelConfig(**kw)
+    return KernelConfig(**{k: v for k, v in fields.items() if k in mapped})
 
 
-_CONFIG = KernelConfig()
+_CONFIG = _env_default()
 
 
 def get_config() -> KernelConfig:
@@ -172,12 +215,11 @@ def get_config() -> KernelConfig:
 def config_override(**kwargs):
     """Temporarily override config fields (tests and measurements).
 
-    Unported knobs of the JAX config may be named too: at their default
-    they are accepted and ignored, otherwise they raise.
+    The JAX config's TPU-only knobs (``_DROPPED``) may be named too; they
+    are ignored.  Any other name that is not a field raises ``TypeError``.
     """
     global _CONFIG
-    _check_unported(kwargs)
-    own = {k: v for k, v in kwargs.items() if k not in _UNPORTED}
+    own = {k: v for k, v in kwargs.items() if k not in _DROPPED}
     old = _CONFIG
     _CONFIG = dataclasses.replace(old, **own)
     try:

@@ -7,7 +7,7 @@ exactly -inf and every derivative through it is zero, never NaN.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -115,3 +115,77 @@ def unfold(
     if d_i == -1:
         out = out[::-1]
     return torch.stack(out, dim=0)
+
+
+def pad_until(
+    tensor: torch.Tensor,
+    desired_size: int,
+    axis: int,
+    pad_value: Union[int, float, bool] = 0,
+) -> torch.Tensor:
+    """Right-pad ``axis`` to ``desired_size`` with ``pad_value``."""
+    rank = tensor.ndim
+    if axis >= rank:
+        raise ValueError(f"axis {axis} out of range for rank {rank}")
+    current = tensor.shape[axis]
+    if desired_size < current:
+        raise ValueError(
+            f"desired_size {desired_size} smaller than current {current}"
+        )
+    shape = list(tensor.shape)
+    shape[axis] = desired_size - current
+    pad = torch.full(shape, pad_value, dtype=tensor.dtype, device=tensor.device)
+    return torch.cat([tensor, pad], dim=axis)
+
+
+def insert_zeros(tensor: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Insert a zero before each masked element of each row of ``tensor``
+    ``[B, L]``; the output is ``[B, L + the most insertions of a row]``.
+
+    The width depends on the data.  The JAX package raises under ``jit``,
+    whose shapes are static; PyTorch runs the call eagerly, so the port
+    reads the width on the host (one synchronisation for a CUDA tensor) and
+    has no error to raise.  The call cannot be captured into a CUDA graph,
+    which admits no synchronisation.
+    """
+    batch_size, length = tensor.shape
+    delta = torch.cumsum(mask.to(torch.int64), dim=1)
+    max_num_insertions = int(delta[:, -1].max()) if batch_size and length else 0
+    cols = torch.arange(length, device=tensor.device)[None, :] + delta
+    out = torch.zeros((batch_size, length + max_num_insertions), dtype=tensor.dtype,
+                      device=tensor.device)
+    return out.scatter(1, cols, tensor)
+
+
+def reduce_max_with_default(input_tensor: torch.Tensor, default) -> torch.Tensor:
+    """``max`` over all elements, ``default`` for an empty tensor."""
+    if input_tensor.numel() == 0:
+        return torch.as_tensor(default, dtype=input_tensor.dtype,
+                               device=input_tensor.device)
+    return torch.max(input_tensor)
+
+
+def expand_many_dims(x: torch.Tensor, axes: List[int]) -> torch.Tensor:
+    """Insert several singleton dimensions, in order."""
+    for axis in axes:
+        x = torch.unsqueeze(x, axis)
+    return x
+
+
+def smart_transpose(a: torch.Tensor, perm: List[int]) -> torch.Tensor:
+    """``permute`` by a partial permutation (trailing axes unchanged)."""
+    if len(perm) > a.ndim:
+        raise ValueError(f"Tensor of rank {a.ndim} cannot be transposed by {perm}")
+    return a.permute(*perm, *range(len(perm), a.ndim))
+
+
+def smart_reshape(tensor: torch.Tensor, shape: List[Optional[int]]) -> torch.Tensor:
+    """``reshape`` by a partial spec, ``None`` keeping that dimension; the
+    rank is kept."""
+    if len(shape) > tensor.ndim:
+        raise ValueError(
+            f"Tensor of rank {tensor.ndim} cannot be reshaped to {shape}"
+        )
+    spec = list(shape) + [None] * (tensor.ndim - len(shape))
+    return tensor.reshape([tensor.shape[i] if dim is None else dim
+                           for i, dim in enumerate(spec)])
