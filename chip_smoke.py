@@ -81,8 +81,10 @@ then simplified):
 6. timing at the headline shape with CUDA events (each kernel: median of 5
    bursts of 20 back-to-back launches; its plain version: median of 3
    single calls; ``torch.nn.functional.ctc_loss``, the library yardstick
-   of the classic loss: median of 20 single calls; no PyTorch call
-   computes the simplified loss) and on the host clock (each topology's
+   of the classic loss, its forward for the forward scans and its
+   backward alone (``torch.autograd.grad`` on a retained graph) for the
+   backward scans: median of 20 single calls; no PyTorch call computes
+   the simplified loss) and on the host clock (each topology's
    fwd+bwd step, streamed and residual-free, and forward-only call; the
    steps of ``drive_slice_paths``; each topology's step with four
    full-length rows repaired, and B4, B5, B8 and B9 on that repair round
@@ -106,8 +108,9 @@ then simplified):
    path in float64, and their forward-only loss's relative error printed;
    rows 0-31 bit for bit as one chunk;
    then each topology's step and forward-only call (host clock, median of
-   3), one chunk's kernels (CUDA events), ``F.ctc_loss`` there, and a
-   profile of the classic step;
+   3), one chunk's kernels (CUDA events), ``F.ctc_loss`` there and its
+   forward and backward alone on one chunk's frames, and a profile of the
+   classic step;
 8. the rest of the public API at the headline shape (``drive_extras``),
    for each topology: ``ctc_token_posteriors`` on the kernel path, B2 and
    B3 (B6 resid and B7) once each, and with rows 2-5 flushed (``saturate``)
@@ -179,12 +182,29 @@ then simplified):
    the batch of 256 rows with 80 flushed (phase 2's tolerances), each
    step's and call's host-clock time (median of 20) and its ratio to the
    n=0 step of its struct or mode, profiles of the n=0 steps, and the
-   peak device memory of the clean and n=80 steps.
+   peak device memory of the clean and n=80 steps;
+11. the loss under ``torch.func`` (``drive_func``), for each topology with
+   TF32 on: the headline batch viewed as ``FUNC_GROUPS`` = 4 groups of 64
+   rows through ``torch.func.vmap`` of the loss (B1 final, or B6 final,
+   once) and of ``torch.func.grad`` of its finite sum (B2 and B3, or B6
+   resid and B7, once: the groups fold into one batch), clean and with
+   rows 2-5 flushed at 1e2 (also B4 final, B4 resid and B5, or B8 final,
+   B8 resid and B9, once), bit for bit the unmapped call's loss and
+   ``.backward()``'s loss and d_logits; ``torch.func.grad`` on the whole
+   batch, bit for bit ``.backward()``'s, and at V=128 with
+   ``fused_epilogue`` launching B12 once; ``jacrev(grad)`` at B=2, T=12,
+   V=5 with the kernels on, at the logits and log-probability levels,
+   the same with the fusion on and off and atol 1e-5 from the double
+   backward of the pure path in float64 (PyTorch's autograd through the
+   recursions); ``jacrev`` three times raising ``NotImplementedError``;
+   then the plain, ``grad`` and ``vmap(grad)`` steps on the host clock
+   (median of 20).
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
 phase 7, each posteriors call of phase 8, each step and call of phase 9,
-each step, call and pair of them of phase 10) and read after it: a kernel that its path never launched fails the run,
+each step, call and pair of them of phase 10, each call of phase 11) and
+read after it: a kernel that its path never launched fails the run,
 and the ``kernels`` line gives each kernel's launches summed over the
 paths.  The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.  Any failed check exits
@@ -2565,6 +2585,188 @@ def drive_guard_ladder(torch, dev, seed, sync, card) -> dict:
     return dict(launches=launches, errs=errs)
 
 
+# ---- phase 11: the loss under torch.func -------------------------------------
+
+# the headline batch of 256 rows viewed as 4 groups of 64
+FUNC_GROUPS = 4
+# the Hessian's batch, frames and vocabulary
+HESS_B, HESS_T, HESS_V = 2, 12, 5
+HESS_ATOL = 1e-5
+HESS_RUNS = 5
+
+
+def pure_float64_hessian(labels, x, label_length, logit_length, topology, level):
+    """``[B, T, V, B, T, V]``: the double backward of the finite loss sum
+    through the pure path of ``topology`` in float64 (PyTorch's own
+    autograd through the recursions, not the analytic Hessian), on the
+    CPU; ``x`` holds logits (``level="logits"``) or log-probabilities."""
+    import torch
+
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    args = [t.cpu() for t in (labels, label_length, logit_length)]
+
+    def total(x64):
+        lp64 = logit_to_logproba(x64, 2) if level == "logits" else x64
+        loss = pure_float64_grad(args[0], lp64, *args[1:], topology)[1]
+        return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+
+    return torch.autograd.functional.hessian(total, x.detach().cpu().double(),
+                                             vectorize=True)
+
+
+def drive_func(torch, dev, seed, sync, card) -> dict:
+    """Phase 11, for each topology, with TF32 on: the headline batch viewed
+    as ``FUNC_GROUPS`` groups through ``torch.func.vmap`` of the loss and of
+    ``torch.func.grad`` of its finite sum, bit for bit the unmapped call's
+    loss and ``.backward()``'s d_logits, each kernel launched once for the
+    folded batch (with rows 2-5 flushed at 1e2 also the log-space pair);
+    ``torch.func.grad`` on the whole batch, bit for bit ``.backward()``'s,
+    and at V=128 with ``fused_epilogue`` through B12; ``jacrev(grad)`` at
+    ``HESS_B, HESS_T, HESS_V`` at the logits and log-probability levels,
+    the same fused and unfused and ``HESS_ATOL`` from the float64 pure
+    path's double backward; ``jacrev`` three times raising.  Each a path of
+    its own (launch counts set to 0 just before, read just after).  Then the
+    ``vmap(grad)`` step's and the plain step's host-clock times.  Returns the
+    launches."""
+    from collections import Counter
+
+    import tf_seq2seq_losses_tpu_torch as ctc
+    from torch.func import grad, jacrev, vmap
+
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+
+    t_phase = time.perf_counter()
+    launches = Counter()
+
+    def path(topology, fn):
+        reset_launches()
+        out = fn()
+        sync()
+        got = {k: n for k, n in read_launches(topology).items() if n}
+        launches.update(got)
+        return out, got
+
+    def grouped(*tensors):
+        return [t.unflatten(0, (FUNC_GROUPS, -1)) for t in tensors]
+
+    inputs = make_inputs(torch, seed, dev)
+    labels = inputs[0]
+    sat = saturate(torch, *inputs, rows=tuple((r, 1e2) for r in range(2, 6)))
+    v_inputs = make_inputs(torch, seed, dev, vocab=SLICE_VOCAB)
+    h_inputs = make_inputs(torch, seed, dev, batch=HESS_B, max_t=HESS_T, vocab=HESS_V,
+                           label_width=3, infeasible=False)
+    for name in ("classic", "simplified"):
+        loss_fn = loss_function(name)
+        fwd_final, fwd_resid = f"{name}_fwd[final]", f"{name}_fwd[resid]"
+        bwd = f"{name}_bwd_streamed"
+        repair = {f"{name}_log_fwd[final]": 1, f"{name}_log_fwd[resid]": 1,
+                  f"{name}_log_bwd": 1}
+
+        def finite_sum(x, la, a, b):
+            loss = loss_fn(la, x, a, b, 0)
+            return (torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum(),
+                    loss)
+
+        one_grad = grad(finite_sum, has_aux=True)
+        v_loss = vmap(lambda x, la, a, b: loss_fn(la, x, a, b, 0))
+        v_grad = vmap(one_grad)
+        report = {}
+
+        # ---- vmap at the headline, clean and with rows 2-5 flushed ----------
+        for tag, (x, ll_, gl_) in (("clean", inputs[1:]), ("rows 2-5 flushed", sat)):
+            step = make_step(torch, loss_fn, labels)
+            ref_loss, ref_d = step(x, ll_, gl_)
+            with torch.no_grad():
+                ref_eval = loss_fn(labels, x, ll_, gl_, 0)
+            g_args = grouped(x, labels, ll_, gl_)
+            loss, got = path(name, lambda: v_loss(*g_args))
+            want = {fwd_final: 1, **({f"{name}_log_fwd[final]": 1} if tag != "clean"
+                                     else {})}
+            check(got == want, f"phase 11 {name} vmap(loss) {tag}: launches {got}")
+            check(torch.equal(loss.flatten(), ref_eval),
+                  f"phase 11 {name} vmap(loss) {tag}: the unmapped call's loss")
+            (d, aux), got = path(name, lambda: v_grad(*g_args))
+            want = {fwd_resid: 1, bwd: 1, **(repair if tag != "clean" else {})}
+            check(got == want, f"phase 11 {name} vmap(grad) {tag}: launches {got}")
+            check(torch.equal(aux.flatten(), ref_loss) and torch.equal(d.flatten(0, 1), ref_d),
+                  f"phase 11 {name} vmap(grad) {tag}: the unmapped step's loss and "
+                  "d_logits bit for bit")
+            report[f"vmap {tag}"] = got
+
+        # ---- grad on the whole batch, unfused and fused at V=128 ------------
+        x, ll_, gl_ = inputs[1:]
+        ref_loss, ref_d = make_step(torch, loss_fn, labels)(x, ll_, gl_)
+        (d, aux), got = path(name, lambda: one_grad(x, labels, ll_, gl_))
+        check(got == {fwd_resid: 1, bwd: 1}, f"phase 11 {name} grad: launches {got}")
+        check(torch.equal(aux, ref_loss) and torch.equal(d, ref_d),
+              f"phase 11 {name} grad: .backward()'s loss and d_logits bit for bit")
+        report["grad"] = got
+        with config_override(fused_epilogue=True):
+            v_labels, v_x, v_ll, v_gl = v_inputs
+            ref_loss, ref_d = make_step(torch, loss_fn, v_labels)(v_x, v_ll, v_gl)
+            (d, aux), got = path(name, lambda: one_grad(v_x, v_labels, v_ll, v_gl))
+        check(got == {fwd_resid: 1, bwd: 1, "fused_dlogits": 1},
+              f"phase 11 {name} grad fused at V={SLICE_VOCAB}: launches {got}")
+        check(torch.equal(aux, ref_loss) and torch.equal(d, ref_d),
+              f"phase 11 {name} grad fused at V={SLICE_VOCAB}: .backward()'s loss and "
+              "d_logits bit for bit")
+        report[f"grad fused V={SLICE_VOCAB}"] = got
+
+        # ---- the Hessian, both levels, fused and unfused ---------------------
+        h_labels, h_logits, h_ll, h_gl = h_inputs
+        h_lp = torch.log_softmax(h_logits, 2)
+        errs, hess_ms = {}, {}
+        for level, fn, hx in (("logits", loss_fn, h_logits),
+                              ("logproba", lambda *a: ctc.ctc_loss_from_logproba(
+                                  *a, topology=name), h_lp)):
+            def total(x_, _fn=fn):
+                loss = _fn(h_labels, x_, h_ll, h_gl, 0)
+                return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+
+            hess_ms[level] = host_ms(torch, lambda: jacrev(grad(total))(hx),
+                                     runs=HESS_RUNS)
+            hess = {}
+            for fused in (False, True):
+                with config_override(fused_epilogue=fused):
+                    hess[fused], got = path(name, lambda: jacrev(grad(total))(hx))
+                check(got.get(fwd_resid) == 1, f"phase 11 {name} {level} Hessian "
+                      f"(fused {fused}): launches {got}")
+                report[f"hessian {level} fused={fused}"] = got
+            check(torch.equal(hess[False], hess[True]),
+                  f"phase 11 {name} {level} Hessian: the same fused and unfused")
+            h64 = pure_float64_hessian(h_labels, hx, h_ll, h_gl, name, level)
+            agree(hess[True].cpu(), h64, 0.0, HESS_ATOL,
+                  f"phase 11 {name} {level} Hessian vs the float64 pure path's double "
+                  "backward")
+            errs[level] = max_err(hess[True].cpu(), h64)
+            try:
+                jacrev(jacrev(grad(total)))(hx)
+            except NotImplementedError:
+                pass
+            else:
+                check(False, f"phase 11 {name} {level}: jacrev three times did not raise")
+
+        # ---- times -----------------------------------------------------------
+        step = make_step(torch, loss_fn, labels)
+        g_args = grouped(inputs[1], labels, *inputs[2:])
+        fns = {"plain_step": lambda: step(*inputs[1:]),
+               "grad_step": lambda: one_grad(inputs[1], labels, *inputs[2:]),
+               "vmap_grad_step": lambda: v_grad(*g_args)}
+        ms = {k: host_ms(torch, fn) for k, fn in fns.items()}
+        profiles = {k: profile_step(torch, dev, ms[k], fn) for k, fn in fns.items()}
+        log(f"phase 11 {name}: ok, vmap over {FUNC_GROUPS} groups of "
+            f"{len(labels) // FUNC_GROUPS} rows and grad bit for bit the unmapped "
+            f"call and .backward(); launches {json.dumps(report)}; Hessian at B={HESS_B}, "
+            f"T={HESS_T}, V={HESS_V} the same fused and unfused, max abs err vs the "
+            f"float64 pure path's double backward {json.dumps(errs)}; jacrev three "
+            f"times raises; timing ({card}; host clock, median of {RUNS}) "
+            + json.dumps(ms) + f"; jacrev(grad) (median of {HESS_RUNS}) "
+            + json.dumps(hess_ms) + "; profiles " + json.dumps(profiles))
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -2768,6 +2970,7 @@ def run(seed: int, dev) -> dict:
 
     with torch.no_grad():
         lib_fwd_ms = time_ms(torch, library_fwd, runs=RUNS, burst=1)
+    lib_bwd_ms = library_bwd_ms(torch, lib_lp, lib_targets, logit_length, label_length)
     fwd, bwd, logf, logb = (kargs[k] for k in ("fwd", "bwd", "log_fwd", "log_bwd"))
     sfwd, sbwd, slogf, slogb = (sargs[k] for k in ("fwd", "bwd", "log_fwd", "log_bwd"))
     rff, rfb = rfargs["classic"]["fwd"], rfargs["classic"]["bwd"]
@@ -2799,11 +3002,11 @@ def run(seed: int, dev) -> dict:
         "classic_fwd[resid]": (
             lambda: cl.classic_fwd(*fwd, "resid"),
             lambda: cl.classic_fwd_plain(*fwd, "resid"),
-            "csrc/classic_fwd.cu", f"{pl}:579", None),
+            "csrc/classic_fwd.cu", f"{pl}:579", lib_fwd_ms),
         "classic_bwd_streamed": (
             lambda: cl.classic_bwd_streamed(*bwd),
             lambda: cl.classic_bwd_streamed_plain(*bwd),
-            "csrc/classic_bwd.cu", f"{pl}:1123", None),
+            "csrc/classic_bwd.cu", f"{pl}:1123", lib_bwd_ms),
         "classic_log_fwd[final]": (
             lambda: ll.classic_log_fwd(*logf, "final"),
             lambda: ll.classic_log_fwd_plain(*logf, "final"),
@@ -2811,27 +3014,27 @@ def run(seed: int, dev) -> dict:
         "classic_log_fwd[resid]": (
             lambda: ll.classic_log_fwd(*logf, "resid"),
             lambda: ll.classic_log_fwd_plain(*logf, "resid"),
-            "csrc/classic_log.cu", f"{lg}:152", None),
+            "csrc/classic_log.cu", f"{lg}:152", lib_fwd_ms),
         "classic_log_bwd": (
             lambda: ll.classic_log_bwd(*logb),
             lambda: ll.classic_log_bwd_plain(*logb),
-            "csrc/classic_log.cu", f"{lg}:267", None),
+            "csrc/classic_log.cu", f"{lg}:267", lib_bwd_ms),
         "classic_fwd[bound]": (
             lambda: cl.classic_fwd(*rff, "bound"),
             lambda: cl.classic_fwd_plain(*rff, "bound"),
-            "csrc/classic_fwd.cu", f"{pl}:579", None),
+            "csrc/classic_fwd.cu", f"{pl}:579", lib_fwd_ms),
         "classic_bwd": (
             lambda: cl.classic_bwd(*rfb),
             lambda: cl.classic_bwd_plain(*rfb),
-            "csrc/classic_bwd_rf.cu", f"{pl}:945", None),
+            "csrc/classic_bwd_rf.cu", f"{pl}:945", lib_bwd_ms),
         "classic_fwd[resid1]": (
             lambda: cl.classic_fwd(*fwd, "resid1"),
             lambda: cl.classic_fwd_plain(*fwd, "resid1"),
-            "csrc/classic_fwd.cu", f"{pl}:579", None),
+            "csrc/classic_fwd.cu", f"{pl}:579", lib_fwd_ms),
         "classic_bwd_half": (
             lambda: cl.classic_bwd_half(*hbwd),
             lambda: cl.classic_bwd_half_plain(*hbwd),
-            "csrc/classic_bwd_half.cu", f"{pl}:1273", None),
+            "csrc/classic_bwd_half.cu", f"{pl}:1273", lib_bwd_ms),
         # no one PyTorch call computes d_logits from the acts; the unfused
         # epilogue's device time is printed beside the kernels line
         "fused_dlogits": (
@@ -2926,11 +3129,12 @@ def run(seed: int, dev) -> dict:
                    **time_scans.simplified_log_cases(torch, round_ctx)}
     round_ms = {name: time_ms(torch, case[0]) for name, case in round_cases.items()}
     steps_ms["library_ctc_loss_fwd"] = lib_fwd_ms
+    steps_ms["library_ctc_loss_bwd"] = lib_bwd_ms
     for name, (step, args) in slice_paths["steps"].items():
         steps_ms[name] = host_ms(torch, lambda: step(*args))
     steps_ms[f"unfused_epilogue_v{SLICE_VOCAB}_device"] = unfused_ms
-    log(f"phase 6 timing (ms, host clock, median of {RUNS}; F.ctc_loss forward by "
-        f"CUDA events, median of {RUNS} calls; the unfused epilogue at V={SLICE_VOCAB} "
+    log(f"phase 6 timing (ms, host clock, median of {RUNS}; F.ctc_loss forward, and "
+        f"its backward alone, by CUDA events, median of {RUNS} calls; the unfused epilogue at V={SLICE_VOCAB} "
         f"(act scatter, assembly, compose) by CUDA events as the kernels; "
         + card + "): " + json.dumps(steps_ms))
     log(f"phase 6 repair round of rows 2-5 flushed at their full lengths "
@@ -3000,6 +3204,22 @@ def run(seed: int, dev) -> dict:
         # tools/time_scans.py's time of it on this chunk
         b_ms, b_by = bound(*chunk_bounds[f"{name}_fwd[resid]"])
         long_kernels[f"{name}_fwd[resid]"] = {"bound_ms": b_ms, "bound_by": b_by}
+        if name == "classic":
+            # F.ctc_loss on one chunk's frames (0 to chunk_t) at the long-T
+            # labels: the lattice of a chunk (the labels are infeasible in
+            # so few frames; the values are not used)
+            c_lp = logit_to_logproba(l_logits[:, :chunk_t], 2).transpose(0, 1).contiguous()
+            c_len = torch.full_like(l_gl, chunk_t)
+            with torch.no_grad():
+                lib_fwd = time_ms(torch, lambda: torch.nn.functional.ctc_loss(
+                    c_lp, l_labels.long(), c_len.long(), l_ll.long(), blank=0,
+                    reduction="none"), runs=LONG_RUNS, burst=1)
+            lib_bwd = library_bwd_ms(torch, c_lp, l_labels.long(), c_len, l_ll,
+                                     runs=LONG_RUNS)
+            for kname in ("classic_fwd[final]", "classic_fwd[bound]", "classic_fwd[resid]"):
+                long_kernels[kname]["library_ms"] = lib_fwd
+            long_kernels["classic_bwd"]["library_ms"] = lib_bwd
+            del c_lp
         del l_ctx, ops, args0, args1, carry, bounds1
     lib_lp_long = logit_to_logproba(l_logits, 2).transpose(0, 1).contiguous()
 
@@ -3041,6 +3261,9 @@ def run(seed: int, dev) -> dict:
     for entry in kernels:
         if entry["name"] in ladder["errs"]:
             entry["max_abs_err"] = max(entry["max_abs_err"], ladder["errs"][entry["name"]])
+
+    # ---- 11. the loss under torch.func -----------------------------------------
+    launches.update(drive_func(torch, dev, seed, sync, card)["launches"])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
@@ -3151,6 +3374,18 @@ def fused_bound(lens, label_length, num_t, vocab) -> tuple:
     nbytes = 4 * (cells + rows * vocab + 2 * float(label_length.sum()) + 4 * batch
                   + batch * num_t * vocab)
     return nbytes, cells + 6 * rows * vocab
+
+
+def library_bwd_ms(torch, lp, targets, logit_length, label_length, runs=RUNS) -> float:
+    """Device time of ``F.ctc_loss``'s backward alone (``lp`` [T, B, V]):
+    ``torch.autograd.grad`` on a retained graph of the summed loss, CUDA
+    events around single calls, median of ``runs``."""
+    x = lp.detach().requires_grad_(True)
+    total = torch.nn.functional.ctc_loss(
+        x, targets, logit_length.long(), label_length.long(), blank=0,
+        reduction="none", zero_infinity=True).sum()
+    return time_ms(torch, lambda: torch.autograd.grad(total, x, retain_graph=True),
+                   runs=runs, burst=1)
 
 
 def profile_step(torch, dev, step_ms, step, steps=5) -> dict:

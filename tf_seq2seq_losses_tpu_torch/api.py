@@ -33,6 +33,8 @@ from tf_seq2seq_losses_tpu_torch.ops.autodiff import (
     Hessian,
     Loss,
     LossFromLogits,
+    PackHolder,
+    training,
 )
 from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES, Topology
 
@@ -55,8 +57,9 @@ def ctc_loss_from_logproba(
     derivative is the analytic gradient, the second the analytic Hessian,
     a third raises."""
     topo = _check_topology(topology)
-    return Loss.apply(_core.values_tensor(logprobas), labels, label_length,
-                      logit_length, blank_index, topo)
+    logprobas = _core.values_tensor(logprobas)
+    return Loss.apply(logprobas, labels, label_length, logit_length, blank_index, topo,
+                      training(logprobas), PackHolder())
 
 
 def ctc_loss(
@@ -71,8 +74,9 @@ def ctc_loss(
         raise ValueError(
             f"logits must be rank 3 [batch, time, vocab], got shape {tuple(logits.shape)}"
         )
-    return LossFromLogits.apply(logits.to(torch.float32), labels, label_length,
-                                logit_length, blank_index, topo)
+    logits = logits.to(torch.float32)
+    return LossFromLogits.apply(logits, labels, label_length, logit_length, blank_index,
+                                topo, training(logits), PackHolder())
 
 
 def classic_ctc_loss(

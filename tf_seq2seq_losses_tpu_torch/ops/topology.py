@@ -252,14 +252,21 @@ def _unwrap_pack(pack):
     return pack, None
 
 
-def compose_dlogits(ctx: CtcContext, grad, loss, d_loss):
-    """``d_loss * (grad + softmax * valid)``, ``valid = (t < logit_length) &
-    isfinite(loss)``: the analytic log-softmax cotangent."""
-    num_t = ctx.logproba.shape[1]
+def valid_softmax(logproba, logit_length, loss):
+    """``softmax * valid``, ``valid = (t < logit_length) & isfinite(loss)``:
+    the softmax term of the analytic log-softmax cotangent."""
+    num_t = logproba.shape[1]
     mask = (
-        torch.arange(num_t, device=grad.device)[None, :] < ctx.logit_length[:, None]
+        torch.arange(num_t, device=logproba.device)[None, :] < logit_length[:, None]
     ) & torch.isfinite(loss)[:, None]
-    return d_loss[:, None, None] * (grad + torch.exp(ctx.logproba) * mask[:, :, None])
+    return torch.exp(logproba) * mask[:, :, None]
+
+
+def compose_dlogits(ctx: CtcContext, grad, loss, d_loss):
+    """``d_loss * (grad + softmax * valid)``: the analytic log-softmax
+    cotangent (:func:`valid_softmax`)."""
+    return d_loss[:, None, None] * (
+        grad + valid_softmax(ctx.logproba, ctx.logit_length, loss))
 
 
 class Topology:
