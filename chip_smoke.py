@@ -135,7 +135,9 @@ then simplified):
 9. the flagship encoder at full width (F=80, H=512, V=128, 4 layers;
    ``drive_encoder``) on B=256 utterances of 1000 frames (T=500 logit
    frames, ``make_inputs(vocab=128)``'s labels and lengths, features
-   N(0, 1) from ``--seed``), trained by ``parallel.make_train_step`` on a
+   N(0, 1) from ``--seed``), trained by the eager body of
+   ``parallel.make_train_step`` (``train_step_eager``, Adam as before;
+   phase 12 runs the graphed step) on a
    1 x 1 ``('data', 'model')`` mesh over a one-rank NCCL group (``file://``
    rendezvous; no fallback to gloo or the CPU): 5 classic Adam steps, each
    launching B2 and B3 once, every loss finite, step 1's masked mean rtol
@@ -198,15 +200,43 @@ then simplified):
    backward of the pure path in float64 (PyTorch's autograd through the
    recursions); ``jacrev`` three times raising ``NotImplementedError``;
    then the plain, ``grad`` and ``vmap(grad)`` steps on the host clock
-   (median of 20).
+   (median of 20);
+12. the jitted paths, the counterparts of the JAX package's ``jax.jit``
+   as CUDA graphs (``drive_jit``): for each topology the loss and
+   ``torch.autograd.grad`` to d_logits at the headline captured in one
+   graph (the guard's device form: 8 IF-node rounds of 32 rows in each
+   guard), replayed on phase 10's batches (n in ``LADDER_N``), each replay
+   bit for bit the eager step (a row that is not must be a flushed row
+   within 2e-4 of float64), each replay's log-space launches counted on
+   the device (``DeviceTally``: one round of B4 final, B4 resid and B5, or
+   B8 final, B8 resid and B9, in each guard per 32 flushed rows), no
+   log-space kernel in the n=0 replay's profile and the backward's two
+   rounds (B4 resid and B5, or B8 resid and B9, twice each; the forward's
+   final mode once or twice: one profile in the whole smoke has shown one
+   of its two, where the device count of that replay shows two) in the
+   n=40 replay's, the profiled replays' outputs too bit for bit, and the
+   eager and graphed steps'
+   host ms (median of 20), device ms and idle share (one profile); on one
+   NCCL rank ``make_train_step`` on the encoder at phase 9's full width,
+   ``JIT_RUNS`` graphed steps against the eager body from the same
+   parameters (step 1's loss bit for bit, the others rtol 1e-5, the last
+   gradients within ``ENC_GRAD_SHARE``), both steps' times, idle shares
+   and peak memory, and the graphed ``sharded_mean_ctc_loss`` bit for bit
+   its eager function (loss and d_logits, clean and with 40 rows flushed,
+   each call's still so after the next call, two forwards before one
+   backward, and a ``no_grad`` call);
+   then the clean long-T classic step (B=256, T=4000) under capture, which
+   raises ``ValueError`` (a chunked time axis), and the capture of one of
+   its repair rounds through the float64 pure path: seconds and nodes.
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
 phase 7, each posteriors call of phase 8, each step and call of phase 9,
-each step, call and pair of them of phase 10, each call of phase 11) and
-read after it: a kernel that its path never launched fails the run,
-and the ``kernels`` line gives each kernel's launches summed over the
-paths.  The last lines are the ``kernels`` JSON, the card's name and power
+each step, call and pair of them of phase 10, each call of phase 11, each
+capture of phase 12) and read after it: a kernel that its path never
+launched fails the run, and the ``kernels`` line gives each kernel's
+launches summed over the paths.  A graph's replays launch nothing on the
+host: its kernels count once, at the capture.  The last lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.  Any failed check exits
 non-zero.
 """
@@ -1983,7 +2013,7 @@ def param_grads(model) -> dict:
 
 def drive_encoder(torch, dev, seed, sync, card) -> dict:
     """Phase 9: the flagship encoder (F=80, H=512, V=128, 4 layers) trained
-    by ``parallel.make_train_step`` on a 1 x 1 ``('data', 'model')`` mesh
+    by the eager body of ``parallel.make_train_step`` on a 1 x 1 ``('data', 'model')`` mesh
     over a one-rank NCCL group (a ``file://`` rendezvous).  Classic Adam
     steps (B2 and B3 once each a step, step 1's masked mean against the
     float64 pure path and its logits against the CPU), a fused and an
@@ -2004,6 +2034,7 @@ def drive_encoder(torch, dev, seed, sync, card) -> dict:
         init_distributed,
         make_mesh,
         make_train_step,
+        train_step_eager,
     )
     from tf_seq2seq_losses_tpu_torch.tools import train_ctc_asr
     from tf_seq2seq_losses_tpu_torch.utils import roofline
@@ -2040,8 +2071,14 @@ def drive_encoder(torch, dev, seed, sync, card) -> dict:
         logit_length = enc.subsampled_length(batch["feature_length"])
         labels, label_length = batch["labels"], batch["label_length"]
 
-        # ---- 2. classic Adam steps ----
-        init_state, shard, train_step = make_train_step(mesh, topology="classic")
+        # ---- 2. classic Adam steps: the eager body (phase 12 runs the graph) ----
+        eager_adam = lambda p: torch.optim.Adam(p, lr=1e-3)  # noqa: E731
+        init_state, shard, _ = make_train_step(mesh, topology="classic",
+                                               optimizer=eager_adam)
+
+        def train_step(state, batch, topology="classic"):
+            return train_step_eager(state, batch, topology, 0, mesh.group("data"))
+
         state = init_state(params)
         cpu_model = enc.Encoder(ENC_FEATURES, ENC_HIDDEN, ENC_VOCAB, ENC_LAYERS,
                                 device="cpu")
@@ -2104,11 +2141,10 @@ def drive_encoder(torch, dev, seed, sync, card) -> dict:
             f"largest entry {shares[worst]:.3g} ({worst})")
 
         # ---- 4. simplified steps ----
-        s_init, _, s_step = make_train_step(mesh, topology="simplified")
-        s_state = s_init(params)
+        s_state = init_state(params)
         s_losses = []
         for i in range(ENC_SIMPLIFIED_STEPS):
-            (_, loss), got = launched(lambda: s_step(s_state, local))
+            (_, loss), got = launched(lambda: train_step(s_state, local, "simplified"))
             s_losses.append(float(loss))
             check(got.get("simplified_fwd[resid]") == 1
                   and got.get("simplified_bwd_streamed") == 1,
@@ -2252,7 +2288,9 @@ class LogRows:
             def spy(*args, _run=run, _name=name):
                 key = _name if _name.endswith("bwd") else f"{_name}[{args[-1]}]"
                 self.rows.append((key, int(args[0].shape[0])))
-                return _run(*args)
+                out = _run(*args)
+                self.launched(key)
+                return out
 
             spy.launches = real.launches
             if hasattr(real, "mode_launches"):
@@ -2260,6 +2298,9 @@ class LogRows:
             self.spies[name] = (real, spy)
             setattr(ll, name, spy)
         return self.rows
+
+    def launched(self, key) -> None:
+        """Called by a spy after its kernel or plain version ran."""
 
     def __exit__(self, *exc):
         from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
@@ -2767,6 +2808,459 @@ def drive_func(torch, dev, seed, sync, card) -> dict:
     return dict(launches=launches)
 
 
+# ---- phase 12: the jitted paths (CUDA graphs) ---------------------------------
+
+JIT_PROFILED_N = (0, 40)  # the replays whose kernels are listed
+JIT_RUNS = 5  # the encoder's graphed and eager steps
+LOG_KERNELS = {"classic": ("classic_log_fwd", "classic_log_bwd"),
+               "simplified": ("simplified_log_fwd", "simplified_log_bwd")}
+
+
+def capture(torch, fn, keep=False):
+    """``(graph, fn's outputs)``: ``fn`` captured as a CUDA graph after one
+    warm-up call on a side stream (kernels built, workspaces made)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep)
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def kernel_counts(torch, fn):
+    """The device kernels that one call of ``fn`` runs, by name, with their
+    counts (torch.profiler)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def log_kernel_counts(counts, topology) -> dict:
+    """The log-space kernels of ``topology`` among ``counts``
+    (:func:`kernel_counts`), the forward split by its template's mode."""
+    fwd, bwd = LOG_KERNELS[topology]
+    out = {}
+    for key, n in counts.items():
+        if fwd in key:
+            mode = "resid" if "<true" in key else "final" if "<false" in key else key
+            out[f"{fwd}[{mode}]"] = out.get(f"{fwd}[{mode}]", 0) + n
+        elif bwd in key:
+            out[bwd] = out.get(bwd, 0) + n
+    return out
+
+
+class DeviceTally(LogRows):
+    """:class:`LogRows` whose spies also add one on the device to a counter
+    of their kernel and mode after each launch: in a graph captured while
+    entered, the adds sit in the IF nodes' bodies beside the kernels, so
+    the counters (:meth:`read`, :meth:`zero`) count the launches that the
+    replays ran, a witness independent of the profiler."""
+
+    KEYS = tuple(f"{t}_log_{m}" for t in ("classic", "simplified")
+                 for m in ("fwd[final]", "fwd[resid]", "bwd"))
+
+    def __init__(self, torch, dev):
+        super().__init__()
+        self.counts = torch.zeros(len(self.KEYS), dtype=torch.int64, device=dev)
+
+    def __enter__(self):
+        super().__enter__()
+        return self
+
+    def launched(self, key) -> None:
+        self.counts[self.KEYS.index(key)].add_(1)
+
+    def zero(self) -> None:
+        self.counts.zero_()
+
+    def read(self) -> dict:
+        return {k: n for k, n in zip(self.KEYS, self.counts.tolist()) if n}
+
+
+class BodyNodes:
+    """The node counts of the IF-node bodies captured while entered, summed
+    in ``nodes`` (a wrapper in ``capture.if_node``'s place)."""
+
+    def __enter__(self):
+        import contextlib
+
+        from tf_seq2seq_losses_tpu_torch.ops import capture as cap
+
+        self.cap, self.real, self.nodes = cap, cap.if_node, 0
+
+        @contextlib.contextmanager
+        def counted(pred):
+            with self.real(pred) as body:
+                yield body
+            self.nodes += body.nodes
+
+        cap.if_node = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cap.if_node = self.real
+        return False
+
+
+def graph_nodes(graph) -> int:
+    """The node count of the top level of a graph captured with
+    ``keep_graph=True`` (an IF node counts one), from ``libcuda``'s
+    ``cuGraphGetNodes``."""
+    import ctypes
+
+    nodes = ctypes.c_size_t()
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(nodes))
+    check(err == 0, f"cuGraphGetNodes: CUresult {err}")
+    return nodes.value
+
+
+def drive_jit(torch, dev, seed, sync, card) -> dict:
+    """Phase 12, the port's counterparts of the JAX package's three
+    ``jax.jit`` entry points, as CUDA graphs (the guard's "while" struct on
+    the device, each repair round an IF node): (a) for each topology the
+    loss and ``torch.autograd.grad`` to d_logits at the headline captured
+    in one graph and replayed on phase 10's batches (n in ``LADDER_N`` rows
+    flushed), each replay bit for bit the eager step (the host form), the
+    kernels of the n=0 and n=40 replays, times; (b) ``make_train_step`` on
+    the encoder at phase 9's full width, ``JIT_RUNS`` graphed steps against
+    the eager body (``train_step_eager``) from the same parameters, on one
+    NCCL rank; (c) the graphed ``sharded_mean_ctc_loss`` against its eager
+    function, loss and d_logits bit for bit, each call's held after the
+    next, two forwards before one backward, and a ``no_grad`` call; (d) the clean long-T classic
+    step under capture (the chunked geometry raises ``ValueError``) and the
+    capture of one of its repair rounds through the pure path.  The launch
+    counts of each capture are set to 0 just before it and read just
+    after (a replay counts none).  Returns the launches."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from tf_seq2seq_losses_tpu_torch.models import encoder as enc
+    from tf_seq2seq_losses_tpu_torch.ops import capture as cap
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import topology as topo_mod
+    from tf_seq2seq_losses_tpu_torch.ops.topology import (
+        TOPOLOGIES,
+        est_fallback_bytes,
+        fallback_cap,
+    )
+    from tf_seq2seq_losses_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_train_step,
+        sharded_mean_ctc_loss,
+        train_step_eager,
+    )
+    from tf_seq2seq_losses_tpu_torch.utils.config import get_config
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    t_phase = time.perf_counter()
+    launches = Counter()
+
+    def launched(topology, fn):
+        """``fn()`` and the launches it made (counts reset first), with the
+        rows of its log-space launches."""
+        reset_launches()
+        with LogRows() as rows:
+            out = fn()
+            sync()
+        got = {k: n for k, n in read_launches(topology).items() if n}
+        launches.update(got)
+        return out, got, Counter(rows)
+
+    inputs = make_inputs(torch, seed, dev)
+    labels, logits, label_length, logit_length = inputs
+    batch = len(labels)
+    cfg = get_config()
+    rb = max(min(cfg.repair_bucket2, batch), min(cfg.repair_bucket, batch))
+    rounds = -(-batch // rb)
+    batches = {n: saturate(torch, *inputs, rows=tuple((r, LADDER_SCALE)
+                                                      for r in range(2, 2 + n)))
+               for n in LADDER_N}
+    row_ids = torch.arange(batch, device=dev)
+
+    # ---- (a) the loss and its d_logits at the headline, captured ----------
+    for name in ("classic", "simplified"):
+        loss_fn = loss_function(name)
+        eager = make_step(torch, loss_fn, labels)
+        x = logits.clone().requires_grad_(True)
+        ll_s, gl_s = label_length.clone(), logit_length.clone()
+
+        def load(b, _x=x, _ll=ll_s, _gl=gl_s):
+            with torch.no_grad():
+                _x.copy_(b[0])
+            _ll.copy_(b[1])
+            _gl.copy_(b[2])
+
+        def body(_fn=loss_fn, _x=x, _ll=ll_s, _gl=gl_s):
+            loss = _fn(labels, _x, _ll, _gl, 0)
+            total = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+            return loss.detach(), torch.autograd.grad(total, _x)[0]
+
+        load(batches[0])
+        t0 = time.perf_counter()
+        with DeviceTally(torch, dev) as tally, BodyNodes() as bodies:
+            (graph, (loss_s, d_s)), got, rows = launched(
+                name, lambda: capture(torch, body, keep=True))
+        capture_s = time.perf_counter() - t0
+        nodes = graph_nodes(graph) + bodies.nodes
+        fwd_resid, bwd = f"{name}_fwd[resid]", f"{name}_bwd_streamed"
+        log_final, log_resid, log_bwd = (f"{name}_log_{m}" for m in
+                                         ("fwd[final]", "fwd[resid]", "bwd"))
+        # the warm-up's eager step, then the capture: the rounds of both guards
+        want = {fwd_resid: 2, bwd: 2, log_final: rounds, log_resid: rounds,
+                log_bwd: rounds}
+        check(got == want and set(rows) == {(k, rb) for k in (log_final, log_resid,
+                                                              log_bwd)},
+              f"phase 12 {name} capture: launches {got}, log-space rows {dict(rows)}; "
+              f"expected {want} in rounds of {rb}")
+        eager_out = {n: eager(*batches[n]) for n in LADDER_N}
+
+        def held(n, what):
+            """The replay's loss and d_logits against the eager step's on
+            batch ``n``: bit for bit, or a flushed row within 2e-4 of
+            float64; the count of rows that differ."""
+            ref_loss, ref_d = eager_out[n]
+            diff = (ref_loss != loss_s) | (ref_d != d_s).flatten(1).any(dim=1)
+            diff &= ~(torch.isnan(ref_loss) & torch.isnan(loss_s))
+            if bool(diff.any()):
+                sat = (row_ids >= 2) & (row_ids < 2 + n)
+                check(bool((diff <= sat).all()),
+                      f"phase 12 {name} n={n} {what}: clean rows "
+                      f"{row_ids[diff & ~sat].tolist()} differ from the eager step")
+                l64, d64 = pure_float64(labels, *batches[n], name)
+                agree(loss_s[diff], l64[diff], 0.0, FLUSHED_ATOL,
+                      f"phase 12 {name} n={n} {what}: differing rows' loss vs float64")
+                agree(d_s[diff], d64[diff], 0.0, FLUSHED_ATOL,
+                      f"phase 12 {name} n={n} {what}: differing rows' d_logits vs float64")
+            return int(diff.sum())
+
+        # each replay: its outputs and the launches of its rounds, counted on
+        # the device, one round of each kernel and mode in each guard
+        report, tallies = {}, {}
+        for n in LADDER_N:
+            load(batches[n])
+            tally.zero()
+            graph.replay()
+            sync()
+            report[f"n={n}"] = held(n, "replay")
+            tallies[f"n={n}"] = tally.read()
+            k = len(ladder_tier("while", False, n, batch)[1])
+            want_tally = {key: k for key in (log_final, log_resid, log_bwd)} if k else {}
+            check(tallies[f"n={n}"] == want_tally,
+                  f"phase 12 {name} n={n}: the replay's rounds counted on the device "
+                  f"{tallies[f'n={n}']}, expected {want_tally}")
+        replays = {n: (lambda _b=batches[n]: (load(_b), graph.replay()))
+                   for n in JIT_PROFILED_N}
+        counts = {}
+        for n, fn in replays.items():
+            tally.zero()
+            counts[n] = log_kernel_counts(kernel_counts(torch, fn), name)
+            tallies[f"profiled n={n}"] = tally.read()
+            held(n, "profiled replay")
+        n_top = JIT_PROFILED_N[-1]
+        k = -(-n_top // rb)
+        check(counts[0] == {}, f"phase 12 {name} clean replay ran {counts[0]}")
+        check(tallies[f"profiled n={n_top}"] == tallies[f"n={n_top}"],
+              f"phase 12 {name} profiled n={n_top} replay: rounds counted on the device "
+              f"{tallies[f'profiled n={n_top}']}")
+        # the backward's k rounds; the forward's k rounds of the final mode,
+        # counted exactly on the device above, of which a profile inside the
+        # whole smoke has shown one only
+        fwd_log, bwd_log = LOG_KERNELS[name]
+        got_top = counts[n_top]
+        check(got_top.get(f"{fwd_log}[resid]") == k and got_top.get(bwd_log) == k
+              and 1 <= got_top.get(f"{fwd_log}[final]", 0) <= k
+              and set(got_top) <= {f"{fwd_log}[final]", f"{fwd_log}[resid]", bwd_log},
+              f"phase 12 {name} n={n_top} replay ran {got_top}, expected {k} rounds")
+        timing = {}
+        for n in JIT_PROFILED_N:
+            b = batches[n]
+            for tag, fn in (("eager", lambda _b=b: eager(*_b)), ("graph", replays[n])):
+                ms = host_ms(torch, fn)
+                timing[f"{tag} n={n}"] = dict(host_ms=ms, **profile_step(
+                    torch, dev, ms, fn, steps=1))
+        log(f"phase 12 {name} captured loss and d_logits (B={batch}, T={logits.shape[1]}, "
+            f"V={logits.shape[2]}, {rounds} IF-node rounds of {rb} rows in each guard): "
+            f"ok, capture {capture_s:.2f} s, {nodes} graph nodes; launches in the capture "
+            f"{json.dumps(got)}; rows that differ from the eager step's bits "
+            f"{json.dumps(report)}; log-space launches of the replays counted on the "
+            f"device {json.dumps(tallies)}; log-space kernels of the profiled replays "
+            f"{json.dumps({f'n={n}': c for n, c in counts.items()})}; timing ({card}; host "
+            f"clock median of {RUNS}, one profile each) {json.dumps(timing)}")
+        del graph, loss_s, d_s, x
+
+    # ---- (b) and (c): one NCCL rank --------------------------------------------
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    tmp = tempfile.TemporaryDirectory()
+    init_distributed(f"file://{tmp.name}/rendezvous", 1, 0, device=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        data_group = mesh.group("data")
+        e_batch = encoder_batch(torch, seed, dev)
+        params = enc.init_encoder(torch.Generator().manual_seed(seed), ENC_FEATURES,
+                                  ENC_HIDDEN, ENC_VOCAB, ENC_LAYERS, device=dev)
+        init_state, shard, graphed_step = make_train_step(mesh)
+        local = shard(e_batch)
+        g_state, e_state = init_state(params), init_state(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (_, first), got, _ = launched("classic", lambda: graphed_step(g_state, local))
+        first_s = time.perf_counter() - t0
+        graphed_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(got.get("classic_fwd[resid]") == 2 and got.get("classic_bwd_streamed") == 2,
+              f"phase 12 encoder capture (warm-up and capture) launched {got}")
+        g_losses = [first] + [graphed_step(g_state, local)[1] for _ in range(JIT_RUNS - 1)]
+        g_grads = param_grads(g_state.params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        e_losses = [train_step_eager(e_state, local, "classic", 0, data_group)[1]
+                    for _ in range(JIT_RUNS)]
+        eager_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        e_grads = param_grads(e_state.params)
+        check(torch.equal(g_losses[0], e_losses[0]),
+              f"phase 12 encoder step 1: graphed {float(g_losses[0])} vs eager "
+              f"{float(e_losses[0])}")
+        rel = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(g_losses, e_losses)]
+        check(max(rel) <= 1e-5, f"phase 12 encoder losses graphed vs eager rel err {rel}")
+        shares = {k: max_err(g, e_grads[k]) / float(e_grads[k].abs().max())
+                  for k, g in g_grads.items()}
+        worst = max(shares, key=shares.get)
+        check(shares[worst] <= ENC_GRAD_SHARE,
+              f"phase 12 encoder step {JIT_RUNS} gradient of {worst}: {shares[worst]:.3g} "
+              "of its largest entry from the eager step's")
+        steps = {"graphed": lambda: graphed_step(g_state, local),
+                 "eager": lambda: train_step_eager(e_state, local, "classic", 0,
+                                                   data_group)}
+        timing = {}
+        for tag, fn in steps.items():
+            ms = host_ms(torch, fn, runs=JIT_RUNS)
+            timing[tag] = dict(host_ms=ms, **profile_step(torch, dev, ms, fn, steps=1))
+        log(f"phase 12 encoder make_train_step (B={batch}, T={MAX_T}, V={ENC_VOCAB}, "
+            f"H={ENC_HIDDEN}, {ENC_LAYERS} layers, one NCCL rank): ok, first call "
+            f"(warm-up, capture, replay) {first_s:.2f} s, launches {json.dumps(got)}; "
+            f"losses graphed {[float(v) for v in g_losses]}, eager "
+            f"{[float(v) for v in e_losses]} (step 1 bit for bit, rel err {rel}); "
+            f"step {JIT_RUNS} gradients' largest share of a tensor's largest entry "
+            f"{shares[worst]:.3g} ({worst}); peak device memory GB graphed {graphed_peak:.3f}"
+            f" (its graph pool included), eager {eager_peak:.3f}; timing ({card}; host "
+            f"clock median of {JIT_RUNS}, one profile each) {json.dumps(timing)}")
+        del g_state, e_state, params, local, e_batch
+
+        # ---- (c) the graphed sharded_mean_ctc_loss, on feasible rows ----
+        mean_fn = sharded_mean_ctc_loss(mesh)
+        f_inputs = make_inputs(torch, seed, dev, infeasible=False)
+        c_batches = {n: saturate(torch, *f_inputs, rows=tuple((r, LADDER_SCALE)
+                                                              for r in range(2, 2 + n)))
+                     for n in (0, JIT_PROFILED_N[-1])}
+
+        def mean_and_grad(fn, ns):
+            """``fn``'s mean on each batch of ``ns`` and, by one backward of
+            their sum, each one's d_logits; the launches of the calls."""
+            xs = {n: c_batches[n][0].clone().requires_grad_(True) for n in ns}
+
+            def run():
+                means = {n: fn(f_inputs[0], xs[n], *c_batches[n][1:]) for n in ns}
+                sum(means.values()).backward()
+                return {n: m.detach() for n, m in means.items()}
+
+            means, got, _ = launched("classic", run)
+            return {n: (means[n], xs[n].grad) for n in ns}, got
+
+        want = {n: mean_and_grad(mean_fn.eager, (n,))[0][n] for n in c_batches}
+        report = {}
+        # a call and its backward, then another on another batch: the first
+        # call's loss and gradient are held after the second
+        kept = {}
+        for n in c_batches:
+            out, got = mean_and_grad(mean_fn, (n,))
+            kept.update(out)
+            report[f"n={n} launches"] = got
+        # two forwards, one backward (gradient accumulation), then no_grad
+        accumulated, got = mean_and_grad(mean_fn, tuple(c_batches))
+        report["accumulated launches"] = got
+        with torch.no_grad():
+            (no_grad, _), got, _ = launched("classic", lambda: (mean_fn(
+                f_inputs[0], c_batches[0][0], *c_batches[0][1:]), None))
+        report["no_grad launches"] = got
+        for n, (mean, grad) in want.items():
+            check(math.isfinite(float(mean)), f"phase 12 sharded_mean_ctc_loss n={n}: "
+                  f"mean {float(mean)}")
+            for what, (g_mean, g_grad) in (("call", kept[n]),
+                                           ("accumulated", accumulated[n])):
+                check(torch.equal(g_mean, mean) and torch.equal(g_grad, grad),
+                      f"phase 12 sharded_mean_ctc_loss n={n} {what}: graphed vs eager "
+                      "loss and d_logits bit for bit")
+            report[f"n={n}"] = float(mean)
+        check(torch.equal(no_grad, want[0][0]),
+              f"phase 12 sharded_mean_ctc_loss no_grad: {float(no_grad)} vs eager "
+              f"{float(want[0][0])}")
+        log(f"phase 12 sharded_mean_ctc_loss (make_graphed_callables, one NCCL rank): ok, "
+            f"loss and d_logits bit for bit the eager function's, each call's held after "
+            f"the next, two forwards and one backward (a second slot), and a no_grad "
+            f"call {json.dumps(report)}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+
+    # ---- (d) the clean long-T classic step ----------------------------------
+    l_labels, l_logits, l_ll, l_gl = make_inputs(torch, seed, dev, max_t=LONG_T,
+                                                 infeasible=False)
+    xl = l_logits.clone().requires_grad_(True)
+    ctc_classic = loss_function("classic")
+
+    def long_body():
+        loss = ctc_classic(l_labels, xl, l_ll, l_gl, 0)
+        total = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+        return torch.autograd.grad(total, xl)[0]
+
+    t0 = time.perf_counter()
+    try:
+        capture(torch, long_body)
+        raised = None
+    except ValueError as exc:
+        raised = str(exc)
+    raise_s = time.perf_counter() - t0
+    check(raised is not None and "chunk_time" in raised,
+          f"phase 12 long-T capture: expected the chunked geometry's ValueError, got "
+          f"{raised!r}")
+    # one of the step's repair rounds through the float64 pure path, captured
+    ctx = core.make_context(l_labels, logit_to_logproba(l_logits, 2), l_ll, l_gl, 0)
+    lp1 = ctx.label.shape[1]
+    long_rb = rb if est_fallback_bytes(rb, LONG_T, lp1, True) <= fallback_cap() else \
+        min(cfg.repair_bucket, batch)
+    idx = torch.arange(long_rb, device=dev)
+    never = torch.zeros((), dtype=torch.bool, device=dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        with cap.if_node(never) as round_body:
+            TOPOLOGIES["classic"]._pure_repair(topo_mod._take_rows(ctx, idx))
+    round_s = time.perf_counter() - t0
+    round_nodes = round_body.nodes
+    long_rounds = -(-batch // long_rb)
+    log(f"phase 12 long T (B={batch}, T={LONG_T}, {ctx.label.shape[1] - 1} labels): ok, "
+        f"the capture raised ValueError after {raise_s:.2f} s: {raised}; one repair "
+        f"round of {long_rb} rows (loss and gradient through the float64 pure path) "
+        f"captured in {round_s:.1f} s, {round_nodes} nodes; the step's two guards hold "
+        f"{long_rounds} rounds each")
+    del graph, ctx, xl, l_logits
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -3264,6 +3758,9 @@ def run(seed: int, dev) -> dict:
 
     # ---- 11. the loss under torch.func -----------------------------------------
     launches.update(drive_func(torch, dev, seed, sync, card)["launches"])
+
+    # ---- 12. the jitted paths: CUDA graphs ----------------------------------------
+    launches.update(drive_jit(torch, dev, seed, sync, card)["launches"])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

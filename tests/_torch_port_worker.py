@@ -13,6 +13,7 @@ import datetime
 import sys
 
 import torch
+import torch.distributed as dist
 
 from tf_seq2seq_losses_tpu_torch.models import encoder as enc
 from tf_seq2seq_losses_tpu_torch.parallel import (
@@ -22,6 +23,7 @@ from tf_seq2seq_losses_tpu_torch.parallel import (
     shard_batch,
     sharded_ctc_loss,
     sharded_mean_ctc_loss,
+    sharding,
 )
 
 CPU = torch.device("cpu")
@@ -57,6 +59,40 @@ def data_parallel(spec, world):
             **_train(spec, mesh, None)}
 
 
+def func(spec, world):
+    """The sharded losses and collectives under ``torch.func`` on a
+    ('data',) mesh: ``grad_and_value`` of ``sharded_mean_ctc_loss``;
+    ``vmap`` of ``sharded_ctc_loss``, of ``sharded_mean_ctc_loss`` and of
+    its ``grad`` over the groups of ``spec["groups"]``, and the same calls
+    group by group; ``vmap`` of ``gather_last_dim`` (mapped at dims 0 and
+    1) and of ``grad`` through ``copy_to``, and their loops."""
+    mesh = make_mesh((world,), ("data",), device=CPU)
+    group = mesh.group("data")
+    args = shard_batch(mesh, spec["loss_inputs"])
+    mean_fn = sharded_mean_ctc_loss(mesh)
+    rows_fn = sharded_ctc_loss(mesh)
+    d_logits, mean = torch.func.grad_and_value(mean_fn, argnums=1)(*args)
+    groups = [shard_batch(mesh, g) for g in spec["groups"]]
+    stacked = [torch.stack([g[i] for g in groups]) for i in range(4)]
+    grad_fn = torch.func.grad(mean_fn, argnums=1)
+    out = {"mean": mean, "d_logits": d_logits}
+    for name, fn in (("rows", rows_fn), ("means", mean_fn), ("grads", grad_fn)):
+        out[name] = torch.func.vmap(fn)(*stacked)
+        out[name + "_loop"] = torch.stack([fn(*g) for g in groups])
+    x = torch.randn(len(groups), 3, 4, generator=torch.Generator().manual_seed(
+        dist.get_rank()))
+    gather = lambda v: sharding.gather_last_dim(v, group)  # noqa: E731
+    out["gathered"] = torch.func.vmap(gather)(x)
+    out["gathered_dim1"] = torch.func.vmap(gather, in_dims=1)(x.transpose(0, 1))
+    out["gathered_loop"] = torch.stack([gather(v) for v in x])
+    weight = torch.linspace(-1.0, 1.0, 4)
+    copy_grad = torch.func.grad(
+        lambda v: (sharding.copy_to(v, group) * weight).sum())
+    out["copy_grads"] = torch.func.vmap(copy_grad)(x)
+    out["copy_grads_loop"] = torch.stack([copy_grad(v) for v in x])
+    return out
+
+
 def dp_tp(spec, world):
     """``steps`` training steps on the (world/2, 2) ('data', 'model') mesh."""
     mesh = make_mesh((world // 2, 2), ("data", "model"), device=CPU)
@@ -69,7 +105,7 @@ def main():
     init_distributed(url, world, rank, device=CPU,
                      timeout=datetime.timedelta(seconds=60))
     spec = torch.load(in_path)
-    out = {"data_parallel": data_parallel, "dp_tp": dp_tp}[case](spec, world)
+    out = {"data_parallel": data_parallel, "dp_tp": dp_tp, "func": func}[case](spec, world)
     torch.save(out, f"{out_dir}/rank{rank}.pt")
     torch.distributed.destroy_process_group()
 

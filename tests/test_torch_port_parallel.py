@@ -226,6 +226,109 @@ def test_dp_step_with_an_infeasible_row_on_one_rank(data_parallel_run):
             enc.encoder_params_to_reference(got), want_params)
 
 
+@pytest.mark.parametrize("world", [1, 2])
+def test_torch_func_over_the_sharded_losses(world, tmp_path):
+    """``torch.func.grad`` of the port's ``sharded_mean_ctc_loss`` against
+    ``jax.grad`` of the JAX package's on one device (loss rtol 1e-5,
+    gradient atol 1e-4, the JAX suite's tolerances), each rank's rows of
+    it; ``vmap`` of the sharded losses, of the mean's ``grad`` and of the
+    collectives bit for bit their calls group by group."""
+    groups = tuple(tuple(torch.as_tensor(a) for a in loss_inputs(seed=seed))
+                   for seed in (1, 2, 3))
+    spec = {"loss_inputs": tuple(torch.as_tensor(a) for a in loss_inputs()),
+            "groups": groups}
+    ranks = run_ranks("func", world, spec, tmp_path)
+    labels, logits, label_length, logit_length = loss_inputs()
+    mesh = jsharding.make_mesh((1,), ("data",))
+    jlabels, jlogits, jll, jgl = jsharding.shard_batch(
+        mesh, tuple(jnp.asarray(a) for a in (labels, logits, label_length,
+                                             logit_length)))
+    mean_fn = jsharding.sharded_mean_ctc_loss(mesh)
+    want, want_grad = jax.value_and_grad(
+        lambda x: mean_fn(jlabels, x, jll, jgl))(jlogits)
+    rows = len(labels) // world
+    for rank, r in enumerate(ranks):
+        np.testing.assert_allclose(float(r["mean"]), float(want), rtol=1e-5)
+        np.testing.assert_allclose(
+            r["d_logits"].numpy(), np.asarray(want_grad)[rank * rows:(rank + 1) * rows],
+            rtol=0, atol=1e-4)
+        for name in ("rows", "means", "grads", "gathered", "copy_grads"):
+            assert torch.equal(r[name], r[name + "_loop"]), name
+        assert torch.equal(r["gathered_dim1"], r["gathered_loop"])
+        xs = [torch.randn(3, 3, 4, generator=torch.Generator().manual_seed(k))
+              for k in range(world)]
+        assert torch.equal(r["gathered"], torch.cat(xs, dim=-1))
+        assert torch.equal(r["copy_grads"],
+                           world * torch.linspace(-1.0, 1.0, 4).expand(3, 3, 4))
+
+
+def test_the_eager_body_is_the_cpu_step():
+    """On a CPU mesh ``train_step`` is ``train_step_eager``, bit for bit."""
+    batch = dp_batch()
+    _, spec = encoder_spec(jax.random.PRNGKey(3), 8, 16, 6, 2, batch)
+    mesh = parallel.make_mesh((1, 1), ("data", "model"), device=CPU)
+    results = []
+    for eager in (False, True):
+        init_state, shard, step = parallel.make_train_step(mesh)
+        model = enc.Encoder(*spec["dims"], device=CPU)
+        model.load_state_dict(spec["state"])
+        state = init_state(model)
+        local = shard(batch)
+        losses = [(ttrain.train_step_eager(state, local) if eager
+                   else step(state, local))[1] for _ in range(STEPS)]
+        results.append((torch.stack(losses), state.params.state_dict()))
+    assert torch.equal(results[0][0], results[1][0])
+    for name, value in results[0][1].items():
+        assert torch.equal(value, results[1][1][name]), name
+
+
+def test_a_graph_needs_a_capturable_optimizer():
+    """Adam with ``capturable=False`` cannot be captured: ``ValueError``;
+    with ``capturable=True``, or an optimizer without the flag, it can."""
+    params = [torch.nn.Parameter(torch.ones(3))]
+    with pytest.raises(ValueError, match="capturable"):
+        ttrain._check_capturable(torch.optim.Adam(params, capturable=False))
+    ttrain._check_capturable(torch.optim.Adam(params, capturable=True))
+    ttrain._check_capturable(torch.optim.SGD(params, lr=0.1))
+
+
+@pytest.mark.parametrize("make_opt", [
+    lambda p: torch.optim.Adam(p, lr=LR),
+    lambda p: torch.optim.SGD(p, lr=LR, momentum=0.9),
+], ids=["adam", "sgd_momentum"])
+def test_a_warm_up_step_is_undone(make_opt):
+    """``capture_step``'s warm-up is undone (``_snapshot``, ``_restore``):
+    after a step and its undoing, two steps give what two steps of a fresh
+    state give, bit for bit; so does a state that has stepped before."""
+    batch = dp_batch()
+    _, spec = encoder_spec(jax.random.PRNGKey(3), 8, 16, 6, 2, batch)
+    mesh = parallel.make_mesh((1, 1), ("data", "model"), device=CPU)
+    init_state, shard, _ = parallel.make_train_step(mesh, optimizer=make_opt)
+    local = shard(batch)
+
+    def fresh():
+        model = enc.Encoder(*spec["dims"], device=CPU)
+        model.load_state_dict(spec["state"])
+        return init_state(model)
+
+    for warm_steps in (0, 1):
+        runs = []
+        for undo in (False, True):
+            state = fresh()
+            for _ in range(warm_steps):
+                ttrain.train_step_eager(state, local)
+            if undo:
+                params = [p.detach().clone() for p in state.params.parameters()]
+                saved = ttrain._snapshot(state.opt_state)
+                ttrain.train_step_eager(state, local)
+                ttrain._restore(state.params, state.opt_state, params, saved)
+            losses = [ttrain.train_step_eager(state, local)[1] for _ in range(2)]
+            runs.append((torch.stack(losses), state.params.state_dict()))
+        assert torch.equal(runs[0][0], runs[1][0])
+        for name, value in runs[0][1].items():
+            assert torch.equal(value, runs[1][1][name]), name
+
+
 def test_dp_tp_step_on_four_ranks_matches_jax(tmp_path):
     """The 2 x 2 ('data', 'model') step of ``tests/_mp_worker4.py``: B=8,
     T=16, F=8, hidden 16, vocab 8, one layer, SGD(0.1); each data group's
@@ -264,3 +367,28 @@ def test_tp_shard_rejects_widths_that_do_not_divide():
 
 def test_dryrun_multichip_four_ranks():
     dryrun_multichip(4, timeout=RANK_TIMEOUT_S)
+
+
+
+def test_a_replay_holds_what_the_capture_fixed():
+    """A captured step fixes the parameters and the optimizer's
+    hyperparameters (``train._fixed``): a changed Python ``lr`` or a
+    replaced parameter makes the replay raise ``ValueError`` before it
+    runs; a tensor ``lr`` updated in place, and the ``initial_lr`` that a
+    scheduler adds, do not."""
+    model = enc.Encoder(8, 16, 6, 1, device=CPU)
+    lr = torch.tensor(LR)
+    opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=True)
+    state = ttrain.TrainState(model, opt)
+    captured = ttrain._Captured(None, {}, torch.zeros(()), ttrain._fixed(state))
+    lr.fill_(LR / 2)
+    torch.optim.lr_scheduler.StepLR(opt, step_size=1)
+    assert ttrain._same(ttrain._fixed(state), captured.fixed)
+    opt.param_groups[0]["lr"] = LR / 2
+    with pytest.raises(ValueError, match="hyperparameters"):
+        ttrain.replay(captured, state, {})
+    opt.param_groups[0]["lr"] = lr
+    assert ttrain._same(ttrain._fixed(state), captured.fixed)
+    model.head.w = torch.nn.Parameter(model.head.w.detach().clone())
+    with pytest.raises(ValueError, match="parameters"):
+        ttrain.replay(captured, state, {})

@@ -28,7 +28,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = (
     "classic_fwd", "classic_bwd", "classic_bwd_half", "classic_bwd_rf", "classic_log",
     "simplified_fwd", "simplified_bwd", "simplified_bwd_rf", "simplified_log",
-    "fused_epilogue",
+    "fused_epilogue", "graph_cond",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -81,6 +81,11 @@ _SIGNATURES = {
     "fused_epilogue": {
         "ctc_fused_dlogits": [_P] * 8 + [_I] * 5 + [_P] * 2,
         "ctc_fused_epilogue_smem_bytes": [_I, _I],
+    },
+    "graph_cond": {
+        "ctc_cond_load": [],
+        "ctc_cond_begin": [_P] * 3,
+        "ctc_cond_end": [_P, _P],
     },
 }
 

@@ -43,6 +43,16 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=device)
 
 
+def index_tensor(x, device) -> torch.Tensor:
+    """A 0-d int64 tensor of the index ``x`` on ``device``: a tensor moves
+    there, a Python or numpy integer becomes a device fill, with no
+    host-to-device copy (a CUDA graph may capture it)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device).to(torch.int64).reshape(())
+    return torch.full((), int(np.asarray(x).reshape(())), dtype=torch.int64,
+                      device=device)
+
+
 def values_tensor(x) -> torch.Tensor:
     """Logits or log-probabilities as a tensor.  A tensor is used on its own
     device (a CPU tensor is the caller's request for the CPU); any other
@@ -103,7 +113,7 @@ def make_context(
     labels = labels.to(torch.int64)
     label_length = label_length.to(torch.int64)
     logit_length = logit_length.to(torch.int64)
-    blank = _as_tensor(blank_index, device).to(torch.int64).reshape(())
+    blank = index_tensor(blank_index, device)
 
     _, num_t, num_tokens = logprobas.shape
     lp1 = labels.shape[1] + 1

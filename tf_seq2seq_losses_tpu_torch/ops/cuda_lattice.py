@@ -62,7 +62,11 @@ import torch
 
 from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
-from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
+from tf_seq2seq_losses_tpu_torch.ops.core import (
+    CtcContext,
+    index_tensor,
+    take_token_logprobas,
+)
 from tf_seq2seq_losses_tpu_torch.utils.config import get_config
 
 LN2 = np.float32(0.6931471805599453)
@@ -1138,7 +1142,7 @@ def fused_dlogits(acts, labels, lm, scale, d_loss, lens, logproba, blank):
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(logproba, (batch, num_t, num_tokens), f32, "logproba", dev)
     check_aligned((("acts", acts),), "fused_dlogits")
-    blank_t = torch.as_tensor(blank, device=dev).to(torch.int32).reshape(1)
+    blank_t = index_tensor(blank, dev).to(torch.int32).reshape(1)
     lib = _build.lib("fused_epilogue")
     _build.check_smem(lib.ctc_fused_epilogue_smem_bytes(lpad, num_tokens),
                       "fused_dlogits", dev)

@@ -42,16 +42,33 @@ Finding the flushed rows is a ``nonzero()``, which waits for the device:
 one host synchronisation per guarded call (and a few more per call that
 repairs rows).  ``guard_mode="pre"`` spends the training forward's one on
 the backward as well: a clean step's backward runs unguarded.
+
+The device form (:func:`_guarded_device`, the "while" struct only) reads
+no device value on the host, so that a CUDA graph can capture it: it runs
+under capture (``ops/capture.py``), the host form everywhere else, and
+:meth:`Topology._guard` is the one place that picks between them.  It follows the JAX package's ``w_cond`` and
+``w_body``: ``ceil(B / rb)`` rounds of a static slice of the flushed-first
+order, each gathered at the batch's full T, each written back only where
+its rows flushed; under capture each round is a CUDA graph IF node on
+``r * rb < n``, so a clean replay runs none of them.  Its values are the
+host form's bit for bit on the kernels, whose rows never interact, except
+on a chunked time axis: there a round at full T goes through the float64
+pure path where the host form repairs a short row with the log-space
+kernels on its own axis (within their 2e-4, and closer to float64).
+``guard_struct="cond"`` and ``repair_bucket=0`` raise ``ValueError`` in
+the device form, and so does a chunked time axis under capture (its
+rounds' pure-path loop over T would take minutes to capture).
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
+from tf_seq2seq_losses_tpu_torch.ops import capture as _capture
 from tf_seq2seq_losses_tpu_torch.ops import classic as _classic
 from tf_seq2seq_losses_tpu_torch.ops import core as _core
 from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as _kernels
@@ -170,6 +187,111 @@ def _repair(fast_value, fn, ctx, rounds, aux):
     return out
 
 
+def _on_device() -> bool:
+    """Whether the guard takes its device form: under a CUDA graph capture
+    (the tests patch it to run the device form on the CPU)."""
+    return _capture.capturing()
+
+
+def _round_plan(fits, exact, pure_fn, batch, bucket, lane_pad):
+    """``(function, rows)`` of the "while" struct's repair rounds: rounds
+    of ``max(min(repair_bucket2, B), repair_bucket)`` rows through
+    ``exact``, shrunk to ``repair_bucket`` rows, then to pure-path rounds,
+    where the cap's ``fits`` does not admit them."""
+    fn, size = exact, max(min(get_config().repair_bucket2, batch), bucket)
+    if not fits(size, lane_pad):
+        size = bucket
+        if not fits(bucket, lane_pad):
+            fn = pure_fn
+    return fn, size
+
+
+def _take_rows(ctx: CtcContext, idx: torch.Tensor) -> CtcContext:
+    """The samples ``idx`` of a context at its full time axis (the device
+    form's gather, the JAX package's ``_take_ctx``)."""
+    return CtcContext(**{name: val if name == "blank_index" else val.index_select(0, idx)
+                         for name, val in ctx._asdict().items()})
+
+
+def _round(out, fn, ctx, idx, write, aux):
+    """Rows ``idx`` of ``out`` replaced by ``fn`` of their gathered context
+    where ``write`` [len(idx)] holds (in place)."""
+    sub = _take_rows(ctx, idx)
+    mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
+    keep = write.reshape(write.shape + (1,) * (out.dim() - 1))
+    out.index_copy_(0, idx, torch.where(keep, mini.to(out.dtype), out.index_select(0, idx)))
+
+
+def _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
+                    gate=None):
+    """The device form of :func:`_guarded` under ``guard_struct="while"``:
+    ``(value, n)``, the same value and the number of flushed rows ``n`` (a
+    0-d tensor), with no host read of a device value.
+
+    The flushed-first order is a stable ``argsort(~flushed)``; round ``r``
+    repairs the static slice ``order[r * rb:(r + 1) * rb]`` gathered at
+    full T and writes back its flushed rows, as the JAX package's
+    ``w_body``; ``rb``, the function and the cap's decisions are the host
+    form's.  With ``guard_tier1``, where ``0 < n <= repair_bucket``, one
+    round of ``repair_bucket`` rows goes through the pure path, and the
+    rounds run where ``n > repair_bucket`` (the reference's ``t1`` and the
+    ``n > thresh`` of ``w_cond``).  Each round is an IF node under capture
+    (:func:`capture.if_node`) and its writes are masked by the same
+    predicate, so an uncaptured call gives the replay's values.  ``gate``
+    (a 0-d bool tensor) ands into every row's flush: ``guard_mode="pre"``
+    passes the forward's count ``> 0``."""
+    cfg = get_config()
+    if cfg.guard_struct != "while":
+        raise ValueError(
+            'guard_struct="cond" cannot be captured in a CUDA graph: its tiers are '
+            'host decisions on the flushed count; use guard_struct="while"')
+    if _capture.capturing() and _kernels.chunk_plan(ctx)[0] > 1:
+        raise ValueError(
+            f"a time axis of {ctx.logproba.shape[1]} steps, longer than one chunk "
+            f"(chunk_time={cfg.chunk_time}), cannot be captured in a CUDA graph: its "
+            "guard's rounds repair through the float64 pure path, a Python loop over "
+            "T whose capture takes minutes; run it eagerly")
+    batch, num_t, _ = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    cap = fallback_cap()
+
+    def fits(n, lane_pad=False):
+        return est_fallback_bytes(n, num_t, lp1, lane_pad) <= cap
+
+    has_exact = cfg.log_fallback
+    fn = exact_fn if has_exact else pure_fn
+    bucket = min(cfg.repair_bucket, batch)
+    bucket_fits = bucket > 0 and fits(bucket)
+    flushed = torch.isposinf(loss_like) & feasible
+    if gate is not None:
+        flushed = flushed & gate
+    n = flushed.sum()
+    if not (fits(batch, lane_pad=has_exact) or bucket_fits):
+        warnings.warn(_GUARD_DISABLED.format(bucket=bucket, cap_mb=cap >> 20),
+                      stacklevel=3)
+        return fast_value, n
+    if not bucket_fits:
+        raise ValueError(
+            "repair_bucket=0 cannot be captured in a CUDA graph: its guard reroutes "
+            "the whole batch on a host decision; set repair_bucket > 0")
+    fn, size = _round_plan(fits, fn, pure_fn, batch, bucket, has_exact)
+    out = fast_value.clone()
+    order = torch.argsort(~flushed, stable=True)
+    run = n > 0
+    if cfg.guard_tier1 and bucket < batch:
+        tier1 = run & (n <= bucket)
+        with _capture.if_node(tier1):
+            idx = order[:bucket]
+            _round(out, pure_fn, ctx, idx, flushed.index_select(0, idx) & tier1, aux)
+        run = n > bucket
+    for start in range(0, batch, size):
+        pred = run & (n > start)
+        with _capture.if_node(pred):
+            idx = order[start:start + size]
+            _round(out, fn, ctx, idx, flushed.index_select(0, idx) & pred, aux)
+    return out, n
+
+
 def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
              rows=None):
     """``fast_value`` with flushed feasible rows recomputed, by the tiers of
@@ -201,11 +323,7 @@ def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
                       stacklevel=2)
         return fast_value
     if cfg.guard_struct == "while" and bucket_fits:
-        fn, size = exact, max(min(cfg.repair_bucket2, batch), bucket)
-        if not fits(size, lane_pad=has_exact):
-            size = bucket
-            if not fits(bucket, lane_pad=has_exact):
-                fn = pure_fn
+        fn, size = _round_plan(fits, exact, pure_fn, batch, bucket, has_exact)
         rows = flushed_rows(loss_like, feasible) if rows is None else rows
         if rows.numel() == 0:
             return fast_value
@@ -239,11 +357,11 @@ class GuardedPack(NamedTuple):
     """The training forward's pack (``inner``: the kernel path's, which
     carries the forward's raw fast loss as ``loss``) with the number of
     flushed feasible rows that the forward's guard found (None where it did
-    not look), which ``guard_mode="pre"`` branches on before the
-    backward."""
+    not look; a 0-d tensor from the device form), which
+    ``guard_mode="pre"`` branches on before the backward."""
 
     inner: object
-    flushed: Optional[int]
+    flushed: Optional[Union[int, torch.Tensor]]
 
 
 def _unwrap_pack(pack):
@@ -327,16 +445,42 @@ class Topology:
     def _exact_grad(self, c: CtcContext):
         return -torch.exp(self._loss_and_gradient_log_exact(c)[1])
 
-    def _guarded_loss(self, ctx: CtcContext, fast, rows=None):
-        return _guarded(fast, self._loss_exact, self._pure_repair_loss, fast,
-                        self.feasible(ctx), ctx, rows=rows)
+    def _guard(self, fast_value, exact_fn, pure_fn, loss_like, ctx, aux=None,
+               count=False, forward_flushed=None):
+        """``(value, n)``: ``fast_value`` guarded by :func:`_guarded`, or by
+        its device form (:func:`_guarded_device`) where :func:`_on_device`
+        says so; the one place that picks the form.  ``n`` is the number of
+        flushed feasible rows: a 0-d tensor from the device form, an int
+        from the host form where ``count`` asks it to find the rows first
+        (:func:`flushed_rows`), else None.  ``forward_flushed``: the
+        training forward's count under ``guard_mode="pre"``; 0 skips the
+        guard, a tensor gates the device form's rounds on its being
+        positive."""
+        cfg = get_config()
+        on_device = cfg.guard and _on_device()
+        gate = None
+        if on_device and isinstance(forward_flushed, torch.Tensor):
+            gate = forward_flushed > 0
+        elif forward_flushed is not None and forward_flushed == 0:
+            return fast_value, 0
+        feasible = self.feasible(ctx)
+        if on_device:
+            return _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible,
+                                   ctx, aux, gate)
+        rows = flushed_rows(loss_like, feasible) if count and cfg.guard else None
+        value = _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux, rows)
+        return value, None if rows is None else rows.numel()
+
+    def _guarded_loss(self, ctx: CtcContext, fast, count=False):
+        return self._guard(fast, self._loss_exact, self._pure_repair_loss, fast, ctx,
+                           count=count)
 
     def loss_fast(self, ctx: CtcContext):
         """Forward-only loss: the forward kernel in mode final on the
         kernel path."""
         if not self._kernel_path(ctx, training=False):
             return self.pure_loss(ctx)
-        return self._guarded_loss(ctx, self._loss_fast(ctx))
+        return self._guarded_loss(ctx, self._loss_fast(ctx))[0]
 
     def loss_and_pack_fast(self, ctx: CtcContext):
         """Training forward: the guarded loss plus the pack that the
@@ -346,9 +490,10 @@ class Topology:
         if not self._kernel_path(ctx, training=True):
             return self.pure_loss(ctx), None
         fast, pack = self._loss_and_pack(ctx)
-        rows = flushed_rows(fast, self.feasible(ctx)) if get_config().guard else None
-        return (self._guarded_loss(ctx, fast, rows),
-                GuardedPack(pack, None if rows is None else rows.numel()))
+        if not get_config().guard:
+            return fast, GuardedPack(pack, None)
+        loss, n = self._guarded_loss(ctx, fast, count=True)
+        return loss, GuardedPack(pack, n)
 
     def gradient_fast(self, ctx: CtcContext, pack=None):
         """Gradient w.r.t. log-probabilities; the backward kernel on the
@@ -356,8 +501,8 @@ class Topology:
         if not self._kernel_path(ctx, training=True):
             return self._pure_grad(ctx)
         fast, fast_loss = self._gradient_with_loss(ctx, None, _unwrap_pack(pack)[0])
-        return _guarded(fast, self._exact_grad, lambda c: self._pure_repair(c)[1],
-                        fast_loss, self.feasible(ctx), ctx)
+        return self._guard(fast, self._exact_grad, lambda c: self._pure_repair(c)[1],
+                           fast_loss, ctx)[0]
 
     def dlogits_fast(self, ctx: CtcContext, d_loss, pack=None):
         """Logits cotangent ``d_loss * (grad + softmax * valid)`` on the
@@ -394,14 +539,14 @@ class Topology:
         if _kernels.fused_epilogue_ok(ctx, pack):
             fast, fast_loss = _kernels.streamed_dlogits(
                 ctx, d_loss, *self._streamed_acts(ctx, pack))
+            forward_flushed = None
         else:
             grad, fast_loss = self._gradient_with_loss(ctx, None, pack)
             fast = compose_dlogits(ctx, grad, fast_loss, d_loss)
-            if get_config().guard_mode == "pre" and forward_flushed == 0:
-                return fast
-        return _guarded(
-            fast, exact, pure_repair, fast_loss, self.feasible(ctx), ctx, aux=d_loss
-        )
+            if get_config().guard_mode != "pre":
+                forward_flushed = None
+        return self._guard(fast, exact, pure_repair, fast_loss, ctx, aux=d_loss,
+                           forward_flushed=forward_flushed)[0]
 
 
 CLASSIC = Topology(

@@ -17,6 +17,7 @@ from tf_seq2seq_losses_tpu_torch.parallel.train import (
     TrainState,
     make_train_step,
     param_shardings,
+    train_step_eager,
 )
 
 __all__ = [
@@ -31,4 +32,5 @@ __all__ = [
     "TrainState",
     "make_train_step",
     "param_shardings",
+    "train_step_eager",
 ]
