@@ -216,7 +216,22 @@ then simplified):
    of its two, where the device count of that replay shows two) in the
    n=40 replay's, the profiled replays' outputs too bit for bit, and the
    eager and graphed steps'
-   host ms (median of 20), device ms and idle share (one profile); on one
+   host ms (median of 20), device ms and idle share (one profile), and the
+   n=80 replay's peak device memory; the same step captured under
+   ``guard_struct="cond"`` (each topology) and ``repair_bucket=0``
+   (classic, the two-way guard), one IF node a tier (``drive_jit_cond``),
+   replayed on the same batches, each replay bit for bit the eager step
+   under the same config, its log-space launches counted on the device
+   against ``ladder_tier("cond", ...)`` (none at n = 0 and 1, one
+   gathered round at 20, the whole batch at 40 and 80; under
+   ``repair_bucket=0`` the whole batch at any n > 0) and its pure rounds
+   (``PureTally``: tier 1's at n = 1 only), with eager and graphed host
+   ms, device ms, idle share and the replays' CUDA-event ms at each n, the
+   capture's seconds and nodes, tier 1's bodies' nodes and seconds, and
+   the n=80 replay's peak memory beside the "while" graph's; the fused
+   V=128 step under "cond" captured and replayed at n = 40 (B12 once in
+   the graph, the whole batch counted on the device, bit for bit the eager
+   fused step); on one
    NCCL rank ``make_train_step`` on the encoder at phase 9's full width,
    ``JIT_RUNS`` graphed steps against the eager body from the same
    parameters (step 1's loss bit for bit, the others rtol 1e-5, the last
@@ -1567,7 +1582,7 @@ def scan_gaps(torch, topology, labels, logits, label_length, logit_length) -> di
         "simplified": (cs.simplified_loss_and_pack, cs.simplified_gradient_with_loss),
     }[topology]
     loss, pack = forward(ctx)
-    fast = backward(ctx, loss, pack)[1]
+    fast = cl.flush_signal(loss, backward(ctx, loss, pack)[1], ctx.logit_length)
     feasible = TOPOLOGIES[topology].feasible(ctx)
     flagged = torch.isposinf(fast) & feasible
     clean = feasible & ~flagged
@@ -2886,22 +2901,68 @@ class DeviceTally(LogRows):
         return {k: n for k, n in zip(self.KEYS, self.counts.tolist()) if n}
 
 
+class PureTally:
+    """Adds one on the device to a counter each time the guard's pure path
+    runs (``_pure_repair_loss`` in the forward's guard, ``_pure_repair`` in
+    the backward's), by a spy on each topology while entered: in a graph
+    captured while entered the adds sit in the IF bodies that run it, so
+    the counters (:meth:`read`, :meth:`zero`) count the replays' pure
+    rounds."""
+
+    NAMES = ("_pure_repair_loss", "_pure_repair")
+
+    def __init__(self, torch, dev):
+        self.counts = torch.zeros(len(self.NAMES), dtype=torch.int64, device=dev)
+
+    def __enter__(self):
+        from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+
+        self.topologies = list(TOPOLOGIES.values())
+        for topo in self.topologies:
+            for i, name in enumerate(self.NAMES):
+                real = getattr(topo, name)
+
+                def spy(c, _real=real, _i=i):
+                    out = _real(c)
+                    self.counts[_i].add_(1)
+                    return out
+
+                setattr(topo, name, spy)  # shadows the method on this instance
+        return self
+
+    def __exit__(self, *exc):
+        for topo in self.topologies:
+            for name in self.NAMES:
+                delattr(topo, name)
+        return False
+
+    def zero(self) -> None:
+        self.counts.zero_()
+
+    def read(self) -> dict:
+        return {k: n for k, n in zip(self.NAMES, self.counts.tolist()) if n}
+
+
 class BodyNodes:
     """The node counts of the IF-node bodies captured while entered, summed
-    in ``nodes`` (a wrapper in ``capture.if_node``'s place)."""
+    in ``nodes``, and each body's ``(nodes, capture seconds)`` in capture
+    order in ``each`` (a wrapper in ``capture.if_node``'s place)."""
 
     def __enter__(self):
         import contextlib
 
         from tf_seq2seq_losses_tpu_torch.ops import capture as cap
 
-        self.cap, self.real, self.nodes = cap, cap.if_node, 0
+        self.cap, self.real, self.nodes, self.each = cap, cap.if_node, 0, []
 
         @contextlib.contextmanager
         def counted(pred):
+            t0 = time.perf_counter()
             with self.real(pred) as body:
                 yield body
             self.nodes += body.nodes
+            if body.nodes:
+                self.each.append((body.nodes, time.perf_counter() - t0))
 
         cap.if_node = counted
         return self
@@ -2924,6 +2985,199 @@ def graph_nodes(graph) -> int:
     return nodes.value
 
 
+# the captures of phase 12 (a'): (topology, config), each on the ladder
+COND_CAPTURES = (("classic", dict(guard_struct="cond")),
+                 ("simplified", dict(guard_struct="cond")),
+                 ("classic", dict(repair_bucket=0)))
+
+
+def same_bits(a, b) -> bool:
+    """Whether two float32 tensors hold the same bits (NaN included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def body_pool_gb(torch, dev):
+    """The GB that the IF bodies' memory pool (``capture.prepare``) holds,
+    or why that is not measured."""
+    from tf_seq2seq_losses_tpu_torch.ops import capture as cap
+
+    pool = cap.prepare(dev)[1]
+    if not hasattr(pool, "snapshot"):
+        return "not measured: this PyTorch's MemPool has no snapshot"
+    return sum(seg["total_size"] for seg in pool.snapshot()) / 1e9
+
+
+def drive_jit_cond(torch, dev, seed, sync, card, launched, inputs, batches,
+                   while_peaks) -> None:
+    """Phase 12 (a'): the headline step captured under ``guard_struct="cond"``
+    (each topology) and under ``repair_bucket=0`` (classic, the two-way
+    guard), each guard one IF node a tier, replayed on phase 10's batches
+    (n in ``LADDER_N``): each replay bit for bit the eager step under the
+    same config; its log-space launches counted on the device
+    (``DeviceTally``) against ``ladder_tier("cond", ...)`` (under
+    ``repair_bucket=0`` the whole batch at any n > 0), and its pure-path
+    rounds (``PureTally``: tier 1's, at n = 1 only); the eager and graphed
+    steps' host ms (median of ``RUNS``), device ms and idle share (one
+    profile) and the replays' CUDA-event ms; the capture's seconds and
+    nodes, tier 1's bodies' nodes and capture seconds; the peak device
+    memory of the n=80 replay beside the "while" graph's (``while_peaks``)
+    and the eager step's.  Then the fused step at V=128 under "cond",
+    captured and replayed at n=40: B12 once in the graph, the whole batch
+    rerouted on the device, bit for bit the eager fused step."""
+    from collections import Counter
+
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override, get_config
+
+    labels, logits, label_length, logit_length = inputs
+    batch = len(labels)
+    bucket2 = min(get_config().repair_bucket2, batch)
+    top = max(LADDER_N)
+    beyond = LADDER_N[3]  # past tier 2 (n > repair_bucket2 = 32)
+
+    def graphed(name, cfg, labels_, logits_, ll_, gl_):
+        """``(graph, (loss, d_logits) statics, load, launches, log rows,
+        tallies, bodies, seconds)`` of the step captured under ``cfg`` on
+        the clean batch."""
+        loss_fn = loss_function(name)
+        x = logits_.clone().requires_grad_(True)
+        ll_s, gl_s = ll_.clone(), gl_.clone()
+
+        def load(b):
+            with torch.no_grad():
+                x.copy_(b[0])
+            ll_s.copy_(b[1])
+            gl_s.copy_(b[2])
+
+        def body():
+            loss = loss_fn(labels_, x, ll_s, gl_s, 0)
+            total = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+            return loss.detach(), torch.autograd.grad(total, x)[0]
+
+        t0 = time.perf_counter()
+        with DeviceTally(torch, dev) as tally, PureTally(torch, dev) as pure, \
+                BodyNodes() as bodies, config_override(**cfg):
+            (graph, outs), got, rows = launched(name, lambda: capture(torch, body,
+                                                                      keep=True))
+        return (graph, outs, load, got, rows, (tally, pure), bodies,
+                time.perf_counter() - t0)
+
+    for name, cfg in COND_CAPTURES:
+        tag = f"{name} " + " ".join(f"{k}={v}" for k, v in cfg.items())
+        two_way = cfg.get("repair_bucket") == 0
+        eager = configured(make_step(torch, loss_function(name), labels), **cfg)
+        fwd_resid, bwd = f"{name}_fwd[resid]", f"{name}_bwd_streamed"
+        log_keys = tuple(f"{name}_log_{m}" for m in ("fwd[final]", "fwd[resid]", "bwd"))
+        graph, (loss_s, d_s), load, got, rows, (tally, pure), bodies, capture_s = graphed(
+            name, cfg, labels, logits, label_length, logit_length)
+        load(batches[0])
+        nodes = graph_nodes(graph) + bodies.nodes
+        # the warm-up's eager step (clean: no repair), then the capture: each
+        # guard's tier-2 round of repair_bucket2 rows and whole batch, or the
+        # two-way guard's whole batch
+        sizes = (batch,) if two_way else (bucket2, batch)
+        want = {fwd_resid: 2, bwd: 2, **{k: len(sizes) for k in log_keys}}
+        want_rows = Counter({(k, size): 1 for k in log_keys for size in sizes})
+        check(got == want and rows == want_rows,
+              f"phase 12 {tag} capture: launches {got}, log-space rows {dict(rows)}; "
+              f"expected {want}, {dict(want_rows)}")
+        per_guard = 1 if two_way else 3
+        check(len(bodies.each) == 2 * per_guard,
+              f"phase 12 {tag} capture: {len(bodies.each)} IF bodies, expected "
+              f"{per_guard} in each of the two guards")
+        tier1 = [] if two_way else [bodies.each[0], bodies.each[per_guard]]
+        report, tallies, timing = {}, {}, {}
+        for n in LADDER_N:
+            b = batches[n]
+            ref_loss, ref_d = eager(*b)
+            load(b)
+            tally.zero()
+            pure.zero()
+            graph.replay()
+            sync()
+            check(same_bits(loss_s, ref_loss) and same_bits(d_s, ref_d),
+                  f"phase 12 {tag} n={n}: the replay's loss and d_logits are not the "
+                  "eager step's bits")
+            tier = "whole" if two_way and n else ladder_tier("cond", False, n, batch)[0]
+            k = int(tier in ("gathered", "whole"))
+            want_tally = {key: k for key in log_keys} if k else {}
+            want_pure = ({"_pure_repair_loss": 1, "_pure_repair": 1} if tier == "pure"
+                         else {})
+            tallies[f"n={n}"] = dict(tier=tier, log_space=tally.read(), pure=pure.read())
+            check(tallies[f"n={n}"]["log_space"] == want_tally
+                  and tallies[f"n={n}"]["pure"] == want_pure,
+                  f"phase 12 {tag} n={n} ({tier}): counted on the device "
+                  f"{tallies[f'n={n}']}, expected {want_tally}, {want_pure}")
+
+            def replay(_b=b):
+                load(_b)
+                graph.replay()
+
+            row = {}
+            for what, fn in (("eager", lambda _b=b: eager(*_b)), ("graph", replay)):
+                ms = host_ms(torch, fn)
+                row[what] = dict(host_ms=ms, **profile_step(torch, dev, ms, fn, steps=1))
+            row["graph"]["event_ms"] = time_ms(torch, replay, runs=3, burst=5)
+            timing[f"n={n}"] = row
+        load(batches[top])
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        graph.replay()
+        sync()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager(*batches[top])
+        sync()
+        eager_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        log(f"phase 12 {tag} captured loss and d_logits (B={batch}, T={logits.shape[1]}, "
+            f"V={logits.shape[2]}, {per_guard} IF-node tiers in each guard): ok, capture "
+            f"{capture_s:.2f} s, {nodes} graph nodes, the IF bodies' (nodes, capture s) "
+            f"{json.dumps(bodies.each)}, tier 1's {json.dumps(tier1)}; launches in the "
+            f"capture {json.dumps(got)}; every replay bit for bit the eager step; "
+            f"counted on the device {json.dumps(tallies)}; peak device memory GB at "
+            f"n={top}: graphed {peak:.3f}, the while graph {while_peaks[name]:.3f}, "
+            f"eager {eager_peak:.3f}; the IF bodies' memory pool (every graph's so far) "
+            f"{body_pool_gb(torch, dev)}; timing ({card}; host clock median of {RUNS}, one "
+            f"profile each, the replay's CUDA events median of 3 bursts of 5) "
+            f"{json.dumps(timing)}")
+        del graph, loss_s, d_s
+
+    # ---- the fused step at V=128 under "cond", beyond tier 2 ----------------
+    cfg = dict(fused_epilogue=True, guard_struct="cond")
+    v_inputs = make_inputs(torch, seed, dev, vocab=SLICE_VOCAB)
+    v_labels = v_inputs[0]
+    v_sat = saturate(torch, *v_inputs, rows=tuple((r, LADDER_SCALE)
+                                                  for r in range(2, 2 + beyond)))
+    for name in ("classic", "simplified"):
+        log_keys = tuple(f"{name}_log_{m}" for m in ("fwd[final]", "fwd[resid]", "bwd"))
+        eager = configured(make_step(torch, loss_function(name), v_labels), **cfg)
+        ref_loss, ref_d = eager(*v_sat)
+        graph, (loss_s, d_s), load, got, rows, (tally, pure), bodies, capture_s = graphed(
+            name, cfg, *v_inputs)
+        check(got.get("fused_dlogits") == 2 and got.get(f"{name}_bwd_streamed") == 2,
+              f"phase 12 {name} fused cond capture: launches {got} (B12 in the warm-up "
+              "and once in the graph)")
+        load(v_sat)
+        tally.zero()
+        pure.zero()
+        graph.replay()
+        sync()
+        counted = tally.read()
+        check(counted == {k: 1 for k in log_keys} and not pure.read(),
+              f"phase 12 {name} fused cond n={beyond}: counted on the device {counted}, "
+              "expected the whole batch once")
+        check(same_bits(loss_s, ref_loss) and same_bits(d_s, ref_d),
+              f"phase 12 {name} fused cond n={beyond}: the replay's loss and d_logits are "
+              "not the eager fused step's bits")
+        log(f"phase 12 {name} fused step at V={SLICE_VOCAB} under cond captured: ok, "
+            f"capture {capture_s:.2f} s; launches in the capture {json.dumps(got)}; the "
+            f"n={beyond} replay reroutes the whole batch ({json.dumps(counted)} counted on "
+            "the device) and is bit for bit the eager fused step")
+        del graph, loss_s, d_s
+
+
 def drive_jit(torch, dev, seed, sync, card) -> dict:
     """Phase 12, the port's counterparts of the JAX package's three
     ``jax.jit`` entry points, as CUDA graphs (the guard's "while" struct on
@@ -2931,7 +3185,8 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
     loss and ``torch.autograd.grad`` to d_logits at the headline captured
     in one graph and replayed on phase 10's batches (n in ``LADDER_N`` rows
     flushed), each replay bit for bit the eager step (the host form), the
-    kernels of the n=0 and n=40 replays, times; (b) ``make_train_step`` on
+    kernels of the n=0 and n=40 replays, times; (a') the same under
+    ``guard_struct="cond"`` and ``repair_bucket=0`` (``drive_jit_cond``); (b) ``make_train_step`` on
     the encoder at phase 9's full width, ``JIT_RUNS`` graphed steps against
     the eager body (``train_step_eager``) from the same parameters, on one
     NCCL rank; (c) the graphed ``sharded_mean_ctc_loss`` against its eager
@@ -2990,6 +3245,7 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
                                                       for r in range(2, 2 + n)))
                for n in LADDER_N}
     row_ids = torch.arange(batch, device=dev)
+    while_peaks = {}
 
     # ---- (a) the loss and its d_logits at the headline, captured ----------
     for name in ("classic", "simplified"):
@@ -3092,15 +3348,25 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
                 ms = host_ms(torch, fn)
                 timing[f"{tag} n={n}"] = dict(host_ms=ms, **profile_step(
                     torch, dev, ms, fn, steps=1))
+        load(batches[max(LADDER_N)])
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        graph.replay()
+        sync()
+        while_peaks[name] = torch.cuda.max_memory_allocated(dev) / 1e9
         log(f"phase 12 {name} captured loss and d_logits (B={batch}, T={logits.shape[1]}, "
             f"V={logits.shape[2]}, {rounds} IF-node rounds of {rb} rows in each guard): "
             f"ok, capture {capture_s:.2f} s, {nodes} graph nodes; launches in the capture "
             f"{json.dumps(got)}; rows that differ from the eager step's bits "
             f"{json.dumps(report)}; log-space launches of the replays counted on the "
             f"device {json.dumps(tallies)}; log-space kernels of the profiled replays "
-            f"{json.dumps({f'n={n}': c for n, c in counts.items()})}; timing ({card}; host "
-            f"clock median of {RUNS}, one profile each) {json.dumps(timing)}")
+            f"{json.dumps({f'n={n}': c for n, c in counts.items()})}; peak device memory "
+            f"GB of the n={max(LADDER_N)} replay {while_peaks[name]:.3f}; timing ({card}; "
+            f"host clock median of {RUNS}, one profile each) {json.dumps(timing)}")
         del graph, loss_s, d_s, x
+
+    # ---- (a') the "cond" struct and the two-way guard, captured -------------
+    drive_jit_cond(torch, dev, seed, sync, card, launched, inputs, batches, while_peaks)
 
     # ---- (b) and (c): one NCCL rank --------------------------------------------
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")

@@ -38,7 +38,7 @@ import torch
 import tf_seq2seq_losses_tpu as jctc
 from tf_seq2seq_losses_tpu.utils.config import config_override as jax_config
 from tf_seq2seq_losses_tpu_torch import api
-from tf_seq2seq_losses_tpu_torch.ops import core, topology
+from tf_seq2seq_losses_tpu_torch.ops import capture, core, topology
 from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES, compose_dlogits
 from tf_seq2seq_losses_tpu_torch.parallel import (
     make_mesh,
@@ -90,13 +90,14 @@ def port_step(args, topology_name="classic", device=False, **cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_step(topology_name, n_flushed, route, **cfg):
-    """The JAX package's while struct: loss and the gradient of its finite
-    sum.  ``route`` is the repair's, "exact" (the log-space kernels) or
-    "pure" (the pure path, under the pure cap ``CAPS["pure"]``): the
-    buckets, tier 1 and the cap only move the flushed rows between rounds
-    and routes, and a row's repair does not depend on its round, so one
-    JAX run per route serves every config that takes it."""
+def jax_step(topology_name, n_flushed, route, struct="while", **cfg):
+    """The JAX package's ``struct`` ("while" by default): loss and the
+    gradient of its finite sum.  ``route`` is the repair's, "exact" (the
+    log-space kernels) or "pure" (the pure path, under the pure cap
+    ``CAPS["pure"]``), or the name of a cap of ``CAPS`` to run under: under
+    "while" the buckets, tier 1 and the cap only move the flushed rows
+    between rounds and routes, and a row's repair does not depend on its
+    round, so one JAX run per route serves every config that takes it."""
     fn = FNS[topology_name][0]
     labels, logits, ll, gl = flushed_batch(n_flushed)
 
@@ -105,9 +106,9 @@ def jax_step(topology_name, n_flushed, route, **cfg):
         return jnp.sum(jnp.where(jnp.isfinite(out), out, 0.0))
 
     with pytest.MonkeyPatch.context() as mp, \
-            jax_config(**INTERP, **BUCKETS, guard_struct="while", **cfg):
-        if route == "pure":
-            mp.setenv("CTC_TPU_GUARD_FALLBACK_BYTES", str(CAPS["pure"]))
+            jax_config(**{**INTERP, **BUCKETS, "guard_struct": struct, **cfg}):
+        if route in CAPS:
+            mp.setenv("CTC_TPU_GUARD_FALLBACK_BYTES", str(CAPS[route]))
         loss = np.asarray(fn(labels, jnp.asarray(logits), ll, gl, 0))
         grad = np.asarray(jax.grad(scalar)(jnp.asarray(logits)))
     return loss, grad
@@ -224,12 +225,14 @@ def test_device_form_reads_no_device_value(tier1, gate, monkeypatch):
     assert torch.equal(one, want_one)
 
 
-@pytest.mark.parametrize("cfg", [dict(guard_struct="cond"), dict(repair_bucket=0)],
-                         ids=["guard_struct", "repair_bucket"])
-def test_device_form_raises_for_what_a_graph_cannot_capture(cfg):
-    knob = next(iter(cfg))
-    with pytest.raises(ValueError, match=knob):
-        port_step(flushed_batch(3), device=True, **cfg)
+@pytest.mark.parametrize("struct", ["while", "cond"])
+def test_a_chunked_time_axis_raises_under_capture(struct, monkeypatch):
+    """Under capture (``capture.capturing`` patched) a time axis longer than
+    one chunk raises ``ValueError`` under either struct: its rounds would
+    capture the float64 pure path's loop over T."""
+    monkeypatch.setattr(capture, "capturing", lambda: True)
+    with pytest.raises(ValueError, match="chunk_time"):
+        port_step(flushed_batch(3), guard_struct=struct, **BUCKETS, **CHUNKED)
 
 
 class _HostData:

@@ -933,13 +933,13 @@ def neg_posterior(sums, scale, blank_index):
     return torch.where(token_is_blank, torch.clamp(1.0 - s, min=0.0), neg_nb)
 
 
-def grad_direct_assemble(ctx: CtcContext, sums, loss_for_mask, scale):
+def grad_direct_assemble(ctx: CtcContext, sums, loss, scale):
     """Probability-space gradient ``-neg_posterior`` from the
-    token-scattered acts; infeasible samples and steps past logit_length are
-    exactly zero."""
+    token-scattered acts; rows whose backward ``loss`` is +inf (infeasible
+    or flushed) and steps past logit_length are exactly zero."""
     grad = -neg_posterior(sums, scale, ctx.blank_index)
     zero = torch.zeros_like(grad)
-    grad = torch.where(torch.isposinf(loss_for_mask)[:, None, None], zero, grad)
+    grad = torch.where(torch.isposinf(loss)[:, None, None], zero, grad)
     return torch.where(ctx.logit_length_mask[:, :, None], grad, zero)
 
 
@@ -953,11 +953,11 @@ def _empty_gradient(ctx: CtcContext, loss, pure_loss):
 
 def classic_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     """Block-float gradient w.r.t. log-probabilities: ``(grad [B, T, V],
-    fast loss [B])``, by the scheme of the pack (a :class:`StreamPack` or
+    backward loss [B])``, by the scheme of the pack (a :class:`StreamPack` or
     :class:`HalfPack`: :func:`classic_streamed_acts`; a :class:`ChunkPack`:
     kernel B10 per chunk, last to first), then the act scatter and the
-    assembly.  The fast loss comes from the beta carry and is the guard's
-    flush signal."""
+    assembly.  The backward loss comes from the beta carry
+    (:func:`carry_loss`); :func:`flush_signal` of it is the guard's."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0:
         return _empty_gradient(
@@ -1012,40 +1012,54 @@ def scan_gap_limit(loss, n_steps):
     return _GAP_OF_LOSS * torch.abs(loss) + _GAP_PER_STEP * n_steps.to(loss.dtype)
 
 
-def beta_carry_loss(fwd_loss, beta0, beta0_e, n_steps):
-    """The fast loss of a beta scan's final carry (mantissa and exponent at
-    lane 0) over ``n_steps`` steps, set to +inf, the guard's flush signal,
-    where it differs from the forward scan's ``fwd_loss`` by more than
-    :func:`scan_gap_limit` or where the forward flushed alone.  NaN stays
-    NaN."""
+def carry_loss(fwd_loss, beta0, beta0_e):
+    """The loss of a beta scan's final carry (mantissa and exponent at lane
+    0), +inf where the forward scan's ``fwd_loss`` is +inf and the carry's
+    is finite (the forward flushed alone: the row's loss is +inf, its
+    gradient zero).  NaN stays NaN.  The gradient's assembly and the
+    softmax term's mask take it."""
     loss = -(torch.log(beta0) + beta0_e.to(torch.float32) * LN2)
+    alone = torch.isposinf(fwd_loss) & torch.isfinite(loss)
+    return torch.where(alone, torch.full_like(loss, float("inf")), loss)
+
+
+def flush_signal(fwd_loss, loss, n_steps):
+    """The guard's flush signal of a backward whose loss is ``loss``
+    (:func:`carry_loss`) over ``n_steps`` steps: +inf also where it differs
+    from the forward scan's ``fwd_loss`` by more than
+    :func:`scan_gap_limit` (one scan lost mass that mattered).  Only the
+    guard reads it: under ``guard_mode="pre"`` a row that only this flags,
+    on a step whose forward flushed no row, keeps its fast gradient, as in
+    the JAX package, which has no such flag."""
     both = torch.isfinite(fwd_loss) & torch.isfinite(loss)
     gap = torch.abs(fwd_loss - loss) > scan_gap_limit(loss, n_steps)
-    damaged = (both & gap) | (torch.isposinf(fwd_loss) & torch.isfinite(loss))
-    return torch.where(damaged, torch.full_like(loss, float("inf")), loss)
+    return torch.where(both & gap, torch.full_like(loss, float("inf")), loss)
 
 
-def beta_carry_scale(ctx: CtcContext, fwd_loss, ebi, beta0, beta0_e):
-    """``(fast loss [B], act scale [B])`` from the mantissa and exponent of
-    a beta scan's final carry at lane 0.  The fast loss
-    (:func:`beta_carry_loss`) is the guard's flush signal."""
-    beta0_e = beta0_e.to(torch.float32)
-    fast_loss = beta_carry_loss(fwd_loss, beta0, beta0_e, ctx.logit_length)
+def beta_carry_loss(fwd_loss, beta0, beta0_e, n_steps):
+    """The flush signal (:func:`flush_signal`) of a beta scan's final carry
+    over ``n_steps`` steps."""
+    return flush_signal(fwd_loss, carry_loss(fwd_loss, beta0, beta0_e), n_steps)
+
+
+def beta_carry_scale(fwd_loss, ebi, beta0, beta0_e):
+    """``(backward loss [B], act scale [B])`` from the mantissa and exponent
+    of a beta scan's final carry at lane 0 (:func:`carry_loss`)."""
+    loss = carry_loss(fwd_loss, beta0, beta0_e)
     # The acts were scaled by 2^-ebi; the posterior scale is
-    # exp(fast_loss + ebi ln2) = 2^(ebi - e) / m for the beta carry m * 2^e.
+    # exp(loss + ebi ln2) = 2^(ebi - e) / m for the beta carry m * 2^e.
     # Taken from the carry, not through the float32 loss, whose rounding
     # (an ulp of a loss near 1e3 is 1.2e-4) would reach the gradient.
-    scale = torch.where(
-        torch.isfinite(fast_loss), torch.exp2(ebi - beta0_e) / beta0, torch.exp2(ebi)
-    )
-    return fast_loss, scale
+    scale = torch.where(torch.isfinite(loss),
+                        torch.exp2(ebi - beta0_e.to(torch.float32)) / beta0, torch.exp2(ebi))
+    return loss, scale
 
 
 def gradient_from_beta_carry(ctx: CtcContext, sums, fwd_loss, ebi, beta0, beta0_e):
-    """``(grad [B, T, V], fast loss [B])`` from the token sums of a beta
+    """``(grad [B, T, V], backward loss [B])`` from the token sums of a beta
     scan's acts and its final carry at lane 0 (:func:`beta_carry_scale`)."""
-    fast_loss, scale = beta_carry_scale(ctx, fwd_loss, ebi, beta0, beta0_e)
-    return grad_direct_assemble(ctx, sums, fast_loss, scale), fast_loss
+    loss, scale = beta_carry_scale(fwd_loss, ebi, beta0, beta0_e)
+    return grad_direct_assemble(ctx, sums, loss, scale), loss
 
 
 # ---------------------------------------------------------------------------
@@ -1054,9 +1068,10 @@ def gradient_from_beta_carry(ctx: CtcContext, sums, fwd_loss, ebi, beta0, beta0_
 
 
 def classic_streamed_acts(ctx: CtcContext, pack):
-    """The acts step of the streamed scheme: ``(acts [B, Tp, L], lm, fast
-    loss [B], act scale [B])`` from kernel B3 (a :class:`StreamPack`) or B13
-    (a :class:`HalfPack`)."""
+    """The acts step of the streamed scheme: ``(acts [B, Tp, L], lm,
+    backward loss [B], act scale [B])`` from kernel B3 (a
+    :class:`StreamPack`) or B13 (a :class:`HalfPack`); the loss is the beta
+    carry's (:func:`carry_loss`)."""
     blank, dcu, lm, nb, rep, lens, lab_len, k_win = pack.inputs
     ebi = ebi_from_loss(pack.loss)
     if isinstance(pack, HalfPack):
@@ -1065,14 +1080,14 @@ def classic_streamed_acts(ctx: CtcContext, pack):
     else:
         pc, f0, _f1, fe = classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len,
                                                ebi, pack.sa, pack.saf, k_win)
-    return (pc, lm, *beta_carry_scale(ctx, pack.loss, ebi, f0[:, 0], fe[:, 0]))
+    return (pc, lm, *beta_carry_scale(pack.loss, ebi, f0[:, 0], fe[:, 0]))
 
 
-def streamed_gradient(ctx: CtcContext, acts, lm, fast_loss, scale):
+def streamed_gradient(ctx: CtcContext, acts, lm, loss, scale):
     """The assembly step of the streamed scheme, unfused: ``(grad [B, T, V],
-    fast loss)`` through the act scatter."""
+    backward loss)`` through the act scatter."""
     sums = act_scatter(ctx, acts[:, :ctx.logproba.shape[1]], lm)
-    return grad_direct_assemble(ctx, sums, fast_loss, scale), fast_loss
+    return grad_direct_assemble(ctx, sums, loss, scale), loss
 
 
 def fused_epilogue_ok(ctx: CtcContext, pack) -> bool:
@@ -1086,18 +1101,18 @@ def fused_epilogue_ok(ctx: CtcContext, pack) -> bool:
                        ctx.logproba.device)
 
 
-def streamed_dlogits(ctx: CtcContext, d_loss, acts, lm, fast_loss, scale):
+def streamed_dlogits(ctx: CtcContext, d_loss, acts, lm, loss, scale):
     """The assembly step of the streamed scheme fused with the log-softmax
-    cotangent (kernel B12): ``(d_logits [B, T, V], fast loss)``.  Rows
-    whose fast loss is not finite are exactly 0, as in the JAX package's
-    fused epilogue (the guard recomputes the flushed ones)."""
+    cotangent (kernel B12): ``(d_logits [B, T, V], backward loss)``.  Rows
+    whose backward loss is not finite are exactly 0, as in the JAX
+    package's fused epilogue (the guard recomputes the flushed ones)."""
     num_t = ctx.logproba.shape[1]
-    lens = torch.where(torch.isfinite(fast_loss), ctx.logit_length.clamp(0, num_t),
+    lens = torch.where(torch.isfinite(loss), ctx.logit_length.clamp(0, num_t),
                        torch.zeros_like(ctx.logit_length)).to(torch.int32)
     out = fused_dlogits(acts, lane_tokens(ctx, acts.shape[2]), lm, scale,
                         d_loss.to(torch.float32).contiguous(), lens,
                         ctx.logproba.contiguous(), ctx.blank_index)
-    return out, fast_loss
+    return out, loss
 
 
 def fused_dlogits_plain(acts, labels, lm, scale, d_loss, lens, logproba, blank):

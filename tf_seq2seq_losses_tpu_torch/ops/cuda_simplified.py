@@ -467,18 +467,18 @@ def simplified_loss_and_pack(ctx: CtcContext):
 
 def simplified_streamed_acts(ctx: CtcContext, pack):
     """The acts step of the streamed scheme (kernel B7): ``(acts [B, Tp,
-    L], lm, fast loss [B], act scale [B])``, as
+    L], lm, backward loss [B], act scale [B])``, as
     ``cuda_lattice.classic_streamed_acts`` gives them."""
     blank, dg, lm, lens, lab_len, k_win = pack.inputs
     ebi = ebi_from_loss(pack.loss)
     pd, f, fe = simplified_bwd_streamed(blank, dg, lens, lab_len, ebi, pack.sa,
                                         pack.saf, k_win)
-    return (pd, lm, *beta_carry_scale(ctx, pack.loss, ebi, f[:, 0], fe[:, 0]))
+    return (pd, lm, *beta_carry_scale(pack.loss, ebi, f[:, 0], fe[:, 0]))
 
 
 def simplified_gradient_with_loss(ctx: CtcContext, loss=None, pack=None):
     """Block-float gradient w.r.t. log-probabilities: ``(grad [B, T, V],
-    fast loss [B])``, by the scheme of the pack (kernel B7, or kernel B11
+    backward loss [B])``, by the scheme of the pack (kernel B7, or kernel B11
     per chunk, last to first), then the act scatter and the assembly."""
     batch, num_t, num_tokens = ctx.logproba.shape
     if batch == 0 or num_t == 0:

@@ -43,20 +43,24 @@ one host synchronisation per guarded call (and a few more per call that
 repairs rows).  ``guard_mode="pre"`` spends the training forward's one on
 the backward as well: a clean step's backward runs unguarded.
 
-The device form (:func:`_guarded_device`, the "while" struct only) reads
-no device value on the host, so that a CUDA graph can capture it: it runs
-under capture (``ops/capture.py``), the host form everywhere else, and
-:meth:`Topology._guard` is the one place that picks between them.  It follows the JAX package's ``w_cond`` and
-``w_body``: ``ceil(B / rb)`` rounds of a static slice of the flushed-first
-order, each gathered at the batch's full T, each written back only where
-its rows flushed; under capture each round is a CUDA graph IF node on
-``r * rb < n``, so a clean replay runs none of them.  Its values are the
-host form's bit for bit on the kernels, whose rows never interact, except
-on a chunked time axis: there a round at full T goes through the float64
-pure path where the host form repairs a short row with the log-space
-kernels on its own axis (within their 2e-4, and closer to float64).
-``guard_struct="cond"`` and ``repair_bucket=0`` raise ``ValueError`` in
-the device form, and so does a chunked time axis under capture (its
+The device form (:func:`_guarded_device`) reads no device value on the
+host, so that a CUDA graph can capture it: it runs under capture
+(``ops/capture.py``), the host form everywhere else, and
+:meth:`Topology._guard` is the one place that picks between them.  Its
+host decisions, on static shapes and the cap, are the host form's
+(:func:`_tiers`); each decision on the flushed count ``n`` is an IF node on
+a predicate of ``n``, whose body repairs a static slice of the
+flushed-first order gathered at the batch's full T and writes back only
+where the predicate holds, so a clean replay runs none of them.  Under
+"while" these are the JAX package's ``w_cond`` and ``w_body``: ``ceil(B /
+rb)`` rounds on ``r * rb < n``.  Under "cond" they are its ``lax.switch``:
+one node a tier on mutually exclusive predicates, the whole batch's
+writing every row; ``repair_bucket=0`` is one node on ``n > 0``.  Its
+values are the host form's bit for bit on the kernels, whose rows never
+interact, except on a chunked time axis: there a round at full T goes
+through the float64 pure path where the host form repairs a short row
+with the log-space kernels on its own axis (within their 2e-4, and closer
+to float64).  A chunked time axis raises ``ValueError`` under capture (its
 rounds' pure-path loop over T would take minutes to capture).
 """
 
@@ -193,15 +197,69 @@ def _on_device() -> bool:
     return _capture.capturing()
 
 
-def _round_plan(fits, exact, pure_fn, batch, bucket, lane_pad):
+class _Tiers(NamedTuple):
+    """The guard's decisions at a shape, on static shapes and the cap,
+    which both forms take as the JAX package takes them: ``exact`` the
+    function of the whole batch and of the "while" rounds (``exact_fn``
+    with ``log_fallback``, else ``pure_fn``); ``bucket`` and ``bucket2``
+    the two tiers' rows, at most the batch; ``bucket_fits`` whether tier 1
+    fits the cap; ``tier2`` whether tier 2 runs; ``full_fits`` whether the
+    whole batch fits; ``fits(rows, lane_pad)`` the cap's test."""
+
+    exact: object
+    bucket: int
+    bucket_fits: bool
+    bucket2: int
+    tier2: bool
+    full_fits: bool
+    fits: object
+
+    def rounds(self) -> bool:
+        """Whether the "while" struct's rounds repair (``repair_bucket`` fitting;
+        else the two-way guard of the whole batch, under either struct)."""
+        return get_config().guard_struct == "while" and self.bucket_fits
+
+
+def _tiers(ctx: CtcContext, exact_fn, pure_fn) -> Optional[_Tiers]:
+    """The :class:`_Tiers` at ``ctx``'s shape, None where no tier fits the
+    cap; warns where the cap disables the guard or the whole-batch reroute,
+    whatever the flushed count, as the host form always has."""
+    cfg = get_config()
+    batch, num_t, _ = ctx.logproba.shape
+    lp1 = ctx.label.shape[1]
+    cap = fallback_cap()
+
+    def fits(n, lane_pad=False):
+        return est_fallback_bytes(n, num_t, lp1, lane_pad) <= cap
+
+    has_exact = cfg.log_fallback
+    full_fits = fits(batch, lane_pad=has_exact)
+    bucket = min(cfg.repair_bucket, batch)
+    bucket_fits = bucket > 0 and fits(bucket)
+    if not (full_fits or bucket_fits):
+        warnings.warn(_GUARD_DISABLED.format(bucket=bucket, cap_mb=cap >> 20),
+                      stacklevel=3)
+        return None
+    bucket2 = min(cfg.repair_bucket2, batch)
+    tier2 = has_exact and bucket2 > bucket and bucket_fits and fits(bucket2, True)
+    t = _Tiers(exact_fn if has_exact else pure_fn, bucket, bucket_fits, bucket2, tier2,
+               full_fits, fits)
+    if bucket_fits and not full_fits and not t.rounds():
+        warnings.warn(_WHOLE_BATCH_DISABLED.format(
+            cap_mb=cap >> 20, rows=bucket2 if tier2 else bucket), stacklevel=3)
+    return t
+
+
+def _round_plan(t: _Tiers, pure_fn, batch):
     """``(function, rows)`` of the "while" struct's repair rounds: rounds
     of ``max(min(repair_bucket2, B), repair_bucket)`` rows through
-    ``exact``, shrunk to ``repair_bucket`` rows, then to pure-path rounds,
-    where the cap's ``fits`` does not admit them."""
-    fn, size = exact, max(min(get_config().repair_bucket2, batch), bucket)
-    if not fits(size, lane_pad):
-        size = bucket
-        if not fits(bucket, lane_pad):
+    ``t.exact``, shrunk to ``repair_bucket`` rows, then to pure-path rounds,
+    where the cap does not admit them."""
+    lane_pad = get_config().log_fallback
+    fn, size = t.exact, max(t.bucket2, t.bucket)
+    if not t.fits(size, lane_pad):
+        size = t.bucket
+        if not t.fits(t.bucket, lane_pad):
             fn = pure_fn
     return fn, size
 
@@ -213,82 +271,102 @@ def _take_rows(ctx: CtcContext, idx: torch.Tensor) -> CtcContext:
                          for name, val in ctx._asdict().items()})
 
 
-def _round(out, fn, ctx, idx, write, aux):
-    """Rows ``idx`` of ``out`` replaced by ``fn`` of their gathered context
-    where ``write`` [len(idx)] holds (in place)."""
-    sub = _take_rows(ctx, idx)
-    mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
-    keep = write.reshape(write.shape + (1,) * (out.dim() - 1))
-    out.index_copy_(0, idx, torch.where(keep, mini.to(out.dtype), out.index_select(0, idx)))
+def _round(out, pred, fn, ctx, idx, flushed, aux):
+    """Rows ``idx`` of ``out`` replaced, in place, by ``fn`` of their
+    gathered context where they flushed and ``pred`` (a 0-d bool tensor)
+    holds: under capture an IF node on ``pred``, whose body is the round."""
+    with _capture.if_node(pred):
+        sub = _take_rows(ctx, idx)
+        mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
+        write = flushed.index_select(0, idx) & pred
+        keep = write.reshape(write.shape + (1,) * (out.dim() - 1))
+        out.index_copy_(0, idx, torch.where(keep, mini.to(out.dtype),
+                                            out.index_select(0, idx)))
+
+
+def _while_device(out, t, pure_fn, ctx, aux, flushed, order, n):
+    """The "while" struct's rounds (``repair_bucket`` fitting): ``ceil(B /
+    rb)`` rounds of the static slices ``order[r * rb:(r + 1) * rb]``, each
+    written where its rows flushed and ``r * rb < n``, as the JAX
+    package's ``w_body`` and ``w_cond``; with ``guard_tier1``, where ``0 < n
+    <= repair_bucket``, one round of ``repair_bucket`` rows through the
+    pure path instead (the reference's ``t1``)."""
+    batch = out.shape[0]
+    fn, size = _round_plan(t, pure_fn, batch)
+    run = n > 0
+    if get_config().guard_tier1 and t.bucket < batch:
+        tier1 = run & (n <= t.bucket)
+        _round(out, tier1, pure_fn, ctx, order[:t.bucket], flushed, aux)
+        run = n > t.bucket
+    for start in range(0, batch, size):
+        _round(out, run & (n > start), fn, ctx, order[start:start + size], flushed, aux)
+
+
+def _cond_device(out, t, pure_fn, ctx, aux, flushed, order, n):
+    """The "cond" struct's tiers, and the two-way guard of ``repair_bucket``
+    0: one IF node a tier, on mutually exclusive predicates of ``n`` (the
+    JAX package's ``lax.switch``): tier 1, ``0 < n <= bucket``, the first
+    ``bucket`` rows of ``order`` through the pure path; tier 2, ``bucket <
+    n`` and ``n <= bucket2`` (or the whole batch over the cap), the first
+    ``bucket2`` through the exact path; over the cap without tier 2, ``n >
+    bucket``, the first ``bucket`` through the pure path (rows past them
+    keep +inf); the whole batch through ``t.exact``, every row written,
+    where ``n`` exceeds the largest tier below it (``n > 0`` with no tier
+    below: the two-way guard)."""
+    batch = out.shape[0]
+    top = 0
+    if t.bucket_fits:
+        _round(out, (n > 0) & (n <= t.bucket), pure_fn, ctx, order[:t.bucket], flushed,
+               aux)
+        top = t.bucket
+        over = n > t.bucket
+        if t.tier2:
+            if t.full_fits:
+                over = over & (n <= t.bucket2)
+            _round(out, over, t.exact, ctx, order[:t.bucket2], flushed, aux)
+            top = t.bucket2
+        elif not t.full_fits:
+            _round(out, over, pure_fn, ctx, order[:t.bucket], flushed, aux)
+    if t.full_fits and top < batch:
+        whole = n > top
+        with _capture.if_node(whole):
+            value = t.exact(ctx) if aux is None else t.exact(ctx, aux)
+            out.copy_(torch.where(whole, value.to(out.dtype), out))
 
 
 def _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
                     gate=None):
-    """The device form of :func:`_guarded` under ``guard_struct="while"``:
-    ``(value, n)``, the same value and the number of flushed rows ``n`` (a
-    0-d tensor), with no host read of a device value.
+    """The device form of :func:`_guarded`: ``(value, n)``, the same value
+    and the number of flushed rows ``n`` (a 0-d tensor), with no host read
+    of a device value.
 
-    The flushed-first order is a stable ``argsort(~flushed)``; round ``r``
-    repairs the static slice ``order[r * rb:(r + 1) * rb]`` gathered at
-    full T and writes back its flushed rows, as the JAX package's
-    ``w_body``; ``rb``, the function and the cap's decisions are the host
-    form's.  With ``guard_tier1``, where ``0 < n <= repair_bucket``, one
-    round of ``repair_bucket`` rows goes through the pure path, and the
-    rounds run where ``n > repair_bucket`` (the reference's ``t1`` and the
-    ``n > thresh`` of ``w_cond``).  Each round is an IF node under capture
+    The host decisions (:func:`_tiers`) are the host form's; the flushed
+    count's are predicates on the device.  The flushed-first order is a
+    stable ``argsort(~flushed)``, and each repair is a static slice of it
+    gathered at full T: the "while" rounds (:func:`_while_device`) or the
+    "cond" tiers (:func:`_cond_device`).  Each is an IF node under capture
     (:func:`capture.if_node`) and its writes are masked by the same
     predicate, so an uncaptured call gives the replay's values.  ``gate``
     (a 0-d bool tensor) ands into every row's flush: ``guard_mode="pre"``
     passes the forward's count ``> 0``."""
     cfg = get_config()
-    if cfg.guard_struct != "while":
-        raise ValueError(
-            'guard_struct="cond" cannot be captured in a CUDA graph: its tiers are '
-            'host decisions on the flushed count; use guard_struct="while"')
     if _capture.capturing() and _kernels.chunk_plan(ctx)[0] > 1:
         raise ValueError(
             f"a time axis of {ctx.logproba.shape[1]} steps, longer than one chunk "
             f"(chunk_time={cfg.chunk_time}), cannot be captured in a CUDA graph: its "
             "guard's rounds repair through the float64 pure path, a Python loop over "
             "T whose capture takes minutes; run it eagerly")
-    batch, num_t, _ = ctx.logproba.shape
-    lp1 = ctx.label.shape[1]
-    cap = fallback_cap()
-
-    def fits(n, lane_pad=False):
-        return est_fallback_bytes(n, num_t, lp1, lane_pad) <= cap
-
-    has_exact = cfg.log_fallback
-    fn = exact_fn if has_exact else pure_fn
-    bucket = min(cfg.repair_bucket, batch)
-    bucket_fits = bucket > 0 and fits(bucket)
     flushed = torch.isposinf(loss_like) & feasible
     if gate is not None:
         flushed = flushed & gate
     n = flushed.sum()
-    if not (fits(batch, lane_pad=has_exact) or bucket_fits):
-        warnings.warn(_GUARD_DISABLED.format(bucket=bucket, cap_mb=cap >> 20),
-                      stacklevel=3)
+    t = _tiers(ctx, exact_fn, pure_fn)
+    if t is None:
         return fast_value, n
-    if not bucket_fits:
-        raise ValueError(
-            "repair_bucket=0 cannot be captured in a CUDA graph: its guard reroutes "
-            "the whole batch on a host decision; set repair_bucket > 0")
-    fn, size = _round_plan(fits, fn, pure_fn, batch, bucket, has_exact)
     out = fast_value.clone()
     order = torch.argsort(~flushed, stable=True)
-    run = n > 0
-    if cfg.guard_tier1 and bucket < batch:
-        tier1 = run & (n <= bucket)
-        with _capture.if_node(tier1):
-            idx = order[:bucket]
-            _round(out, pure_fn, ctx, idx, flushed.index_select(0, idx) & tier1, aux)
-        run = n > bucket
-    for start in range(0, batch, size):
-        pred = run & (n > start)
-        with _capture.if_node(pred):
-            idx = order[start:start + size]
-            _round(out, fn, ctx, idx, flushed.index_select(0, idx) & pred, aux)
+    tiers = _while_device if t.rounds() else _cond_device
+    tiers(out, t, pure_fn, ctx, aux, flushed, order, n)
     return out, n
 
 
@@ -306,50 +384,29 @@ def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
     cfg = get_config()
     if not cfg.guard:
         return fast_value
-    batch, num_t, _ = ctx.logproba.shape
-    lp1 = ctx.label.shape[1]
-    cap = fallback_cap()
-
-    def fits(n, lane_pad=False):
-        return est_fallback_bytes(n, num_t, lp1, lane_pad) <= cap
-
-    has_exact = cfg.log_fallback
-    exact = exact_fn if has_exact else pure_fn
-    full_fits = fits(batch, lane_pad=has_exact)
-    bucket = min(cfg.repair_bucket, batch)
-    bucket_fits = bucket > 0 and fits(bucket)
-    if not (full_fits or bucket_fits):
-        warnings.warn(_GUARD_DISABLED.format(bucket=bucket, cap_mb=cap >> 20),
-                      stacklevel=2)
+    t = _tiers(ctx, exact_fn, pure_fn)
+    if t is None:
         return fast_value
-    if cfg.guard_struct == "while" and bucket_fits:
-        fn, size = _round_plan(fits, exact, pure_fn, batch, bucket, has_exact)
-        rows = flushed_rows(loss_like, feasible) if rows is None else rows
-        if rows.numel() == 0:
-            return fast_value
-        if cfg.guard_tier1 and bucket < batch and rows.numel() <= bucket:
-            fn, size = pure_fn, bucket
-        return _repair(fast_value, fn, ctx, _repair_rounds(ctx, rows, size), aux)
-
-    bucket2 = min(cfg.repair_bucket2, batch)
-    tier2 = has_exact and bucket2 > bucket and bucket_fits and fits(bucket2, True)
-    if bucket_fits and not full_fits:
-        warnings.warn(_WHOLE_BATCH_DISABLED.format(
-            cap_mb=cap >> 20, rows=bucket2 if tier2 else bucket), stacklevel=2)
+    batch = ctx.logproba.shape[0]
     rows = flushed_rows(loss_like, feasible) if rows is None else rows
     n = rows.numel()
     if n == 0:
         return fast_value
-    if bucket_fits and n <= bucket:
-        return _repair(fast_value, pure_fn, ctx, _repair_rounds(ctx, rows, bucket), aux)
-    if tier2 and (n <= bucket2 or not full_fits):
+    if t.rounds():
+        fn, size = _round_plan(t, pure_fn, batch)
+        if cfg.guard_tier1 and t.bucket < batch and n <= t.bucket:
+            fn, size = pure_fn, t.bucket
+        return _repair(fast_value, fn, ctx, _repair_rounds(ctx, rows, size), aux)
+    if t.bucket_fits and n <= t.bucket:
+        return _repair(fast_value, pure_fn, ctx, _repair_rounds(ctx, rows, t.bucket), aux)
+    if t.tier2 and (n <= t.bucket2 or not t.full_fits):
         return _repair(fast_value, exact_fn, ctx,
-                       _repair_rounds(ctx, rows[:bucket2], bucket2), aux)
-    if not full_fits:
+                       _repair_rounds(ctx, rows[:t.bucket2], t.bucket2), aux)
+    if not t.full_fits:
         return _repair(fast_value, pure_fn, ctx,
-                       _repair_rounds(ctx, rows[:bucket], bucket), aux)
+                       _repair_rounds(ctx, rows[:t.bucket], t.bucket), aux)
     # the whole batch, clean rows too (and the two-way guard of bucket 0)
-    whole = exact(ctx) if aux is None else exact(ctx, aux)
+    whole = t.exact(ctx) if aux is None else t.exact(ctx, aux)
     return whole.to(fast_value.dtype)
 
 
@@ -495,14 +552,27 @@ class Topology:
         loss, n = self._guarded_loss(ctx, fast, count=True)
         return loss, GuardedPack(pack, n)
 
+    def _backward(self, ctx: CtcContext, pack):
+        """``(grad, loss, signal)`` of the kernel path's backward on the
+        forward's ``pack`` (made here where there is none): the fast
+        gradient and the backward's loss (``cuda_lattice.carry_loss``),
+        which masks the gradient and the softmax term, and the guard's
+        flush signal (``cuda_lattice.flush_signal``)."""
+        if pack is None:
+            pack = self._loss_and_pack(ctx)[1]
+        grad, loss = self._gradient_with_loss(ctx, None, pack)
+        if pack is None:  # an empty batch
+            return grad, loss, loss
+        return grad, loss, _kernels.flush_signal(pack.loss, loss, ctx.logit_length)
+
     def gradient_fast(self, ctx: CtcContext, pack=None):
         """Gradient w.r.t. log-probabilities; the backward kernel on the
         kernel path."""
         if not self._kernel_path(ctx, training=True):
             return self._pure_grad(ctx)
-        fast, fast_loss = self._gradient_with_loss(ctx, None, _unwrap_pack(pack)[0])
+        fast, _, signal = self._backward(ctx, _unwrap_pack(pack)[0])
         return self._guard(fast, self._exact_grad, lambda c: self._pure_repair(c)[1],
-                           fast_loss, ctx)[0]
+                           signal, ctx)[0]
 
     def dlogits_fast(self, ctx: CtcContext, d_loss, pack=None):
         """Logits cotangent ``d_loss * (grad + softmax * valid)`` on the
@@ -517,9 +587,12 @@ class Topology:
         backward runs unguarded, with no host synchronisation; otherwise
         the guard runs as under ``"post"``, on the backward's flush signal,
         so the two give the same d_logits.  The port's backward also flags
-        a row whose scans disagree (``cuda_lattice.beta_carry_loss``); under
-        ``"pre"`` a clean forward trusts the forward's signal, as the JAX
-        package's does, and such a row keeps zero d_logits."""
+        a row whose scans disagree (``cuda_lattice.flush_signal``), which
+        only the guard reads: under ``"post"`` and ``"grad"`` the row is
+        repaired; under ``"pre"`` after a clean forward it keeps its fast
+        gradient, the value of the JAX package's ``"pre"``, which has no
+        such flag (repairing it would take the host read that ``"pre"``
+        saves)."""
 
         def pure(c, dl):
             loss = self.pure_loss(c)
@@ -537,15 +610,16 @@ class Topology:
             return pure(ctx, d_loss)
         pack, forward_flushed = _unwrap_pack(pack)
         if _kernels.fused_epilogue_ok(ctx, pack):
-            fast, fast_loss = _kernels.streamed_dlogits(
+            fast, loss = _kernels.streamed_dlogits(
                 ctx, d_loss, *self._streamed_acts(ctx, pack))
+            signal = _kernels.flush_signal(pack.loss, loss, ctx.logit_length)
             forward_flushed = None
         else:
-            grad, fast_loss = self._gradient_with_loss(ctx, None, pack)
-            fast = compose_dlogits(ctx, grad, fast_loss, d_loss)
+            grad, loss, signal = self._backward(ctx, pack)
+            fast = compose_dlogits(ctx, grad, loss, d_loss)
             if get_config().guard_mode != "pre":
                 forward_flushed = None
-        return self._guard(fast, exact, pure_repair, fast_loss, ctx, aux=d_loss,
+        return self._guard(fast, exact, pure_repair, signal, ctx, aux=d_loss,
                            forward_flushed=forward_flushed)[0]
 
 

@@ -80,8 +80,9 @@ class KernelConfig:
     guards the composed ``d_logits``; ``"pre"`` branches before the
     backward on the forward's flushed count (a clean step runs the
     unguarded backward); ``"grad"`` guards the gradient and composes the
-    log-softmax cotangent after it.  They give the same ``d_logits``
-    (``ops/topology.py``).
+    log-softmax cotangent after it.  They give the same ``d_logits``, but
+    for a row that only the backward's scan-gap flag marks, which ``"pre"``
+    after a clean forward leaves its fast gradient (``ops/topology.py``).
     ``guard_struct``: ``"while"`` repairs every flushed row in gathered
     rounds and keeps clean rows' fast values; ``"cond"`` is the JAX
     package's tiered lattice, whose tier 3 reroutes the whole batch, clean
