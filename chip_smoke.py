@@ -242,18 +242,52 @@ then simplified):
    backward, and a ``no_grad`` call);
    then the clean long-T classic step (B=256, T=4000) under capture, which
    raises ``ValueError`` (a chunked time axis), and the capture of one of
-   its repair rounds through the float64 pure path: seconds and nodes.
+   its repair rounds through the float64 pure path: seconds and nodes;
+13. the loss under ``torch.compile(fullgraph=True, dynamic=False)``,
+   inductor's default mode, its cache in a new temporary directory
+   (``drive_compile``): the kernels are ``ctc_port::`` custom ops of the
+   graph and the guard's rounds ``torch.cond``.  (a) For each topology at
+   the headline the training step (the compiled loss and its finite sum,
+   ``.backward()`` through the compiled backward) and the forward-only
+   call: one graph each, the eager call's launches (B2 and B3, B6 resid and
+   B7; B1 final, B6 final), loss rtol 1e-5 and d_logits atol 1e-5 from
+   float64, the largest difference from the eager step printed; (b) the
+   classic step on phase 10's batches at n = 0, 1, 40 rows flushed under
+   "while" ((a)'s graph), "cond" and ``repair_bucket=0``: one graph for
+   every n (no recompile), the eager step's launches at each n (repairs by
+   tier: none at n = 0, none through tier 1's pure path), loss and
+   d_logits within phase 3's 1e-5 of the eager step's, repaired rows 2e-4
+   from float64, clean rows the clean compiled step's bits but where the
+   whole batch reroutes (then the loss rtol 1e-5 from float64); (c) the
+   classic fused step at V=128 (B12 once), held as in phase 3; (d) the
+   classic long-T step (B=256, T=4000, 8 chunks; row 220 infeasible at
+   seed 0) compiled with ``backend="aot_eager"`` (``LONG_T_BACKEND``:
+   inductor's code generation for it takes over ten minutes), its launches
+   the eager step's, its loss and d_logits the eager step's bit for bit,
+   ``LONG_ROWS`` held to float64 as in phase 7, its peak memory; (e) the
+   flagship encoder (phase 9's
+   widths and batch, one device) whose forward and finite-mean classic
+   loss are compiled with their backward, 5 Adam steps (the optimizer
+   eager) from the same seed as 5 eager steps: B2 and B3 once a step, step
+   1's loss within 1e-3 relative of the eager step's, its parameter
+   gradients within ``ENC_GRAD_SHARE`` of each tensor's largest entry.
+   Each case prints its host ms (median of 20; of 3 at long T and for a
+   call over a quarter second), device ms and idle share (one profile of
+   3 calls), compile seconds (the first call's) and graph count, beside
+   the eager call's.
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
 phase 7, each posteriors call of phase 8, each step and call of phase 9,
 each step, call and pair of them of phase 10, each call of phase 11, each
-capture of phase 12) and read after it: a kernel that its path never
-launched fails the run, and the ``kernels`` line gives each kernel's
-launches summed over the paths.  A graph's replays launch nothing on the
-host: its kernels count once, at the capture.  The last lines are the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.  Any failed check exits
-non-zero.
+capture of phase 12, each call of phase 13) and read after it: a kernel
+that its path never launched fails the run, and the ``kernels`` line
+gives each kernel's launches summed over the paths.  A graph's replays
+launch nothing on the host: its kernels count once, at the capture.  A
+compiled function's kernels count at every call: their custom ops count
+where they launch, at run time.  The last lines are the ``kernels`` JSON,
+the card's name and power limit, and ``{"ok": true, "device": ...}``.  Any
+failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -3527,6 +3561,428 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
     return dict(launches=launches)
 
 
+# ---- phase 13: the loss under torch.compile ------------------------------------
+
+COMPILE_N = (0, 1, 40)  # phase 10's ladder points: clean, tier 1, beyond tier 2
+# the guard's configs of (b): the "while" struct (the default), "cond", and
+# the two-way guard (repair_bucket 0)
+COMPILE_CONFIGS = (("while", {}), ("cond", {"guard_struct": "cond"}),
+                   ("two_way", {"repair_bucket": 0}))
+COMPILE_ENC_RTOL = 1e-3  # the compiled encoder's step-1 loss against the eager step's
+# (d)'s backend: inductor's code generation for the chunked long-T step
+# takes over ten minutes on the card (tools/compile_long_t.py), past the
+# smoke's budget, so (d) compiles with AOTAutograd and runs its graphs
+# eagerly: the same trace, custom ops and guard, bit for bit the eager step
+LONG_T_BACKEND = "aot_eager"
+
+
+def unique_graphs() -> int:
+    """The graphs Dynamo has compiled in this process."""
+    from torch._dynamo.utils import counters
+
+    return counters["stats"]["unique_graphs"]
+
+
+def compile_fn(torch, fn):
+    """``fn`` under ``torch.compile`` as phase 13 takes it: inductor's
+    default mode, ``fullgraph=True`` (a graph break raises), static
+    shapes."""
+    return torch.compile(fn, fullgraph=True, dynamic=False)
+
+
+def loss_and_total(loss_fn, labels):
+    """``f(x, label_length, logit_length) -> (loss, finite sum)``: what a
+    compiled training step computes; ``.backward()`` of the sum runs
+    outside, through the compiled backward."""
+    import torch
+
+    def f(x, label_length, logit_length):
+        loss = loss_fn(labels, x, label_length, logit_length, 0)
+        return loss, torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+
+    return f
+
+
+def run_step(f, logits, label_length, logit_length):
+    """``(loss, d_logits)`` of a training step of ``f`` (:func:`loss_and_total`)."""
+    x = logits.detach().requires_grad_(True)
+    loss, total = f(x, label_length, logit_length)
+    total.backward()
+    return loss.detach(), x.grad
+
+
+def drive_compile(torch, dev, seed, sync, card) -> dict:
+    """Phase 13, the loss under ``torch.compile(fullgraph=True,
+    dynamic=False)`` (inductor), the kernels ``ctc_port::`` custom ops of
+    its graph and the guard's rounds ``torch.cond``: (a) each topology's
+    training step and forward-only call at the headline; (b) the classic
+    step on phase 10's batches (n of ``COMPILE_N`` rows flushed) under each
+    of ``COMPILE_CONFIGS``, one graph for every n; (c) the classic fused
+    step at V=128 (B12); (d) the classic long-T step (B=256, T=4000, 8
+    chunks), with ``LONG_T_BACKEND``; (e) the flagship encoder's forward and finite-mean loss
+    compiled with its backward, 5 Adam steps (the optimizer eager).  The
+    launches of each compiled call are read after it, from counts set to 0
+    just before (the kernels' custom ops count where they launch, at run
+    time), and equal the eager call's.  Each case prints its host ms
+    (median of 20, of 3 at long T and for a call over a quarter second),
+    device ms and idle share (one profile of 3 calls), compile seconds (the
+    first call's, inductor's cache in a new directory) and graph count.
+    Returns the launches."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import tf_seq2seq_losses_tpu_torch as ctc
+    from tf_seq2seq_losses_tpu_torch.models import encoder as enc
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+    from tf_seq2seq_losses_tpu_torch.utils.config import config_override
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    t_phase = time.perf_counter()
+    cache = tempfile.TemporaryDirectory()
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache.name  # compile seconds are cold
+    launches = Counter()
+
+    def launched(topology, fn):
+        """``fn()`` and the launches it made (counts reset first)."""
+        reset_launches()
+        out = fn()
+        sync()
+        got = {k: n for k, n in read_launches(topology).items() if n}
+        launches.update(got)
+        return out, got
+
+    def first_call(topology, fn):
+        """The first call of a compiled ``fn``: ``(out, launches, compile
+        seconds, graphs compiled)``."""
+        g0, t0 = unique_graphs(), time.perf_counter()
+        out, got = launched(topology, fn)
+        seconds = time.perf_counter() - t0
+        log(f"phase 13: a first call {seconds:.1f} s, {unique_graphs() - g0} graphs")
+        return out, got, seconds, unique_graphs() - g0
+
+    def timing(fn, runs=RUNS):
+        """Host ms (median of ``runs``; of ``LONG_RUNS`` for a call over a
+        quarter second, as at long T), device ms and idle share (a profile
+        of 3 calls; of 1 for a call over a quarter second: the profiler
+        takes tens of seconds a call of tier 1's float64 pure path, whose
+        loop launches some 10^5 kernels)."""
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        steps = 3
+        if time.perf_counter() - t0 > 0.25:
+            runs, steps = min(runs, LONG_RUNS), 1
+        ms = host_ms(torch, fn, runs=runs)
+        return dict(host_ms=ms, runs=runs, **profile_step(torch, dev, ms, fn, steps=steps))
+
+    report = {}
+    inputs = make_inputs(torch, seed, dev)
+    labels, logits, label_length, logit_length = inputs
+    batch = len(labels)
+    row_ids = torch.arange(batch, device=dev)
+    ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                            logit_length, 0)
+
+    # ---- (a) the headline training step and forward-only call ----------------
+    steps = {}
+    for name in ("classic", "simplified"):
+        t_case = time.perf_counter()
+        loss_fn = loss_function(name)
+        f = loss_and_total(loss_fn, labels)
+        cstep = compile_fn(torch, f)
+        steps[name] = (f, cstep)
+        (loss_c, d_c), got_c, compile_s, graphs = first_call(
+            name, lambda: run_step(cstep, *inputs[1:]))
+        check(graphs == 1, f"phase 13 {name} step compiled {graphs} graphs")
+        (loss_c, d_c), got_c = launched(name, lambda: run_step(cstep, *inputs[1:]))
+        (loss_e, d_e), got_e = launched(name, lambda: run_step(f, *inputs[1:]))
+        check(got_c == got_e == {f"{name}_fwd[resid]": 1, f"{name}_bwd_streamed": 1},
+              f"phase 13 {name} step launches: compiled {got_c}, eager {got_e}")
+        feasible = TOPOLOGIES[name].feasible(ctx)
+        check(bool(torch.isposinf(loss_c[~feasible]).all())
+              and bool((d_c[~feasible] == 0).all()),
+              f"phase 13 {name}: infeasible rows +inf with zero d_logits")
+        loss64, d64 = pure_float64(labels, logits, label_length, logit_length, name)
+        agree(loss_c, loss64, 1e-5, 0.0, f"phase 13 {name} compiled loss vs float64")
+        agree(d_c, d64, 0.0, 1e-5, f"phase 13 {name} compiled d_logits vs float64")
+        fwd_c = compile_fn(torch, loss_fn)
+        with torch.no_grad():
+            eval_c, got_fc, eval_s, eval_graphs = first_call(
+                name, lambda: fwd_c(labels, logits, label_length, logit_length, 0))
+            eval_c, got_fc = launched(
+                name, lambda: fwd_c(labels, logits, label_length, logit_length, 0))
+            eval_e, got_fe = launched(
+                name, lambda: loss_fn(labels, logits, label_length, logit_length, 0))
+        check(eval_graphs == 1 and got_fc == got_fe == {f"{name}_fwd[final]": 1},
+              f"phase 13 {name} forward-only: {eval_graphs} graphs, launches compiled "
+              f"{got_fc}, eager {got_fe}")
+        agree(eval_c, loss64, 1e-5, 0.0, f"phase 13 {name} compiled forward-only loss")
+
+        def eval_call(_fn):
+            with torch.no_grad():
+                return _fn(labels, logits, label_length, logit_length, 0)
+
+        report[f"(a) {name}"] = {
+            "compile_s": {"step": compile_s, "forward_only": eval_s},
+            "graphs": {"step": graphs, "forward_only": eval_graphs},
+            "launches_per_step": got_c,
+            "vs_float64": {"loss": max_err(loss_c, loss64), "d_logits": max_err(d_c, d64)},
+            "vs_eager": {"loss": max_err(loss_c, loss_e), "d_logits": max_err(d_c, d_e),
+                         "forward_only": max_err(eval_c, eval_e)},
+            "step": {"compiled": timing(lambda: run_step(cstep, *inputs[1:])),
+                     "eager": timing(lambda: run_step(f, *inputs[1:]))},
+            "forward_only": {"compiled": timing(lambda: eval_call(fwd_c)),
+                             "eager": timing(lambda: eval_call(loss_fn))}}
+        report[f"(a) {name}"]["case_s"] = time.perf_counter() - t_case
+        log(f"phase 13 (a) {name} compiled step and forward-only call ({card}; B={batch}, "
+            f"T={logits.shape[1]}, V={logits.shape[2]}): ok, "
+            + json.dumps(report[f"(a) {name}"]))
+
+    # ---- (b) the guard on phase 10's batches, one graph a config -------------
+    batches = {n: saturate(torch, *inputs, rows=tuple((r, LADDER_SCALE)
+                                                      for r in range(2, 2 + n)))
+               for n in COMPILE_N}
+    f, _ = steps["classic"]
+    f64 = {}  # batch n's float64 pure loss and d_logits
+    for tag, cfg in COMPILE_CONFIGS:
+        t_case = time.perf_counter()
+        with config_override(**cfg):
+            # the default config reuses (a)'s step: its graph serves every n
+            cstep = steps["classic"][1] if not cfg else compile_fn(torch, f)
+            g0 = unique_graphs()
+            compile_s = None
+            per_n, clean = {}, None
+            for n in COMPILE_N:
+                b = batches[n]
+                t0 = time.perf_counter()
+                (loss_c, d_c), got_c = launched("classic", lambda: run_step(cstep, *b))
+                if compile_s is None:
+                    compile_s = time.perf_counter() - t0
+                    log(f"phase 13 (b) {tag}: first call {compile_s:.1f} s")
+                    (loss_c, d_c), got_c = launched("classic",
+                                                    lambda: run_step(cstep, *b))
+                (loss_e, d_e), got_e = launched("classic", lambda: run_step(f, *b))
+                tier = ladder_tier(cfg.get("guard_struct", "while"), False, n, batch)[0]
+                if n and cfg.get("repair_bucket") == 0:
+                    tier = "whole"
+                repairs = {k: v for k, v in got_c.items() if "_log_" in k}
+                check(got_c == got_e and bool(repairs) == (tier not in ("clean", "pure")),
+                      f"phase 13 (b) {tag} n={n} ({tier}): launches compiled {got_c}, "
+                      f"eager {got_e}")
+                # phase 10's tolerances: rows of the fast path within phase
+                # 3's 1e-5 of the eager step's (held to the kernels and to
+                # float64 in phases 3 and 10) and the clean compiled step's
+                # bits; rows through the float32 log-space route, whose
+                # error grows with the row (1.5e-3 to 2.6e-3 from float64
+                # in d_logits at T=500, phase 10) and amplifies the ulps by
+                # which inductor's glue moves its inputs: the loss rtol 1e-5
+                # of the eager step's, a repaired row within the route's
+                # 2e-4 of float64, the rerouted batch's d_logits no farther
+                # from float64 than the eager step's, give or take 2e-4
+                sat = (row_ids >= 2) & (row_ids < 2 + n)
+                fast = ~sat if tier != "whole" else torch.zeros_like(sat)
+                agree(loss_c[fast], loss_e[fast], 1e-5, 0.0,
+                      f"phase 13 (b) {tag} n={n}: fast rows' loss vs eager")
+                agree(d_c[fast], d_e[fast], 0.0, 1e-5,
+                      f"phase 13 (b) {tag} n={n}: fast rows' d_logits vs eager")
+                agree(loss_c[~fast], loss_e[~fast], 1e-5, 0.0,
+                      f"phase 13 (b) {tag} n={n}: rerouted rows' loss vs eager")
+                if n:
+                    if n not in f64:
+                        f64[n] = pure_float64(labels, *b, "classic")
+                    l64, d64 = f64[n]
+                    agree(loss_c[sat], l64[sat], 0.0, FLUSHED_ATOL,
+                          f"phase 13 (b) {tag} n={n}: repaired rows' loss vs float64")
+                    agree(d_c[sat], d64[sat], 0.0, FLUSHED_ATOL,
+                          f"phase 13 (b) {tag} n={n}: repaired rows' d_logits vs float64")
+                if n == 0:
+                    clean = (loss_c, d_c)
+                elif tier == "whole":
+                    agree(loss_c, l64, 1e-5, 0.0,
+                          f"phase 13 (b) {tag} n={n}: the rerouted batch's loss vs float64")
+                    err_c, err_e = max_err(d_c, d64), max_err(d_e, d64)
+                    check(err_c <= err_e + FLUSHED_ATOL,
+                          f"phase 13 (b) {tag} n={n}: the rerouted batch's d_logits "
+                          f"{err_c:.3g} from float64, the eager step's {err_e:.3g}")
+                else:
+                    check(torch.equal(loss_c[~sat], clean[0][~sat])
+                          and torch.equal(d_c[~sat], clean[1][~sat]),
+                          f"phase 13 (b) {tag} n={n}: clean rows not the clean step's bits")
+                per_n[f"n={n}"] = {
+                    "tier": tier, "repair_launches": repairs,
+                    "vs_eager": {"loss": max_err(loss_c, loss_e),
+                                 "d_logits": max_err(d_c, d_e)},
+                    "compiled": timing(lambda: run_step(cstep, *b)),
+                    "eager": timing(lambda: run_step(f, *b))}
+            graphs = unique_graphs() - g0
+            check(graphs == (0 if not cfg else 1),
+                  f"phase 13 (b) {tag}: {graphs} graphs compiled over n in {COMPILE_N}")
+        report[f"(b) {tag}"] = {"compile_s": compile_s, "graphs": max(graphs, 1),
+                                "recompiles": 0, "case_s": time.perf_counter() - t_case,
+                                **per_n}
+        log(f"phase 13 (b) classic {tag} guard, one graph for n in {COMPILE_N} ({card}): "
+            f"ok, " + json.dumps(report[f"(b) {tag}"]))
+
+    # ---- (c) the fused step at V=128 (B12) --------------------------------------
+    t_case = time.perf_counter()
+    v_inputs = make_inputs(torch, seed, dev, vocab=SLICE_VOCAB)
+    v_labels = v_inputs[0]
+    with config_override(fused_epilogue=True):
+        f = loss_and_total(loss_function("classic"), v_labels)
+        cstep = compile_fn(torch, f)
+        (loss_c, d_c), got_c, compile_s, graphs = first_call(
+            "classic", lambda: run_step(cstep, *v_inputs[1:]))
+        (loss_c, d_c), got_c = launched("classic", lambda: run_step(cstep, *v_inputs[1:]))
+        (loss_e, d_e), got_e = launched("classic", lambda: run_step(f, *v_inputs[1:]))
+        check(graphs == 1 and got_c == got_e == {"classic_fwd[resid]": 1,
+                                                "classic_bwd_streamed": 1,
+                                                "fused_dlogits": 1},
+              f"phase 13 (c) fused step: {graphs} graphs, launches compiled {got_c}, "
+              f"eager {got_e}")
+        loss64, d64 = pure_float64(*v_inputs, "classic")
+        agree(loss_c, loss64, 1e-5, 0.0, "phase 13 (c) fused compiled loss vs float64")
+        agree(d_c, d64, 0.0, 1e-5, "phase 13 (c) fused compiled d_logits vs float64")
+        report["(c) fused V=128"] = {
+            "compile_s": compile_s, "graphs": graphs, "launches_per_step": got_c,
+            "vs_float64": {"loss": max_err(loss_c, loss64), "d_logits": max_err(d_c, d64)},
+            "vs_eager": {"loss": max_err(loss_c, loss_e), "d_logits": max_err(d_c, d_e)},
+            "compiled": timing(lambda: run_step(cstep, *v_inputs[1:])),
+            "eager": timing(lambda: run_step(f, *v_inputs[1:])),
+            "case_s": time.perf_counter() - t_case}
+    log(f"phase 13 (c) classic fused step at V={SLICE_VOCAB} ({card}): ok, "
+        + json.dumps(report["(c) fused V=128"]))
+    del v_inputs, v_labels, batches, loss64, d64, loss_c, d_c, loss_e, d_e
+
+    # ---- (d) long T: the chunked path ---------------------------------------------
+    t_case = time.perf_counter()
+    long_inputs = make_inputs(torch, seed, dev, max_t=LONG_T, infeasible=False)
+    l_labels = long_inputs[0]
+    f = loss_and_total(loss_function("classic"), l_labels)
+    cstep = torch.compile(f, fullgraph=True, dynamic=False, backend=LONG_T_BACKEND)
+    l_ctx = core.make_context(l_labels, logit_to_logproba(long_inputs[1], 2),
+                              long_inputs[2], long_inputs[3], 0)
+    n_chunks = cl.chunk_plan(l_ctx)[0]
+    _, got_c, compile_s, graphs = first_call(
+        "classic", lambda: run_step(cstep, *long_inputs[1:]))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    (loss_c, d_c), got_c = launched("classic", lambda: run_step(cstep, *long_inputs[1:]))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    (loss_e, d_e), got_e = launched("classic", lambda: run_step(f, *long_inputs[1:]))
+    want = {k: n_chunks for k in ("classic_fwd[final]", "classic_fwd[bound]", "classic_bwd")}
+    check(graphs == 1 and got_c == got_e == want,
+          f"phase 13 (d) long-T step: {graphs} graphs, launches compiled {got_c}, "
+          f"eager {got_e}, expected {want}")
+    check(torch.equal(loss_c, loss_e) and torch.equal(d_c, d_e),
+          f"phase 13 (d) long-T step ({LONG_T_BACKEND}): not the eager step bit for bit")
+    feasible = TOPOLOGIES["classic"].feasible(l_ctx)
+    check((seed != 0 or 220 not in LONG_ROWS or not bool(feasible[220]))
+          and bool(torch.isposinf(loss_c[~feasible]).all())
+          and bool((d_c[~feasible] == 0).all()),
+          "phase 13 (d) long T: infeasible rows (row 220 at seed 0) +inf, zero d_logits")
+    rows = torch.tensor(LONG_ROWS, device=dev)
+    loss64, d64 = pure_float64(*[t[rows] for t in long_inputs], "classic")
+    agree(loss_c[rows], loss64, 1e-5, 0.0, "phase 13 (d) long-T loss vs float64")
+    agree(d_c[rows], d64, 0.0, 1e-5, "phase 13 (d) long-T d_logits vs float64")
+    report["(d) long T"] = {
+        "backend": LONG_T_BACKEND,
+        "compile_s": compile_s, "graphs": graphs, "launches_per_step": got_c,
+        "peak_gb": peak / 1e9,
+        "vs_float64_rows": {"loss": max_err(loss_c[rows], loss64),
+                            "d_logits": max_err(d_c[rows], d64)},
+        "vs_eager": {"loss": max_err(loss_c, loss_e), "d_logits": max_err(d_c, d_e)},
+        "compiled": timing(lambda: run_step(cstep, *long_inputs[1:]), runs=LONG_RUNS),
+        "eager": timing(lambda: run_step(f, *long_inputs[1:]), runs=LONG_RUNS),
+        "case_s": time.perf_counter() - t_case}
+    log(f"phase 13 (d) classic long T (B={len(l_labels)}, T={LONG_T}, labels "
+        f"{list(l_labels.shape)}, {n_chunks} chunks; {card}): ok, "
+        + json.dumps(report["(d) long T"]))
+    del long_inputs, l_labels, l_ctx, loss_c, d_c, loss_e, d_e, cstep, f
+
+    # ---- (e) the flagship encoder, forward and loss compiled ------------------------
+    t_case = time.perf_counter()
+    e_batch = encoder_batch(torch, seed, dev)
+    e_logit_length = enc.subsampled_length(e_batch["feature_length"])
+
+    def encoder_loss(model, features):
+        losses = ctc.classic_ctc_loss(e_batch["labels"], model(features),
+                                      e_batch["label_length"], e_logit_length, 0)
+        finite = torch.isfinite(losses)
+        total = torch.where(finite, losses, torch.zeros_like(losses)).sum()
+        return total / torch.clamp(finite.sum().to(torch.float32), min=1.0)
+
+    runs = {}
+    for tag in ("eager", "compiled"):
+        model = enc.init_encoder(torch.Generator().manual_seed(seed), ENC_FEATURES,
+                                 ENC_HIDDEN, ENC_VOCAB, ENC_LAYERS, device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        fn = compile_fn(torch, encoder_loss) if tag == "compiled" else encoder_loss
+
+        def train(_model=model, _opt=opt, _fn=fn):
+            _opt.zero_grad(set_to_none=True)
+            loss = _fn(_model, e_batch["features"])
+            loss.backward()
+            _opt.step()
+            return loss.detach()
+
+        losses, per_step, grads = [], [], None
+        g0, t0 = unique_graphs(), time.perf_counter()
+        for i in range(ENC_STEPS):
+            loss, got = launched("classic", train)
+            if i == 0:
+                first_s = time.perf_counter() - t0
+                grads = param_grads(model)
+            losses.append(float(loss))
+            per_step.append(got)
+            # B2 and B3 once a step; the guard repairs the rows that the
+            # steps' logits flush (after the first Adam step most of them)
+            check(got.get("classic_fwd[resid]") == 1 and got.get("classic_bwd_streamed") == 1
+                  and set(got) <= {"classic_fwd[resid]", "classic_bwd_streamed",
+                                   "classic_log_fwd[final]", "classic_log_fwd[resid]",
+                                   "classic_log_bwd"},
+                  f"phase 13 (e) {tag} encoder step {i + 1} launched {got}")
+        runs[tag] = dict(losses=losses, grads=grads, first_s=first_s, per_step=per_step,
+                         graphs=unique_graphs() - g0, train=train)
+    check(all(math.isfinite(v) for v in runs["compiled"]["losses"]),
+          f"phase 13 (e) compiled losses {runs['compiled']['losses']}")
+    rel = abs(runs["compiled"]["losses"][0] - runs["eager"]["losses"][0]) / abs(
+        runs["eager"]["losses"][0])
+    check(rel <= COMPILE_ENC_RTOL, f"phase 13 (e) step 1 loss compiled "
+          f"{runs['compiled']['losses'][0]} vs eager {runs['eager']['losses'][0]}")
+    shares = {k: max_err(g, runs["eager"]["grads"][k]) / float(
+        runs["eager"]["grads"][k].abs().max()) for k, g in runs["compiled"]["grads"].items()}
+    worst = max(shares, key=shares.get)
+    check(shares[worst] <= ENC_GRAD_SHARE, f"phase 13 (e) step 1 gradient of {worst}: "
+          f"{shares[worst]:.3g} of its largest entry from the eager step's")
+    check(runs["compiled"]["graphs"] == 1,
+          f"phase 13 (e) compiled {runs['compiled']['graphs']} graphs")
+    check(runs["compiled"]["per_step"][0] == runs["eager"]["per_step"][0],
+          f"phase 13 (e) step 1 launches: compiled {runs['compiled']['per_step'][0]}, "
+          f"eager {runs['eager']['per_step'][0]}")
+    report["(e) encoder"] = {
+        "compile_s": runs["compiled"]["first_s"],
+        "graphs": runs["compiled"]["graphs"],
+        "losses": {k: r["losses"] for k, r in runs.items()},
+        "launches_per_step": {k: r["per_step"] for k, r in runs.items()},
+        "step1_loss_rel": rel, "step1_grad_share": {worst: shares[worst]},
+        "compiled": timing(runs["compiled"]["train"]),
+        "eager": timing(runs["eager"]["train"]),
+        "case_s": time.perf_counter() - t_case}
+    log(f"phase 13 (e) encoder (F={ENC_FEATURES}, H={ENC_HIDDEN}, V={ENC_VOCAB}, "
+        f"{ENC_LAYERS} layers, B={len(e_batch['labels'])} x {ENC_FRAMES} frames) forward "
+        f"and classic finite-mean loss compiled with the backward, {ENC_STEPS} Adam "
+        f"steps ({card}): ok, " + json.dumps(report["(e) encoder"]))
+    import torch._inductor.async_compile as async_compile
+
+    async_compile.shutdown_compile_workers()  # its worker processes end with the phase
+    cache.cleanup()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "report": report}
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -4027,6 +4483,9 @@ def run(seed: int, dev) -> dict:
 
     # ---- 12. the jitted paths: CUDA graphs ----------------------------------------
     launches.update(drive_jit(torch, dev, seed, sync, card)["launches"])
+
+    # ---- 13. the loss under torch.compile -------------------------------------------
+    launches.update(drive_compile(torch, dev, seed, sync, card)["launches"])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

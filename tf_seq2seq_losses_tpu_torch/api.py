@@ -29,11 +29,11 @@ from tf_seq2seq_losses_tpu_torch.ops import core as _core
 from tf_seq2seq_losses_tpu_torch.ops import decode as _decode
 from tf_seq2seq_losses_tpu_torch.ops import sample as _sample
 from tf_seq2seq_losses_tpu_torch.ops.autodiff import (
-    Gradient,
-    Hessian,
-    Loss,
-    LossFromLogits,
     PackHolder,
+    apply_gradient,
+    apply_hessian,
+    apply_loss,
+    apply_loss_from_logits,
     training,
 )
 from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES, Topology
@@ -58,7 +58,7 @@ def ctc_loss_from_logproba(
     a third raises."""
     topo = _check_topology(topology)
     logprobas = _core.values_tensor(logprobas)
-    return Loss.apply(logprobas, labels, label_length, logit_length, blank_index, topo,
+    return apply_loss(logprobas, labels, label_length, logit_length, blank_index, topo,
                       training(logprobas), PackHolder())
 
 
@@ -75,8 +75,8 @@ def ctc_loss(
             f"logits must be rank 3 [batch, time, vocab], got shape {tuple(logits.shape)}"
         )
     logits = logits.to(torch.float32)
-    return LossFromLogits.apply(logits, labels, label_length, logit_length, blank_index,
-                                topo, training(logits), PackHolder())
+    return apply_loss_from_logits(logits, labels, label_length, logit_length,
+                                  blank_index, topo, training(logits), PackHolder())
 
 
 def classic_ctc_loss(
@@ -103,7 +103,7 @@ def ctc_loss_gradient(
 ) -> torch.Tensor:
     """Analytic loss gradient w.r.t. ``logprobas``."""
     topo = _check_topology(topology)
-    return Gradient.apply(_core.values_tensor(logprobas), labels, label_length,
+    return apply_gradient(_core.values_tensor(logprobas), labels, label_length,
                           logit_length, blank_index, topo, None)
 
 
@@ -114,7 +114,7 @@ def ctc_loss_hessian(
     """Analytic Hessian [B, T, V, T, V] w.r.t. ``logprobas`` (small shapes:
     O(T^2 L^2) memory)."""
     topo = _check_topology(topology)
-    return Hessian.apply(_core.values_tensor(logprobas), labels, label_length,
+    return apply_hessian(_core.values_tensor(logprobas), labels, label_length,
                          logit_length, blank_index, topo)
 
 

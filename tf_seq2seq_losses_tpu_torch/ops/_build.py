@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = (
@@ -263,13 +265,27 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
 
 
+_optin: dict = {}  # CUDA device index -> the shared memory one CTA may opt into
+
+
+@torch.compiler.assume_constant_result
+def _card_smem_limit(device) -> int:
+    """The shared memory one CTA may use on the CUDA ``device``, read once a
+    device.  A constant under ``torch.compile``: the scheme it routes a call
+    to is decided when the graph is traced, and the traced code reads no
+    device property."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _optin:
+        props = torch.cuda.get_device_properties(index)
+        _optin[index] = props.shared_memory_per_block_optin
+    return _optin[index]
+
+
 def smem_limit(device) -> int:
     """Shared memory one CTA may use: the card's for a CUDA device, else
     :data:`SMEM_LIMIT`."""
-    import torch
-
     if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+        return _card_smem_limit(device)
     return SMEM_LIMIT
 
 

@@ -61,6 +61,14 @@ the analytic Hessian's contraction and a third derivative raises
 ``NotImplementedError``.  Forward mode (``torch.func.jvp``, ``jacfwd``,
 ``hessian``, ``torch.autograd.forward_ad``) raises ``TypeError``, as the
 JAX package's ``custom_vjp`` does.
+
+``torch.compile(fullgraph=True)`` traces the chain through the appliers
+(``apply_loss_from_logits`` and the others), which apply each Function
+without its ``jvp`` rule under compile; the pack rides the holder from the
+traced forward to the traced backward.  A compiled loss's backward is
+AOTAutograd's, which refuses a double backward; a compiled
+``ctc_loss_hessian`` on an input that requires grad raises when it is
+traced (its backward raises).
 """
 
 from __future__ import annotations
@@ -157,7 +165,7 @@ def _pack(holder):
 def _hessian_vjp(logprobas, args, cotangent):
     """``cotangent`` contracted with the analytic Hessian (differentiable:
     its derivative is the Hessian's backward, which raises)."""
-    hess = Hessian.apply(logprobas, *args)
+    hess = apply_hessian(logprobas, *args)
     return torch.einsum("bxy,btvxy->btv", cotangent, hess)
 
 
@@ -165,6 +173,20 @@ class _ReverseOnly(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, *tangents):
         raise TypeError(_NO_FORWARD_MODE)
+
+
+def _applier(function):
+    """``function.apply``, which under ``torch.compile`` applies a subclass
+    that keeps the base's ``jvp`` instead: Dynamo refuses a Function that
+    defines one, and a compiled graph has no forward-mode rules anyway."""
+    traced = type(function.__name__, (function,), {
+        "jvp": staticmethod(torch.autograd.Function.jvp),
+        "__module__": function.__module__, "__qualname__": function.__qualname__})
+
+    def apply(*args):
+        return (traced if torch.compiler.is_compiling() else function).apply(*args)
+
+    return apply
 
 
 class Hessian(_ReverseOnly):
@@ -246,7 +268,7 @@ class DLogits(_ReverseOnly):
         d_lp = _hessian_vjp(logprobas, ctx.args, weighted) + weighted * softmax
         d_dl = None
         if ctx.needs_input_grad[1]:
-            grad = Gradient.apply(logprobas, *ctx.args, None)
+            grad = apply_gradient(logprobas, *ctx.args, None)
             d_dl = (u * (grad + softmax)).sum(dim=(1, 2))
         return (d_lp, d_dl, None) + _NO_GRAD + (None,)
 
@@ -276,7 +298,7 @@ class Loss(_ReverseOnly):
     @staticmethod
     def backward(ctx, d_loss):
         (logprobas,) = ctx.saved_tensors
-        grad = Gradient.apply(logprobas, *ctx.args, ctx.holder)
+        grad = apply_gradient(logprobas, *ctx.args, ctx.holder)
         return (d_loss[:, None, None] * grad,) + _NO_GRAD + (None, None)
 
     @staticmethod
@@ -305,10 +327,17 @@ class LossFromLogits(_ReverseOnly):
     def backward(ctx, d_loss):
         logits, loss = ctx.saved_tensors
         logprobas = logit_to_logproba(logits, dim=2)
-        d_logits = DLogits.apply(logprobas, d_loss, loss.detach(), *ctx.args,
+        d_logits = apply_dlogits(logprobas, d_loss, loss.detach(), *ctx.args,
                                  ctx.holder)
         return (d_logits,) + _NO_GRAD + (None, None)
 
     @staticmethod
     def vmap(info, in_dims, *args):
         return _fold_loss(LossFromLogits, info, in_dims, args)
+
+
+apply_hessian = _applier(Hessian)
+apply_gradient = _applier(Gradient)
+apply_dlogits = _applier(DLogits)
+apply_loss = _applier(Loss)
+apply_loss_from_logits = _applier(LossFromLogits)

@@ -49,8 +49,9 @@ def index_tensor(x, device) -> torch.Tensor:
     host-to-device copy (a CUDA graph may capture it)."""
     if isinstance(x, torch.Tensor):
         return x.to(device).to(torch.int64).reshape(())
-    return torch.full((), int(np.asarray(x).reshape(())), dtype=torch.int64,
-                      device=device)
+    if not isinstance(x, int):  # a Python int stays a constant under torch.compile
+        x = int(np.asarray(x).reshape(()))
+    return torch.full((), x, dtype=torch.int64, device=device)
 
 
 def values_tensor(x) -> torch.Tensor:

@@ -34,9 +34,11 @@ The simplified topology's kernels (B6, B7, B11) live in
 ``cuda_simplified.py``, which shares this module's geometry, block-float
 primitives, packs, act scatter and gradient assembly.
 
-Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
-version (same window schedule, same subnormal rule) for CPU tensors, the
-port's analogue of Pallas ``interpret=True``.
+Each wrapper is a custom op, ``ctc_port::<wrapper>`` (:func:`kernel_op`),
+which launches its CUDA kernel for CUDA tensors and runs its plain version
+(same window schedule, same subnormal rule) for CPU tensors, the port's
+analogue of Pallas ``interpret=True``; under ``torch.compile`` it is one
+opaque node of the graph, its fake giving its outputs' shapes.
 
 Dropped TPU artefacts: the batch sort by ``logit_length``, the 128-lane
 label padding and the ``(block_batch, block_time)`` geometry existed to
@@ -55,10 +57,11 @@ cotangent in one pass instead, for either topology.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
@@ -317,14 +320,53 @@ def check_tensor(t: torch.Tensor, shape, dtype, name: str, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def carry_args(carry, states: int, name: str = "init") -> tuple:
+    """A carry as a kernel op's ``states + 1`` optional arguments (its
+    mantissa arrays, then its exponent), Nones for the standard carry
+    (``carry`` None)."""
+    if carry is None:
+        return (None,) * (states + 1)
+    if len(carry) != states + 1:
+        raise ValueError(f"{name} must hold {states + 1} arrays, got {len(carry)}")
+    return tuple(carry)
+
+
+def op_carry(*parts):
+    """The carry of a kernel op's optional arguments (:func:`carry_args`):
+    None where they are None."""
+    return None if parts[0] is None else parts
+
+
+def check_device(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` lies on the CPU (the plain version runs) or on a
+    CUDA device (the kernel launches)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {t.device}")
+
+
+def kernel_op(name: str, plain):
+    """Declare ``ctc_port::<name>``, the custom op of a kernel wrapper:
+    ``plain`` (its plain version, typed for the op's schema) is the CPU
+    implementation; the caller registers the launch with
+    ``register_kernel("cuda")`` and the outputs' shapes with
+    ``register_fake``.  ``torch.compile`` keeps the op opaque in its graph;
+    the device of its tensors picks the implementation."""
+    return torch.library.custom_op(f"ctc_port::{name}", plain, mutates_args=(),
+                                   device_types="cpu")
+
+
+def empty_outputs(like: torch.Tensor, specs) -> List[torch.Tensor]:
+    """New tensors on ``like``'s device, one a ``(shape, dtype)`` of
+    ``specs``: a kernel op's outputs (its launch and its fake alike)."""
+    return [torch.empty(shape, dtype=dtype, device=like.device) for shape, dtype in specs]
+
+
 def carry_pointers(carry, states: int, shape, name: str, device):
     """Data pointers of a carry (``states`` mantissa arrays f32, then the
     exponent int32, each of ``shape``), or Nones for the standard carry
     (``carry`` None)."""
     if carry is None:
         return (None,) * (states + 1)
-    if len(carry) != states + 1:
-        raise ValueError(f"{name} must hold {states + 1} arrays, got {len(carry)}")
     *mants, e = carry
     for i, m in enumerate(mants):
         check_tensor(m, shape, torch.float32, f"{name}[{i}]", device)
@@ -441,36 +483,58 @@ def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None)
     frame (``sa[:, w K, 0]`` of mode resid); ``mode="bound"``: ``(b0, b1,
     be [Tp/K, B, L], f0, f1, fe)``, the carry entering each window.
 
-    CUDA tensors launch csrc/classic_fwd.cu; CPU tensors run
-    :func:`classic_fwd_plain`."""
+    The op ``ctc_port::classic_fwd``: CUDA tensors launch
+    csrc/classic_fwd.cu; CPU tensors run :func:`classic_fwd_plain`."""
     if mode not in _FWD_MODES:
         raise ValueError(f"unknown classic_fwd mode {mode!r}")
-    if dcu.device.type == "cpu":
-        return classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win, mode, init)
-    if dcu.device.type != "cuda":
-        raise ValueError(f"classic_fwd runs on CUDA or CPU tensors, got {dcu.device}")
+    check_device(dcu, "classic_fwd")
+    return tuple(_classic_fwd_op(blank, dcu, lm, nb, rep, lens, k_win, mode,
+                                 *carry_args(init, 2)))
+
+
+def _classic_fwd_plain_op(blank: Tensor, dcu: Tensor, lm: Tensor, nb: Tensor,
+                          rep: Tensor, lens: Tensor, k_win: int, mode: str,
+                          init0: Optional[Tensor], init1: Optional[Tensor],
+                          init_e: Optional[Tensor]) -> List[Tensor]:
+    return list(classic_fwd_plain(blank, dcu, lm, nb, rep, lens, k_win, mode,
+                                  op_carry(init0, init1, init_e)))
+
+
+_classic_fwd_op = kernel_op("classic_fwd", _classic_fwd_plain_op)
+
+
+def _fwd_specs(batch: int, tpad: int, lpad: int, k_win: int, mode: str):
+    """``(shape, dtype)`` of ``classic_fwd``'s outputs in ``mode``."""
+    f32, i32 = torch.float32, torch.int32
+    n_w = tpad // k_win
+    row, win, bnd = (batch, lpad), (batch, n_w, lpad), (n_w, batch, lpad)
+    extra = {"final": [],
+             "resid": [((batch, tpad, 2, lpad), f32), (win, i32)],
+             "resid1": [((batch, tpad, lpad), f32), (win, i32), (win, f32)],
+             "bound": [(bnd, f32), (bnd, f32), (bnd, i32)]}[mode]
+    return extra + [(row, f32), (row, f32), (row, i32)]
+
+
+@_classic_fwd_op.register_fake
+def _classic_fwd_fake(blank, dcu, lm, nb, rep, lens, k_win, mode, init0, init1, init_e):
+    return empty_outputs(dcu, _fwd_specs(*dcu.shape, k_win, mode))
+
+
+@_classic_fwd_op.register_kernel("cuda")
+def _classic_fwd_launch(blank, dcu, lm, nb, rep, lens, k_win, mode, init0, init1,
+                        init_e):
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
-    f32 = torch.float32
-    init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
+    init_ptrs = carry_pointers(op_carry(init0, init1, init_e), 2, (batch, lpad), "init",
+                               dev)
     check_aligned((("dcu", dcu),), "classic_fwd")
     lib = _build.lib("classic_fwd")
     _build.check_smem(lib.ctc_classic_fwd_smem_bytes(lpad, k_win), "classic_fwd", dev)
-    n_w = tpad // k_win
-    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
-    f1 = torch.empty_like(f0)
-    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
-    extra, resid, bd = (), [None] * 3, [None] * 3
+    outs = empty_outputs(dcu, _fwd_specs(batch, tpad, lpad, k_win, mode))
+    *extra, f0, f1, fe = outs
+    resid, bd = [None] * 3, [None] * 3
     if mode.startswith("resid"):
-        mants = (2, lpad) if mode == "resid" else (lpad,)
-        extra = (torch.empty((batch, tpad, *mants), dtype=f32, device=dev),
-                 torch.empty((batch, n_w, lpad), dtype=torch.int32, device=dev))
-        if mode == "resid1":
-            extra += (torch.empty((batch, n_w, lpad), dtype=f32, device=dev),)
         resid[:len(extra)] = (t.data_ptr() for t in extra)
     elif mode == "bound":
-        extra = (torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
-                 torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
-                 torch.empty((n_w, batch, lpad), dtype=torch.int32, device=dev))
         bd = [t.data_ptr() for t in extra]
     with torch.cuda.device(dev):
         err = lib.ctc_classic_fwd(
@@ -483,7 +547,7 @@ def classic_fwd(blank, dcu, lm, nb, rep, lens, k_win: int, mode: str, init=None)
     _build.check(err, "classic_fwd")
     classic_fwd.launches += 1
     classic_fwd.mode_launches[mode] += 1
-    return (*extra, f0, f1, fe)
+    return outs
 
 
 classic_fwd.launches = 0
@@ -549,16 +613,45 @@ def classic_bwd_streamed(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
                          k_win: int):
     """Beta scan over the residual pack: ``(pc [B, Tp, L], b0, b1, be)``.
 
-    CUDA tensors launch csrc/classic_bwd.cu; CPU tensors run
-    :func:`classic_bwd_streamed_plain`."""
-    if dcu.device.type == "cpu":
-        return classic_bwd_streamed_plain(
-            blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf, k_win
-        )
-    if dcu.device.type != "cuda":
-        raise ValueError(
-            f"classic_bwd_streamed runs on CUDA or CPU tensors, got {dcu.device}"
-        )
+    The op ``ctc_port::classic_bwd_streamed``: CUDA tensors launch
+    csrc/classic_bwd.cu; CPU tensors run :func:`classic_bwd_streamed_plain`."""
+    check_device(dcu, "classic_bwd_streamed")
+    return tuple(_classic_bwd_streamed_op(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa,
+                                          saf, k_win))
+
+
+def _classic_bwd_streamed_plain_op(blank: Tensor, dcu: Tensor, lm: Tensor, nb: Tensor,
+                                   rep: Tensor, lens: Tensor, lab_len: Tensor,
+                                   ebi: Tensor, sa: Tensor, saf: Tensor,
+                                   k_win: int) -> List[Tensor]:
+    return list(classic_bwd_streamed_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi,
+                                           sa, saf, k_win))
+
+
+_classic_bwd_streamed_op = kernel_op("classic_bwd_streamed",
+                                     _classic_bwd_streamed_plain_op)
+
+
+def beta_specs(dcu: torch.Tensor, states: int):
+    """``(shape, dtype)`` of a beta scan's outputs over the transitions
+    ``dcu`` [B, Tp, L]: the acts [B, Tp, L], then the final carry, its
+    ``states`` mantissa arrays and its exponent [B, L]."""
+    batch, tpad, lpad = dcu.shape
+    row = (batch, lpad)
+    return ([((batch, tpad, lpad), torch.float32)] + [(row, torch.float32)] * states
+            + [(row, torch.int32)])
+
+
+def _classic_beta_fake(blank, dcu, *_):
+    return empty_outputs(dcu, beta_specs(dcu, 2))
+
+
+_classic_bwd_streamed_op.register_fake(_classic_beta_fake)
+
+
+@_classic_bwd_streamed_op.register_kernel("cuda")
+def _classic_bwd_streamed_launch(blank, dcu, lm, nb, rep, lens, lab_len, ebi, sa, saf,
+                                 k_win):
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     check_tensor(sa, (batch, tpad, 2, lpad), torch.float32, "sa", dev)
     check_aligned((("dcu", dcu), ("sa", sa)), "classic_bwd_streamed")
@@ -574,29 +667,25 @@ classic_bwd_streamed.launches = 0
 def _launch_beta(library: str, entry: str, args, k_win: int):
     """Launch a beta scan over residuals whose arguments end with ``(lab_len,
     ebi, residuals..., saf[, a0w])`` after the transitions, masks and
-    lengths: ``(pc [B, Tp, L], b0, b1, be)``."""
+    lengths: ``[pc [B, Tp, L], b0, b1, be]``."""
     blank, dcu, lm, nb, rep, lens, lab_len, ebi, _resid, saf, *_ = args
     batch, tpad, lpad = dcu.shape
     dev = dcu.device
-    f32 = torch.float32
     check_tensor(lab_len, (batch,), torch.int32, "lab_len", dev)
-    check_tensor(ebi, (batch,), f32, "ebi", dev)
+    check_tensor(ebi, (batch,), torch.float32, "ebi", dev)
     check_tensor(saf, (batch, tpad // k_win, lpad), torch.int32, "saf", dev)
     lib = _build.lib(library)
     _build.check_smem(getattr(lib, f"ctc_{library}_smem_bytes")(lpad, k_win), library,
                       dev)
-    pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
-    f1 = torch.empty_like(f0)
-    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
+    outs = empty_outputs(dcu, beta_specs(dcu, 2))
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             *(t.data_ptr() for t in args), batch, tpad, lpad, k_win,
-            pc.data_ptr(), f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
+            *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, entry)
-    return pc, f0, f1, fe
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -637,14 +726,28 @@ def classic_bwd_half(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w,
     b0, b1, be)``, those of ``classic_bwd_streamed`` on mode resid's pack
     bit for bit.
 
-    CUDA tensors launch csrc/classic_bwd_half.cu; CPU tensors run
-    :func:`classic_bwd_half_plain`."""
-    if dcu.device.type == "cpu":
-        return classic_bwd_half_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1,
-                                      saf, a0w, k_win)
-    if dcu.device.type != "cuda":
-        raise ValueError(
-            f"classic_bwd_half runs on CUDA or CPU tensors, got {dcu.device}")
+    The op ``ctc_port::classic_bwd_half``: CUDA tensors launch
+    csrc/classic_bwd_half.cu; CPU tensors run :func:`classic_bwd_half_plain`."""
+    check_device(dcu, "classic_bwd_half")
+    return tuple(_classic_bwd_half_op(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1,
+                                      saf, a0w, k_win))
+
+
+def _classic_bwd_half_plain_op(blank: Tensor, dcu: Tensor, lm: Tensor, nb: Tensor,
+                               rep: Tensor, lens: Tensor, lab_len: Tensor, ebi: Tensor,
+                               a1: Tensor, saf: Tensor, a0w: Tensor,
+                               k_win: int) -> List[Tensor]:
+    return list(classic_bwd_half_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1,
+                                       saf, a0w, k_win))
+
+
+_classic_bwd_half_op = kernel_op("classic_bwd_half", _classic_bwd_half_plain_op)
+_classic_bwd_half_op.register_fake(_classic_beta_fake)
+
+
+@_classic_bwd_half_op.register_kernel("cuda")
+def _classic_bwd_half_launch(blank, dcu, lm, nb, rep, lens, lab_len, ebi, a1, saf, a0w,
+                             k_win):
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     check_tensor(a1, (batch, tpad, lpad), torch.float32, "a1", dev)
     check_tensor(a0w, (batch, tpad // k_win, lpad), torch.float32, "a0w", dev)
@@ -697,13 +800,29 @@ def classic_bwd(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
     ``(pc [B, Tp, L], b0, b1, be)``, ``pc`` as ``classic_bwd_streamed``
     emits it.
 
-    CUDA tensors launch csrc/classic_bwd_rf.cu; CPU tensors run
-    :func:`classic_bwd_plain`."""
-    if dcu.device.type == "cpu":
-        return classic_bwd_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi,
-                                 bd0, bd1, bde, k_win, init)
-    if dcu.device.type != "cuda":
-        raise ValueError(f"classic_bwd runs on CUDA or CPU tensors, got {dcu.device}")
+    The op ``ctc_port::classic_bwd``: CUDA tensors launch
+    csrc/classic_bwd_rf.cu; CPU tensors run :func:`classic_bwd_plain`."""
+    check_device(dcu, "classic_bwd")
+    return tuple(_classic_bwd_op(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1,
+                                 bde, k_win, *carry_args(init, 2)))
+
+
+def _classic_bwd_plain_op(blank: Tensor, dcu: Tensor, lm: Tensor, nb: Tensor,
+                          rep: Tensor, lens: Tensor, lab_len: Tensor, ebi: Tensor,
+                          bd0: Tensor, bd1: Tensor, bde: Tensor, k_win: int,
+                          init0: Optional[Tensor], init1: Optional[Tensor],
+                          init_e: Optional[Tensor]) -> List[Tensor]:
+    return list(classic_bwd_plain(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1,
+                                  bde, k_win, op_carry(init0, init1, init_e)))
+
+
+_classic_bwd_op = kernel_op("classic_bwd", _classic_bwd_plain_op)
+_classic_bwd_op.register_fake(_classic_beta_fake)
+
+
+@_classic_bwd_op.register_kernel("cuda")
+def _classic_bwd_launch(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
+                        k_win, init0, init1, init_e):
     batch, tpad, lpad, dev = check_scan_inputs(blank, dcu, lm, nb, rep, lens, k_win)
     f32 = torch.float32
     n_w = tpad // k_win
@@ -714,27 +833,25 @@ def classic_bwd(blank, dcu, lm, nb, rep, lens, lab_len, ebi, bd0, bd1, bde,
     check_tensor(bde, (n_w, batch, lpad), torch.int32, "bde", dev)
     check_aligned((("dcu", dcu), ("bd0", bd0), ("bd1", bd1), ("bde", bde)),
                   "classic_bwd")
-    init_ptrs = carry_pointers(init, 2, (batch, lpad), "init", dev)
+    init_ptrs = carry_pointers(op_carry(init0, init1, init_e), 2, (batch, lpad), "init",
+                               dev)
     lib = _build.lib("classic_bwd_rf")
     _build.check_smem(lib.ctc_classic_bwd_rf_smem_bytes(lpad, k_win), "classic_bwd",
                       dev)
     ws = torch.empty((batch, k_win, 2, lpad), dtype=f32, device=dev)
-    pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
-    f1 = torch.empty_like(f0)
-    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
+    outs = empty_outputs(dcu, beta_specs(dcu, 2))
     with torch.cuda.device(dev):
         err = lib.ctc_classic_bwd_rf(
             blank.data_ptr(), dcu.data_ptr(), lm.data_ptr(), nb.data_ptr(),
             rep.data_ptr(), lens.data_ptr(), lab_len.data_ptr(), ebi.data_ptr(),
             bd0.data_ptr(), bd1.data_ptr(), bde.data_ptr(), *init_ptrs,
             batch, tpad, lpad, k_win, ws.data_ptr(),
-            pc.data_ptr(), f0.data_ptr(), f1.data_ptr(), fe.data_ptr(),
+            *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "classic_bwd")
     classic_bwd.launches += 1
-    return pc, f0, f1, fe
+    return outs
 
 
 classic_bwd.launches = 0
@@ -1133,14 +1250,29 @@ def fused_dlogits(acts, labels, lm, scale, d_loss, lens, logproba, blank):
     scale ``scale`` [B]; exactly 0 at ``t >= lens`` [B] int32.  ``blank`` is
     the blank index (an int or a 0-d tensor).
 
-    CUDA tensors launch csrc/fused_epilogue.cu; CPU tensors run
-    :func:`fused_dlogits_plain`."""
-    if acts.device.type == "cpu":
-        return fused_dlogits_plain(acts, labels, lm, scale, d_loss, lens, logproba,
-                                   blank)
-    if acts.device.type != "cuda":
-        raise ValueError(
-            f"fused_dlogits runs on CUDA or CPU tensors, got {acts.device}")
+    The op ``ctc_port::fused_dlogits``: CUDA tensors launch
+    csrc/fused_epilogue.cu; CPU tensors run :func:`fused_dlogits_plain`."""
+    check_device(acts, "fused_dlogits")
+    return _fused_dlogits_op(acts, labels, lm, scale, d_loss, lens, logproba,
+                             index_tensor(blank, acts.device))
+
+
+def _fused_dlogits_plain_op(acts: Tensor, labels: Tensor, lm: Tensor, scale: Tensor,
+                            d_loss: Tensor, lens: Tensor, logproba: Tensor,
+                            blank: Tensor) -> Tensor:
+    return fused_dlogits_plain(acts, labels, lm, scale, d_loss, lens, logproba, blank)
+
+
+_fused_dlogits_op = kernel_op("fused_dlogits", _fused_dlogits_plain_op)
+
+
+@_fused_dlogits_op.register_fake
+def _fused_dlogits_fake(acts, labels, lm, scale, d_loss, lens, logproba, blank):
+    return logproba.new_empty(logproba.shape, dtype=torch.float32)
+
+
+@_fused_dlogits_op.register_kernel("cuda")
+def _fused_dlogits_launch(acts, labels, lm, scale, d_loss, lens, logproba, blank):
     batch, num_t, num_tokens = logproba.shape
     _, tpad, lpad = acts.shape
     dev = acts.device
@@ -1157,7 +1289,7 @@ def fused_dlogits(acts, labels, lm, scale, d_loss, lens, logproba, blank):
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
     check_tensor(logproba, (batch, num_t, num_tokens), f32, "logproba", dev)
     check_aligned((("acts", acts),), "fused_dlogits")
-    blank_t = index_tensor(blank, dev).to(torch.int32).reshape(1)
+    blank_t = blank.to(torch.int32).reshape(1)
     lib = _build.lib("fused_epilogue")
     _build.check_smem(lib.ctc_fused_epilogue_smem_bytes(lpad, num_tokens),
                       "fused_dlogits", dev)

@@ -21,17 +21,21 @@ The time axis runs in chunks as on the classic path (see
 training step streams residuals on one chunk when ``stream_residuals``
 holds and B6 and B7 hold the label's lanes, and otherwise takes the
 residual-free scheme.  ``config.half_stream`` does not apply: the carry
-has one state.  CUDA tensors launch
-the kernels; CPU tensors run the plain versions (same window schedule,
-same subnormal rule).  The simplified act is ``pd`` alone: a non-blank
+has one state.  Each wrapper is a custom op (``ctc_port::<wrapper>``):
+CUDA tensors launch the kernels; CPU tensors run the plain versions (same
+window schedule, same subnormal rule).  The simplified act is ``pd`` alone: a non-blank
 token is emitted only by a diagonal step, so there is no horizontal ``ph``
 term and no second lane exchange.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import List, Optional
 
+import torch
+from torch import Tensor
+
+from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
@@ -47,17 +51,23 @@ from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     alpha_init,
     beta_carry_scale,
     beta_init,
+    beta_specs,
+    carry_args,
     carry_pointers,
     check_aligned,
+    check_device,
     check_tensor,
     chunk_lengths,
     chunk_plan,
     ebi_from_loss,
+    empty_outputs,
     geometry,
     gradient_from_beta_carry,
     init_kw,
     kernel_lengths,
+    kernel_op,
     kernels_hold,
+    op_carry,
     pick_loss,
     scatter_chunk,
     shift_lanes,
@@ -151,16 +161,42 @@ def simplified_fwd(blank, dg, lens, k_win: int, mode: str, init=None):
     ``mode="bound"``: ``(b, be [Tp/K, B, L], f, fe)``, the carry entering
     each window.
 
-    CUDA tensors launch csrc/simplified_fwd.cu; CPU tensors run
-    :func:`simplified_fwd_plain`."""
+    The op ``ctc_port::simplified_fwd``: CUDA tensors launch
+    csrc/simplified_fwd.cu; CPU tensors run :func:`simplified_fwd_plain`."""
     if mode not in _FWD_MODES:
         raise ValueError(f"unknown simplified_fwd mode {mode!r}")
-    if dg.device.type == "cpu":
-        return simplified_fwd_plain(blank, dg, lens, k_win, mode, init)
-    if dg.device.type != "cuda":
-        raise ValueError(f"simplified_fwd runs on CUDA or CPU tensors, got {dg.device}")
-    from tf_seq2seq_losses_tpu_torch.ops import _build
+    check_device(dg, "simplified_fwd")
+    return tuple(_simplified_fwd_op(blank, dg, lens, k_win, mode, *carry_args(init, 1)))
 
+
+def _simplified_fwd_plain_op(blank: Tensor, dg: Tensor, lens: Tensor, k_win: int,
+                             mode: str, init_a: Optional[Tensor],
+                             init_e: Optional[Tensor]) -> List[Tensor]:
+    return list(simplified_fwd_plain(blank, dg, lens, k_win, mode,
+                                     op_carry(init_a, init_e)))
+
+
+_simplified_fwd_op = kernel_op("simplified_fwd", _simplified_fwd_plain_op)
+
+
+def _fwd_specs(batch: int, tpad: int, lpad: int, k_win: int, mode: str):
+    """``(shape, dtype)`` of ``simplified_fwd``'s outputs in ``mode``."""
+    f32, i32 = torch.float32, torch.int32
+    n_w = tpad // k_win
+    row, bnd = (batch, lpad), (n_w, batch, lpad)
+    extra = {"final": [],
+             "resid": [((batch, tpad, lpad), f32), ((batch, n_w, lpad), i32)],
+             "bound": [(bnd, f32), (bnd, i32)]}[mode]
+    return extra + [(row, f32), (row, i32)]
+
+
+@_simplified_fwd_op.register_fake
+def _simplified_fwd_fake(blank, dg, lens, k_win, mode, init_a, init_e):
+    return empty_outputs(dg, _fwd_specs(*dg.shape, k_win, mode))
+
+
+@_simplified_fwd_op.register_kernel("cuda")
+def _simplified_fwd_launch(blank, dg, lens, k_win, mode, init_a, init_e):
     batch, tpad, lpad = dg.shape
     dev = dg.device
     if tpad % k_win:
@@ -169,22 +205,14 @@ def simplified_fwd(blank, dg, lens, k_win: int, mode: str, init=None):
     check_tensor(blank, (batch, tpad), f32, "blank", dev)
     check_tensor(dg, (batch, tpad, lpad), f32, "dg", dev)
     check_tensor(lens, (batch,), torch.int32, "lens", dev)
-    init_ptrs = carry_pointers(init, 1, (batch, lpad), "init", dev)
+    init_ptrs = carry_pointers(op_carry(init_a, init_e), 1, (batch, lpad), "init", dev)
     check_aligned((("dg", dg),), "simplified_fwd")
     lib = _build.lib("simplified_fwd")
     _build.check_smem(
         lib.ctc_simplified_fwd_smem_bytes(lpad, k_win), "simplified_fwd", dev
     )
-    n_w = tpad // k_win
-    f = torch.empty((batch, lpad), dtype=f32, device=dev)
-    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
-    extra = ()
-    if mode == "resid":
-        extra = (torch.empty((batch, tpad, lpad), dtype=f32, device=dev),
-                 torch.empty((batch, n_w, lpad), dtype=torch.int32, device=dev))
-    elif mode == "bound":
-        extra = (torch.empty((n_w, batch, lpad), dtype=f32, device=dev),
-                 torch.empty((n_w, batch, lpad), dtype=torch.int32, device=dev))
+    outs = empty_outputs(dg, _fwd_specs(batch, tpad, lpad, k_win, mode))
+    *extra, f, fe = outs
     ptrs = [t.data_ptr() for t in extra]
     sa, saf = ptrs if mode == "resid" else (None, None)
     bd, bde = ptrs if mode == "bound" else (None, None)
@@ -198,7 +226,7 @@ def simplified_fwd(blank, dg, lens, k_win: int, mode: str, init=None):
     _build.check(err, "simplified_fwd")
     simplified_fwd.launches += 1
     simplified_fwd.mode_launches[mode] += 1
-    return (*extra, f, fe)
+    return outs
 
 
 simplified_fwd.launches = 0
@@ -248,16 +276,34 @@ def simplified_bwd_streamed_plain(blank, dg, lens, lab_len, ebi, sa, saf, k_win:
 def simplified_bwd_streamed(blank, dg, lens, lab_len, ebi, sa, saf, k_win: int):
     """Beta scan over the residual pack: ``(pd [B, Tp, L], b, be)``.
 
-    CUDA tensors launch csrc/simplified_bwd.cu; CPU tensors run
+    The op ``ctc_port::simplified_bwd_streamed``: CUDA tensors launch
+    csrc/simplified_bwd.cu; CPU tensors run
     :func:`simplified_bwd_streamed_plain`."""
-    if dg.device.type == "cpu":
-        return simplified_bwd_streamed_plain(blank, dg, lens, lab_len, ebi, sa, saf, k_win)
-    if dg.device.type != "cuda":
-        raise ValueError(
-            f"simplified_bwd_streamed runs on CUDA or CPU tensors, got {dg.device}"
-        )
-    from tf_seq2seq_losses_tpu_torch.ops import _build
+    check_device(dg, "simplified_bwd_streamed")
+    return tuple(_simplified_bwd_streamed_op(blank, dg, lens, lab_len, ebi, sa, saf,
+                                             k_win))
 
+
+def _simplified_bwd_streamed_plain_op(blank: Tensor, dg: Tensor, lens: Tensor,
+                                      lab_len: Tensor, ebi: Tensor, sa: Tensor,
+                                      saf: Tensor, k_win: int) -> List[Tensor]:
+    return list(simplified_bwd_streamed_plain(blank, dg, lens, lab_len, ebi, sa, saf,
+                                              k_win))
+
+
+_simplified_bwd_streamed_op = kernel_op("simplified_bwd_streamed",
+                                        _simplified_bwd_streamed_plain_op)
+
+
+def _simplified_beta_fake(blank, dg, *_):
+    return empty_outputs(dg, beta_specs(dg, 1))
+
+
+_simplified_bwd_streamed_op.register_fake(_simplified_beta_fake)
+
+
+@_simplified_bwd_streamed_op.register_kernel("cuda")
+def _simplified_bwd_streamed_launch(blank, dg, lens, lab_len, ebi, sa, saf, k_win):
     batch, tpad, lpad = dg.shape
     dev = dg.device
     if tpad % k_win:
@@ -275,20 +321,18 @@ def simplified_bwd_streamed(blank, dg, lens, lab_len, ebi, sa, saf, k_win: int):
     _build.check_smem(
         lib.ctc_simplified_bwd_smem_bytes(lpad, k_win), "simplified_bwd_streamed", dev
     )
-    pd = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-    f = torch.empty((batch, lpad), dtype=f32, device=dev)
-    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
+    outs = empty_outputs(dg, beta_specs(dg, 1))
     with torch.cuda.device(dev):
         err = lib.ctc_simplified_bwd_streamed(
             blank.data_ptr(), dg.data_ptr(), lens.data_ptr(), lab_len.data_ptr(),
             ebi.data_ptr(), sa.data_ptr(), saf.data_ptr(),
             batch, tpad, lpad, k_win,
-            pd.data_ptr(), f.data_ptr(), fe.data_ptr(),
+            *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "simplified_bwd_streamed")
     simplified_bwd_streamed.launches += 1
-    return pd, f, fe
+    return outs
 
 
 simplified_bwd_streamed.launches = 0
@@ -328,14 +372,28 @@ def simplified_bwd(blank, dg, lens, lab_len, ebi, bd, bde, k_win: int, init=None
     ``(pd [B, Tp, L], b, be)``, ``pd`` as ``simplified_bwd_streamed`` emits
     it.
 
-    CUDA tensors launch csrc/simplified_bwd_rf.cu; CPU tensors run
-    :func:`simplified_bwd_plain`."""
-    if dg.device.type == "cpu":
-        return simplified_bwd_plain(blank, dg, lens, lab_len, ebi, bd, bde, k_win, init)
-    if dg.device.type != "cuda":
-        raise ValueError(f"simplified_bwd runs on CUDA or CPU tensors, got {dg.device}")
-    from tf_seq2seq_losses_tpu_torch.ops import _build
+    The op ``ctc_port::simplified_bwd``: CUDA tensors launch
+    csrc/simplified_bwd_rf.cu; CPU tensors run :func:`simplified_bwd_plain`."""
+    check_device(dg, "simplified_bwd")
+    return tuple(_simplified_bwd_op(blank, dg, lens, lab_len, ebi, bd, bde, k_win,
+                                    *carry_args(init, 1)))
 
+
+def _simplified_bwd_plain_op(blank: Tensor, dg: Tensor, lens: Tensor, lab_len: Tensor,
+                             ebi: Tensor, bd: Tensor, bde: Tensor, k_win: int,
+                             init_b: Optional[Tensor],
+                             init_e: Optional[Tensor]) -> List[Tensor]:
+    return list(simplified_bwd_plain(blank, dg, lens, lab_len, ebi, bd, bde, k_win,
+                                     op_carry(init_b, init_e)))
+
+
+_simplified_bwd_op = kernel_op("simplified_bwd", _simplified_bwd_plain_op)
+_simplified_bwd_op.register_fake(_simplified_beta_fake)
+
+
+@_simplified_bwd_op.register_kernel("cuda")
+def _simplified_bwd_launch(blank, dg, lens, lab_len, ebi, bd, bde, k_win, init_b,
+                           init_e):
     batch, tpad, lpad = dg.shape
     dev = dg.device
     if tpad % k_win:
@@ -350,26 +408,24 @@ def simplified_bwd(blank, dg, lens, lab_len, ebi, bd, bde, k_win: int, init=None
     check_tensor(bd, (n_w, batch, lpad), f32, "bd", dev)
     check_tensor(bde, (n_w, batch, lpad), torch.int32, "bde", dev)
     check_aligned((("dg", dg), ("bd", bd), ("bde", bde)), "simplified_bwd")
-    init_ptrs = carry_pointers(init, 1, (batch, lpad), "init", dev)
+    init_ptrs = carry_pointers(op_carry(init_b, init_e), 1, (batch, lpad), "init", dev)
     lib = _build.lib("simplified_bwd_rf")
     _build.check_smem(
         lib.ctc_simplified_bwd_rf_smem_bytes(lpad, k_win), "simplified_bwd", dev
     )
     ws = torch.empty((batch, k_win, lpad), dtype=f32, device=dev)
-    pd = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-    f = torch.empty((batch, lpad), dtype=f32, device=dev)
-    fe = torch.empty((batch, lpad), dtype=torch.int32, device=dev)
+    outs = empty_outputs(dg, beta_specs(dg, 1))
     with torch.cuda.device(dev):
         err = lib.ctc_simplified_bwd_rf(
             blank.data_ptr(), dg.data_ptr(), lens.data_ptr(), lab_len.data_ptr(),
             ebi.data_ptr(), bd.data_ptr(), bde.data_ptr(), *init_ptrs,
             batch, tpad, lpad, k_win, ws.data_ptr(),
-            pd.data_ptr(), f.data_ptr(), fe.data_ptr(),
+            *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "simplified_bwd")
     simplified_bwd.launches += 1
-    return pd, f, fe
+    return outs
 
 
 simplified_bwd.launches = 0

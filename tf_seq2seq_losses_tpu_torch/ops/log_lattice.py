@@ -10,17 +10,22 @@ Counterpart of ``tf_seq2seq_losses_tpu/ops/log_lattice.py``:
   are the single-state pair of the simplified topology; its act is
   ``pd = exp(loss + a + dg + b[l + 1])``.
 
-Carries are log-probabilities, so nothing flushes.  CUDA tensors launch the
-kernels; CPU tensors run the plain versions.  These kernels serve a time
-axis of one chunk only (a rare repair needs no chunked scan), and labels
-whose lanes their shared memory holds (at most :data:`CLASSIC_LOG_LANES`
-and :data:`SIMPLIFIED_LOG_LANES`): beyond either the repair takes the pure
-path (:func:`fits_log_fallback`), in float64, cast back to float32.
+Carries are log-probabilities, so nothing flushes.  Each wrapper is a
+custom op (``ctc_port::<wrapper>``): CUDA tensors launch the kernels; CPU
+tensors run the plain versions.  These kernels serve a time axis of one
+chunk only (a rare repair needs no chunked scan), and labels whose lanes
+their shared memory holds (at most :data:`CLASSIC_LOG_LANES` and
+:data:`SIMPLIFIED_LOG_LANES`): beyond either the repair takes the pure
+path (:func:`fits_log_fallback`, the op ``ctc_port::pure_repair``), in
+float64, cast back to float32.
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
+from torch import Tensor
 
 from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
@@ -30,10 +35,13 @@ from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logproba
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     act_scatter,
     check_aligned,
+    check_device,
     check_tensor,
     chunk_plan,
+    empty_outputs,
     geometry,
     kernel_lengths,
+    kernel_op,
     lane_masks,
     shift_lanes,
 )
@@ -148,13 +156,40 @@ def classic_log_fwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
 
 def classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
     """Log-space alpha scan.  ``mode="final"``: ``(f0, f1)``;
-    ``mode="resid"``: ``(sx, sa1 [B, Tp, L], f0, f1)``."""
+    ``mode="resid"``: ``(sx, sa1 [B, Tp, L], f0, f1)``.
+
+    The op ``ctc_port::classic_log_fwd``: CUDA tensors launch
+    csrc/classic_log.cu; CPU tensors run :func:`classic_log_fwd_plain`."""
     if mode not in ("final", "resid"):
         raise ValueError(f"unknown classic_log_fwd mode {mode!r}")
-    if dc_l.device.type == "cpu":
-        return classic_log_fwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, mode)
-    if dc_l.device.type != "cuda":
-        raise ValueError(f"classic_log_fwd runs on CUDA or CPU tensors, got {dc_l.device}")
+    check_device(dc_l, "classic_log_fwd")
+    return tuple(_classic_log_fwd_op(blank_l, dc_l, pt_l, nb, rep, lens, mode))
+
+
+def _classic_log_fwd_plain_op(blank_l: Tensor, dc_l: Tensor, pt_l: Tensor, nb: Tensor,
+                              rep: Tensor, lens: Tensor, mode: str) -> List[Tensor]:
+    return list(classic_log_fwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, mode))
+
+
+_classic_log_fwd_op = kernel_op("classic_log_fwd", _classic_log_fwd_plain_op)
+
+
+def _log_specs(steps: torch.Tensor, resid: int, final: int):
+    """``(shape, dtype)`` of a log-space scan's outputs over the rows
+    ``steps`` [B, Tp, L]: ``resid`` tensors like it, then ``final`` carries
+    [B, L], all float32."""
+    batch, _, lpad = steps.shape
+    return ([(steps.shape, torch.float32)] * resid
+            + [((batch, lpad), torch.float32)] * final)
+
+
+@_classic_log_fwd_op.register_fake
+def _classic_log_fwd_fake(blank_l, dc_l, pt_l, nb, rep, lens, mode):
+    return empty_outputs(dc_l, _log_specs(dc_l, 2 if mode == "resid" else 0, 2))
+
+
+@_classic_log_fwd_op.register_kernel("cuda")
+def _classic_log_fwd_launch(blank_l, dc_l, pt_l, nb, rep, lens, mode):
     batch, tpad, lpad = dc_l.shape
     dev = dc_l.device
     f32 = torch.float32
@@ -169,27 +204,20 @@ def classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, mode: str):
     lib = _build.lib("classic_log")
     _build.check_smem(lib.ctc_classic_log_fwd_smem_bytes(lpad), "classic_log_fwd", dev)
     resid = mode == "resid"
-    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
-    f1 = torch.empty_like(f0)
-    sx = sa1 = None
-    if resid:
-        sx = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-        sa1 = torch.empty_like(sx)
+    outs = empty_outputs(dc_l, _log_specs(dc_l, 2 if resid else 0, 2))
+    *extra, f0, f1 = outs
+    sx, sa1 = (t.data_ptr() for t in extra) if resid else (None, None)
     with torch.cuda.device(dev):
         err = lib.ctc_classic_log_fwd(
             blank_l.data_ptr(), dc_l.data_ptr(), pt_l.data_ptr(),
             nb.data_ptr(), rep.data_ptr(), lens.data_ptr(),
-            batch, tpad, lpad, int(resid),
-            sx.data_ptr() if resid else None, sa1.data_ptr() if resid else None,
-            f0.data_ptr(), f1.data_ptr(),
+            batch, tpad, lpad, int(resid), sx, sa1, f0.data_ptr(), f1.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "classic_log_fwd")
     classic_log_fwd.launches += 1
     classic_log_fwd.mode_launches[mode] += 1
-    if resid:
-        return sx, sa1, f0, f1
-    return f0, f1
+    return outs
 
 
 classic_log_fwd.launches = 0
@@ -235,13 +263,32 @@ def classic_log_bwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx,
 
 def classic_log_bwd(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
     """Log-space beta scan: ``(pc [B, Tp, L], beta0_closed, beta0_open)``;
-    ``loss`` [B] is the finite-masked loss that normalises the acts."""
-    if dc_l.device.type == "cpu":
-        return classic_log_bwd_plain(
-            blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1
-        )
-    if dc_l.device.type != "cuda":
-        raise ValueError(f"classic_log_bwd runs on CUDA or CPU tensors, got {dc_l.device}")
+    ``loss`` [B] is the finite-masked loss that normalises the acts.
+
+    The op ``ctc_port::classic_log_bwd``: CUDA tensors launch
+    csrc/classic_log.cu; CPU tensors run :func:`classic_log_bwd_plain`."""
+    check_device(dc_l, "classic_log_bwd")
+    return tuple(_classic_log_bwd_op(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss,
+                                     sx, sa1))
+
+
+def _classic_log_bwd_plain_op(blank_l: Tensor, dc_l: Tensor, pt_l: Tensor, nb: Tensor,
+                              rep: Tensor, lens: Tensor, lab_len: Tensor, loss: Tensor,
+                              sx: Tensor, sa1: Tensor) -> List[Tensor]:
+    return list(classic_log_bwd_plain(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss,
+                                      sx, sa1))
+
+
+_classic_log_bwd_op = kernel_op("classic_log_bwd", _classic_log_bwd_plain_op)
+
+
+@_classic_log_bwd_op.register_fake
+def _classic_log_bwd_fake(blank_l, dc_l, *_):
+    return empty_outputs(dc_l, _log_specs(dc_l, 1, 2))
+
+
+@_classic_log_bwd_op.register_kernel("cuda")
+def _classic_log_bwd_launch(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
     batch, tpad, lpad = dc_l.shape
     dev = dc_l.device
     f32 = torch.float32
@@ -258,21 +305,18 @@ def classic_log_bwd(blank_l, dc_l, pt_l, nb, rep, lens, lab_len, loss, sx, sa1):
     _check_lanes(lpad, "classic", "classic_log_bwd")
     lib = _build.lib("classic_log")
     _build.check_smem(lib.ctc_classic_log_bwd_smem_bytes(lpad), "classic_log_bwd", dev)
-    pc = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-    f0 = torch.empty((batch, lpad), dtype=f32, device=dev)
-    f1 = torch.empty_like(f0)
+    outs = empty_outputs(dc_l, _log_specs(dc_l, 1, 2))
     with torch.cuda.device(dev):
         err = lib.ctc_classic_log_bwd(
             blank_l.data_ptr(), dc_l.data_ptr(), pt_l.data_ptr(),
             nb.data_ptr(), rep.data_ptr(), lens.data_ptr(),
             lab_len.data_ptr(), loss.data_ptr(), sx.data_ptr(), sa1.data_ptr(),
-            batch, tpad, lpad,
-            pc.data_ptr(), f0.data_ptr(), f1.data_ptr(),
+            batch, tpad, lpad, *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "classic_log_bwd")
     classic_log_bwd.launches += 1
-    return pc, f0, f1
+    return outs
 
 
 classic_log_bwd.launches = 0
@@ -300,7 +344,7 @@ def classic_loss_exact(ctx: CtcContext) -> torch.Tensor:
     """Exact classic loss through the log-space kernel B4 (mode final)."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
-        return _pure_loss(classic_mod, ctx)
+        return pure_repair("classic", ctx, "loss")[0]
     blank_l, dc_l, pt_l, _lm, nb, rep, lens, lab_len = _log_inputs(ctx)
     f0, f1 = classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, "final")
     return _pick_log_loss(f0, f1, lab_len)
@@ -325,21 +369,48 @@ def assemble_with_blank_identity(ctx: CtcContext, non_blank, fast_loss):
     return torch.where(token_is_blank, bl, non_blank)
 
 
-def _pure_loss(pure, ctx: CtcContext) -> torch.Tensor:
-    """The loss on the pure path of the topology module ``pure``
-    (``ops/classic.py`` or ``ops/simplified.py``), in float64 and cast back
-    (``core.float64_context``): the repair of a row that these kernels do
-    not serve."""
-    c64 = core_mod.float64_context(ctx)
-    return pure.loss(c64, pure.alpha(c64)).float()
+_PURE = {"classic": classic_mod, "simplified": simplified_mod}
 
 
-def _pure_loss_and_gradient_log(pure, ctx: CtcContext):
-    """``(loss, log(-grad))`` on the pure path of ``pure``, in float64 and
-    cast back, as :func:`_pure_loss`."""
-    c64 = core_mod.float64_context(ctx)
-    loss = pure.loss(c64, pure.alpha(c64))
-    return loss.float(), core_mod.gradient_log(pure, c64, loss).float()
+def pure_repair(topology: str, ctx: CtcContext, result: str):
+    """The pure path of ``topology`` on ``ctx`` in float64
+    (``core.float64_context``), cast back to float32: the repair of a row
+    that these kernels do not serve, and the guard's pure route.
+    ``result`` is ``"loss"`` (``[loss]``), ``"grad"`` (``[loss, grad]``) or
+    ``"grad_log"`` (``[loss, log(-grad)]``).
+
+    The op ``ctc_port::pure_repair``, on CPU and CUDA tensors alike: under
+    ``torch.compile`` its Python loop over T is one opaque node of the
+    graph, where traced it would be tens of thousands."""
+    return _pure_repair_op(*ctx, topology, result)
+
+
+@torch.library.custom_op("ctc_port::pure_repair", mutates_args=())
+def _pure_repair_op(logproba: Tensor, raw_logproba: Tensor, label: Tensor,
+                    preceded_label: Tensor, label_length: Tensor, logit_length: Tensor,
+                    blank_index: Tensor, label_length_mask: Tensor,
+                    logit_length_mask: Tensor, blank_lp: Tensor, topology: str,
+                    result: str) -> List[Tensor]:
+    pure = _PURE[topology]
+    c64 = core_mod.float64_context(CtcContext(
+        logproba, raw_logproba, label, preceded_label, label_length, logit_length,
+        blank_index, label_length_mask, logit_length_mask, blank_lp))
+    alpha = pure.alpha(c64)
+    loss = pure.loss(c64, alpha)
+    if result == "loss":
+        return [loss.float()]
+    grad_log = core_mod.gradient_log(pure, c64, loss, alpha)
+    second = -torch.exp(grad_log) if result == "grad" else grad_log
+    return [loss.float(), second.float()]
+
+
+@_pure_repair_op.register_fake
+def _pure_repair_fake(logproba, *args):
+    *_, result = args
+    loss = logproba.new_empty(logproba.shape[:1], dtype=torch.float32)
+    if result == "loss":
+        return [loss]
+    return [loss, logproba.new_empty(logproba.shape, dtype=torch.float32)]
 
 
 def _safe_loss(loss: torch.Tensor) -> torch.Tensor:
@@ -353,7 +424,7 @@ def classic_loss_and_gradient_log_exact(ctx: CtcContext):
     gradient needs no separate loss launch."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx):
-        return _pure_loss_and_gradient_log(classic_mod, ctx)
+        return tuple(pure_repair("classic", ctx, "grad_log"))
     blank_l, dc_l, pt_l, lm, nb, rep, lens, lab_len = _log_inputs(ctx)
     sx, sa1, f0, f1 = classic_log_fwd(blank_l, dc_l, pt_l, nb, rep, lens, "resid")
     loss = _pick_log_loss(f0, f1, lab_len)
@@ -428,15 +499,33 @@ def simplified_log_fwd_plain(blank_l, dg_l, lens, mode: str):
 
 def simplified_log_fwd(blank_l, dg_l, lens, mode: str):
     """Log-space single-state alpha scan.  ``mode="final"``: ``f [B, L]``;
-    ``mode="resid"``: ``(sa [B, Tp, L], f)``."""
+    ``mode="resid"``: ``(sa [B, Tp, L], f)``.
+
+    The op ``ctc_port::simplified_log_fwd``: CUDA tensors launch
+    csrc/simplified_log.cu; CPU tensors run :func:`simplified_log_fwd_plain`."""
     if mode not in ("final", "resid"):
         raise ValueError(f"unknown simplified_log_fwd mode {mode!r}")
-    if dg_l.device.type == "cpu":
-        return simplified_log_fwd_plain(blank_l, dg_l, lens, mode)
-    if dg_l.device.type != "cuda":
-        raise ValueError(
-            f"simplified_log_fwd runs on CUDA or CPU tensors, got {dg_l.device}"
-        )
+    check_device(dg_l, "simplified_log_fwd")
+    out = _simplified_log_fwd_op(blank_l, dg_l, lens, mode)
+    return tuple(out) if mode == "resid" else out[0]
+
+
+def _simplified_log_fwd_plain_op(blank_l: Tensor, dg_l: Tensor, lens: Tensor,
+                                 mode: str) -> List[Tensor]:
+    out = simplified_log_fwd_plain(blank_l, dg_l, lens, mode)
+    return list(out) if mode == "resid" else [out]
+
+
+_simplified_log_fwd_op = kernel_op("simplified_log_fwd", _simplified_log_fwd_plain_op)
+
+
+@_simplified_log_fwd_op.register_fake
+def _simplified_log_fwd_fake(blank_l, dg_l, lens, mode):
+    return empty_outputs(dg_l, _log_specs(dg_l, int(mode == "resid"), 1))
+
+
+@_simplified_log_fwd_op.register_kernel("cuda")
+def _simplified_log_fwd_launch(blank_l, dg_l, lens, mode):
     batch, tpad, lpad = dg_l.shape
     dev = dg_l.device
     f32 = torch.float32
@@ -450,21 +539,19 @@ def simplified_log_fwd(blank_l, dg_l, lens, mode: str):
         lib.ctc_simplified_log_fwd_smem_bytes(lpad), "simplified_log_fwd", dev
     )
     resid = mode == "resid"
-    f = torch.empty((batch, lpad), dtype=f32, device=dev)
-    sa = torch.empty((batch, tpad, lpad), dtype=f32, device=dev) if resid else None
+    outs = empty_outputs(dg_l, _log_specs(dg_l, int(resid), 1))
+    *extra, f = outs
     with torch.cuda.device(dev):
         err = lib.ctc_simplified_log_fwd(
             blank_l.data_ptr(), dg_l.data_ptr(), lens.data_ptr(),
             batch, tpad, lpad, int(resid),
-            sa.data_ptr() if resid else None, f.data_ptr(),
+            extra[0].data_ptr() if resid else None, f.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "simplified_log_fwd")
     simplified_log_fwd.launches += 1
     simplified_log_fwd.mode_launches[mode] += 1
-    if resid:
-        return sa, f
-    return f
+    return outs
 
 
 simplified_log_fwd.launches = 0
@@ -494,13 +581,30 @@ def simplified_log_bwd_plain(blank_l, dg_l, lens, lab_len, loss, sa):
 def simplified_log_bwd(blank_l, dg_l, lens, lab_len, loss, sa):
     """Log-space single-state beta scan: ``(pd [B, Tp, L], beta0)``, with
     ``pd = exp(loss + a + dg + b[l + 1])``; ``loss`` [B] is the
-    finite-masked loss that normalises the acts."""
-    if dg_l.device.type == "cpu":
-        return simplified_log_bwd_plain(blank_l, dg_l, lens, lab_len, loss, sa)
-    if dg_l.device.type != "cuda":
-        raise ValueError(
-            f"simplified_log_bwd runs on CUDA or CPU tensors, got {dg_l.device}"
-        )
+    finite-masked loss that normalises the acts.
+
+    The op ``ctc_port::simplified_log_bwd``: CUDA tensors launch
+    csrc/simplified_log.cu; CPU tensors run :func:`simplified_log_bwd_plain`."""
+    check_device(dg_l, "simplified_log_bwd")
+    return tuple(_simplified_log_bwd_op(blank_l, dg_l, lens, lab_len, loss, sa))
+
+
+def _simplified_log_bwd_plain_op(blank_l: Tensor, dg_l: Tensor, lens: Tensor,
+                                 lab_len: Tensor, loss: Tensor,
+                                 sa: Tensor) -> List[Tensor]:
+    return list(simplified_log_bwd_plain(blank_l, dg_l, lens, lab_len, loss, sa))
+
+
+_simplified_log_bwd_op = kernel_op("simplified_log_bwd", _simplified_log_bwd_plain_op)
+
+
+@_simplified_log_bwd_op.register_fake
+def _simplified_log_bwd_fake(blank_l, dg_l, *_):
+    return empty_outputs(dg_l, _log_specs(dg_l, 1, 1))
+
+
+@_simplified_log_bwd_op.register_kernel("cuda")
+def _simplified_log_bwd_launch(blank_l, dg_l, lens, lab_len, loss, sa):
     batch, tpad, lpad = dg_l.shape
     dev = dg_l.device
     f32 = torch.float32
@@ -516,18 +620,17 @@ def simplified_log_bwd(blank_l, dg_l, lens, lab_len, loss, sa):
     _build.check_smem(
         lib.ctc_simplified_log_bwd_smem_bytes(lpad), "simplified_log_bwd", dev
     )
-    pd = torch.empty((batch, tpad, lpad), dtype=f32, device=dev)
-    f = torch.empty((batch, lpad), dtype=f32, device=dev)
+    outs = empty_outputs(dg_l, _log_specs(dg_l, 1, 1))
     with torch.cuda.device(dev):
         err = lib.ctc_simplified_log_bwd(
             blank_l.data_ptr(), dg_l.data_ptr(), lens.data_ptr(), lab_len.data_ptr(),
             loss.data_ptr(), sa.data_ptr(), batch, tpad, lpad,
-            pd.data_ptr(), f.data_ptr(),
+            *(t.data_ptr() for t in outs),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "simplified_log_bwd")
     simplified_log_bwd.launches += 1
-    return pd, f
+    return outs
 
 
 simplified_log_bwd.launches = 0
@@ -550,7 +653,7 @@ def simplified_loss_exact(ctx: CtcContext) -> torch.Tensor:
     """Exact simplified loss through the log-space kernel B8 (mode final)."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx, "simplified"):
-        return _pure_loss(simplified_mod, ctx)
+        return pure_repair("simplified", ctx, "loss")[0]
     blank_l, dg_l, _lm, lens, lab_len = simplified_log_inputs(ctx)
     f = simplified_log_fwd(blank_l, dg_l, lens, "final")
     return _pick_single_log_loss(f, lab_len)
@@ -561,7 +664,7 @@ def simplified_loss_and_gradient_log_exact(ctx: CtcContext):
     one alpha scan yields both."""
     batch, num_t, _ = ctx.logproba.shape
     if batch == 0 or num_t == 0 or not fits_log_fallback(ctx, "simplified"):
-        return _pure_loss_and_gradient_log(simplified_mod, ctx)
+        return tuple(pure_repair("simplified", ctx, "grad_log"))
     blank_l, dg_l, lm, lens, lab_len = simplified_log_inputs(ctx)
     sa, f = simplified_log_fwd(blank_l, dg_l, lens, "resid")
     loss = _pick_single_log_loss(f, lab_len)

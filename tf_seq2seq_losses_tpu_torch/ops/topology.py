@@ -62,6 +62,16 @@ through the float64 pure path where the host form repairs a short row
 with the log-space kernels on its own axis (within their 2e-4, and closer
 to float64).  A chunked time axis raises ``ValueError`` under capture (its
 rounds' pure-path loop over T would take minutes to capture).
+
+Under ``torch.compile`` the guard takes the device form too: the "while"
+struct's rounds are one ``while_loop`` (:func:`_round_loop`), each other
+IF node a ``torch.cond`` whose branches return a new tensor (they may not
+write their inputs).  The traced graph reads no device value on the host,
+so one graph serves every flushed count.  The decisions on static shapes
+and the cap (:func:`_tier_plan`) are a constant of the graph: the cap is
+read, and its warnings given, when the graph is traced.  A float64
+pure-path repair is one node (the op ``ctc_port::pure_repair``), so a
+chunked time axis compiles.
 """
 
 from __future__ import annotations
@@ -192,19 +202,23 @@ def _repair(fast_value, fn, ctx, rounds, aux):
 
 
 def _on_device() -> bool:
-    """Whether the guard takes its device form: under a CUDA graph capture
-    (the tests patch it to run the device form on the CPU)."""
-    return _capture.capturing()
+    """Whether the guard takes its device form: under ``torch.compile``
+    (asked first: a traced function reads no stream state) or a CUDA graph
+    capture (the tests patch it to run the device form on the CPU)."""
+    return torch.compiler.is_compiling() or _capture.capturing()
 
 
 class _Tiers(NamedTuple):
     """The guard's decisions at a shape, on static shapes and the cap,
     which both forms take as the JAX package takes them: ``exact`` the
-    function of the whole batch and of the "while" rounds (``exact_fn``
-    with ``log_fallback``, else ``pure_fn``); ``bucket`` and ``bucket2``
-    the two tiers' rows, at most the batch; ``bucket_fits`` whether tier 1
-    fits the cap; ``tier2`` whether tier 2 runs; ``full_fits`` whether the
-    whole batch fits; ``fits(rows, lane_pad)`` the cap's test."""
+    function of the whole batch (``exact_fn`` with ``log_fallback``, else
+    ``pure_fn``); ``bucket`` and ``bucket2`` the two tiers' rows, at most
+    the batch; ``bucket_fits`` whether tier 1 fits the cap; ``tier2``
+    whether tier 2 runs; ``full_fits`` whether the whole batch fits;
+    ``round_fn`` and ``round_rows`` the function and rows of a "while"
+    round: ``max(min(repair_bucket2, B), repair_bucket)`` rows through
+    ``exact``, shrunk to ``repair_bucket`` rows, then to pure-path rounds,
+    where the cap does not admit them."""
 
     exact: object
     bucket: int
@@ -212,7 +226,8 @@ class _Tiers(NamedTuple):
     bucket2: int
     tier2: bool
     full_fits: bool
-    fits: object
+    round_fn: object
+    round_rows: int
 
     def rounds(self) -> bool:
         """Whether the "while" struct's rounds repair (``repair_bucket`` fitting;
@@ -220,48 +235,56 @@ class _Tiers(NamedTuple):
         return get_config().guard_struct == "while" and self.bucket_fits
 
 
-def _tiers(ctx: CtcContext, exact_fn, pure_fn) -> Optional[_Tiers]:
-    """The :class:`_Tiers` at ``ctx``'s shape, None where no tier fits the
-    cap; warns where the cap disables the guard or the whole-batch reroute,
-    whatever the flushed count, as the host form always has."""
-    cfg = get_config()
-    batch, num_t, _ = ctx.logproba.shape
-    lp1 = ctx.label.shape[1]
+@torch.compiler.assume_constant_result
+def _tier_plan(batch: int, num_t: int, lp1: int, repair_bucket: int, repair_bucket2: int,
+               log_fallback: bool, guard_struct: str):
+    """``(bucket, bucket_fits, bucket2, tier2, full_fits, round_exact,
+    round_rows)`` of :class:`_Tiers` (``round_exact``: a "while" round
+    takes ``exact``), None where no tier fits the cap; warns where the cap
+    disables the guard or the whole-batch reroute, whatever the flushed
+    count, as the host form always has.
+
+    A constant under ``torch.compile``: the cap is read, and the warnings
+    given, when the graph is traced (as the JAX package reads and warns
+    under ``jax.jit``), outside the traced code, which a warning would
+    break."""
     cap = fallback_cap()
 
     def fits(n, lane_pad=False):
         return est_fallback_bytes(n, num_t, lp1, lane_pad) <= cap
 
-    has_exact = cfg.log_fallback
-    full_fits = fits(batch, lane_pad=has_exact)
-    bucket = min(cfg.repair_bucket, batch)
+    full_fits = fits(batch, lane_pad=log_fallback)
+    bucket = min(repair_bucket, batch)
     bucket_fits = bucket > 0 and fits(bucket)
     if not (full_fits or bucket_fits):
         warnings.warn(_GUARD_DISABLED.format(bucket=bucket, cap_mb=cap >> 20),
-                      stacklevel=3)
+                      stacklevel=4)
         return None
-    bucket2 = min(cfg.repair_bucket2, batch)
-    tier2 = has_exact and bucket2 > bucket and bucket_fits and fits(bucket2, True)
-    t = _Tiers(exact_fn if has_exact else pure_fn, bucket, bucket_fits, bucket2, tier2,
-               full_fits, fits)
-    if bucket_fits and not full_fits and not t.rounds():
+    bucket2 = min(repair_bucket2, batch)
+    tier2 = log_fallback and bucket2 > bucket and bucket_fits and fits(bucket2, True)
+    if bucket_fits and not full_fits and guard_struct != "while":
         warnings.warn(_WHOLE_BATCH_DISABLED.format(
-            cap_mb=cap >> 20, rows=bucket2 if tier2 else bucket), stacklevel=3)
-    return t
+            cap_mb=cap >> 20, rows=bucket2 if tier2 else bucket), stacklevel=4)
+    round_exact, round_rows = True, max(bucket2, bucket)
+    if not fits(round_rows, log_fallback):
+        round_rows = bucket
+        round_exact = fits(bucket, log_fallback)
+    return bucket, bucket_fits, bucket2, tier2, full_fits, round_exact, round_rows
 
 
-def _round_plan(t: _Tiers, pure_fn, batch):
-    """``(function, rows)`` of the "while" struct's repair rounds: rounds
-    of ``max(min(repair_bucket2, B), repair_bucket)`` rows through
-    ``t.exact``, shrunk to ``repair_bucket`` rows, then to pure-path rounds,
-    where the cap does not admit them."""
-    lane_pad = get_config().log_fallback
-    fn, size = t.exact, max(t.bucket2, t.bucket)
-    if not t.fits(size, lane_pad):
-        size = t.bucket
-        if not t.fits(t.bucket, lane_pad):
-            fn = pure_fn
-    return fn, size
+def _tiers(ctx: CtcContext, exact_fn, pure_fn) -> Optional[_Tiers]:
+    """The :class:`_Tiers` at ``ctx``'s shape (:func:`_tier_plan`), None
+    where no tier fits the cap."""
+    cfg = get_config()
+    batch, num_t, _ = ctx.logproba.shape
+    plan = _tier_plan(batch, num_t, ctx.label.shape[1], cfg.repair_bucket,
+                      cfg.repair_bucket2, cfg.log_fallback, cfg.guard_struct)
+    if plan is None:
+        return None
+    bucket, bucket_fits, bucket2, tier2, full_fits, round_exact, round_rows = plan
+    exact = exact_fn if cfg.log_fallback else pure_fn
+    return _Tiers(exact, bucket, bucket_fits, bucket2, tier2, full_fits,
+                  exact if round_exact else pure_fn, round_rows)
 
 
 def _take_rows(ctx: CtcContext, idx: torch.Tensor) -> CtcContext:
@@ -271,17 +294,35 @@ def _take_rows(ctx: CtcContext, idx: torch.Tensor) -> CtcContext:
                          for name, val in ctx._asdict().items()})
 
 
+def _kept(out):
+    return out.clone()
+
+
+def _repaired_rows(o, fn, ctx, idx, write, aux):
+    """Rows ``idx`` of ``o``, each replaced by ``fn`` of the gathered
+    context (and rows of ``aux``) where ``write`` holds: a round's body."""
+    sub = _take_rows(ctx, idx)
+    mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
+    keep = write.reshape(write.shape + (1,) * (o.dim() - 1))
+    return torch.where(keep, mini.to(o.dtype), o.index_select(0, idx))
+
+
 def _round(out, pred, fn, ctx, idx, flushed, aux):
-    """Rows ``idx`` of ``out`` replaced, in place, by ``fn`` of their
-    gathered context where they flushed and ``pred`` (a 0-d bool tensor)
-    holds: under capture an IF node on ``pred``, whose body is the round."""
+    """``out`` with rows ``idx`` replaced by ``fn`` of their gathered
+    context where they flushed and ``pred`` (a 0-d bool tensor) holds.
+    Under ``torch.compile`` a new tensor, from ``torch.cond`` on ``pred``
+    (its branches may not write their inputs); else ``out`` written in
+    place, under capture by an IF node on ``pred`` whose body is the
+    round."""
+
+    def rows(o):
+        return _repaired_rows(o, fn, ctx, idx, flushed.index_select(0, idx) & pred, aux)
+
+    if torch.compiler.is_compiling():
+        return torch.cond(pred, lambda o: o.index_copy(0, idx, rows(o)), _kept, (out,))
     with _capture.if_node(pred):
-        sub = _take_rows(ctx, idx)
-        mini = fn(sub) if aux is None else fn(sub, aux.index_select(0, idx))
-        write = flushed.index_select(0, idx) & pred
-        keep = write.reshape(write.shape + (1,) * (out.dim() - 1))
-        out.index_copy_(0, idx, torch.where(keep, mini.to(out.dtype),
-                                            out.index_select(0, idx)))
+        out.index_copy_(0, idx, rows(out))
+    return out
 
 
 def _while_device(out, t, pure_fn, ctx, aux, flushed, order, n):
@@ -290,16 +331,47 @@ def _while_device(out, t, pure_fn, ctx, aux, flushed, order, n):
     written where its rows flushed and ``r * rb < n``, as the JAX
     package's ``w_body`` and ``w_cond``; with ``guard_tier1``, where ``0 < n
     <= repair_bucket``, one round of ``repair_bucket`` rows through the
-    pure path instead (the reference's ``t1``)."""
+    pure path instead (the reference's ``t1``).  Under ``torch.compile``
+    the rounds are one ``while_loop`` (:func:`_round_loop`): inductor lowers
+    each ``torch.cond`` body on its own, and one body a guard compiles
+    faster than one a round."""
     batch = out.shape[0]
-    fn, size = _round_plan(t, pure_fn, batch)
     run = n > 0
     if get_config().guard_tier1 and t.bucket < batch:
         tier1 = run & (n <= t.bucket)
-        _round(out, tier1, pure_fn, ctx, order[:t.bucket], flushed, aux)
+        out = _round(out, tier1, pure_fn, ctx, order[:t.bucket], flushed, aux)
         run = n > t.bucket
+    size = t.round_rows
+    if torch.compiler.is_compiling():
+        return _round_loop(out, run, t.round_fn, ctx, aux, flushed, order, n, size)
     for start in range(0, batch, size):
-        _round(out, run & (n > start), fn, ctx, order[start:start + size], flushed, aux)
+        out = _round(out, run & (n > start), t.round_fn, ctx, order[start:start + size],
+                     flushed, aux)
+    return out
+
+
+def _round_loop(out, run, fn, ctx, aux, flushed, order, n, size):
+    """The "while" struct's rounds under ``torch.compile``: one
+    ``while_loop`` (the JAX package's ``w_cond`` and ``w_body``), round
+    ``r`` running while ``run`` and ``r * size < n``, on the ``size`` rows
+    of ``order`` from ``min(r * size, B - size)``: a last round that would
+    pass the batch's end takes the rows before it again, whose repairs give
+    the same values."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    lanes = torch.arange(size, device=out.device)
+    last = out.shape[0] - size
+
+    def more(r, o):
+        return run & (r * size < n)
+
+    def one(r, o):
+        idx = order.index_select(0, torch.clamp(r * size, max=last) + lanes)
+        rows = _repaired_rows(o, fn, ctx, idx, flushed.index_select(0, idx), aux)
+        return r + 1, o.index_copy(0, idx, rows)
+
+    start = torch.zeros((), dtype=torch.int64, device=out.device)
+    return while_loop(more, one, (start, out))[1]
 
 
 def _cond_device(out, t, pure_fn, ctx, aux, flushed, order, n):
@@ -312,26 +384,34 @@ def _cond_device(out, t, pure_fn, ctx, aux, flushed, order, n):
     bucket``, the first ``bucket`` through the pure path (rows past them
     keep +inf); the whole batch through ``t.exact``, every row written,
     where ``n`` exceeds the largest tier below it (``n > 0`` with no tier
-    below: the two-way guard)."""
+    below: the two-way guard).  Under ``torch.compile`` each node is a
+    ``torch.cond``."""
     batch = out.shape[0]
     top = 0
     if t.bucket_fits:
-        _round(out, (n > 0) & (n <= t.bucket), pure_fn, ctx, order[:t.bucket], flushed,
-               aux)
+        out = _round(out, (n > 0) & (n <= t.bucket), pure_fn, ctx, order[:t.bucket],
+                     flushed, aux)
         top = t.bucket
         over = n > t.bucket
         if t.tier2:
             if t.full_fits:
                 over = over & (n <= t.bucket2)
-            _round(out, over, t.exact, ctx, order[:t.bucket2], flushed, aux)
+            out = _round(out, over, t.exact, ctx, order[:t.bucket2], flushed, aux)
             top = t.bucket2
         elif not t.full_fits:
-            _round(out, over, pure_fn, ctx, order[:t.bucket], flushed, aux)
+            out = _round(out, over, pure_fn, ctx, order[:t.bucket], flushed, aux)
     if t.full_fits and top < batch:
         whole = n > top
-        with _capture.if_node(whole):
+
+        def rerouted(o):
             value = t.exact(ctx) if aux is None else t.exact(ctx, aux)
-            out.copy_(torch.where(whole, value.to(out.dtype), out))
+            return torch.where(whole, value.to(o.dtype), o)
+
+        if torch.compiler.is_compiling():
+            return torch.cond(whole, rerouted, _kept, (out,))
+        with _capture.if_node(whole):
+            out.copy_(rerouted(out))
+    return out
 
 
 def _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
@@ -350,7 +430,8 @@ def _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux
     (a 0-d bool tensor) ands into every row's flush: ``guard_mode="pre"``
     passes the forward's count ``> 0``."""
     cfg = get_config()
-    if _capture.capturing() and _kernels.chunk_plan(ctx)[0] > 1:
+    if (not torch.compiler.is_compiling() and _capture.capturing()
+            and _kernels.chunk_plan(ctx)[0] > 1):
         raise ValueError(
             f"a time axis of {ctx.logproba.shape[1]} steps, longer than one chunk "
             f"(chunk_time={cfg.chunk_time}), cannot be captured in a CUDA graph: its "
@@ -363,11 +444,9 @@ def _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux
     t = _tiers(ctx, exact_fn, pure_fn)
     if t is None:
         return fast_value, n
-    out = fast_value.clone()
     order = torch.argsort(~flushed, stable=True)
     tiers = _while_device if t.rounds() else _cond_device
-    tiers(out, t, pure_fn, ctx, aux, flushed, order, n)
-    return out, n
+    return tiers(fast_value.clone(), t, pure_fn, ctx, aux, flushed, order, n), n
 
 
 def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
@@ -393,7 +472,7 @@ def _guarded(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux=None,
     if n == 0:
         return fast_value
     if t.rounds():
-        fn, size = _round_plan(t, pure_fn, batch)
+        fn, size = t.round_fn, t.round_rows
         if cfg.guard_tier1 and t.bucket < batch and n <= t.bucket:
             fn, size = pure_fn, t.bucket
         return _repair(fast_value, fn, ctx, _repair_rounds(ctx, rows, size), aux)
@@ -489,15 +568,11 @@ class Topology:
 
     def _pure_repair(self, c: CtcContext):
         """``(loss, gradient)`` of the pure path in float64, cast back: the
-        guard's pure route."""
-        c64 = _core.float64_context(c)
-        alpha = self.alpha(c64)
-        loss = self.loss(c64, alpha)
-        grad = -torch.exp(_core.gradient_log(self, c64, loss, alpha))
-        return loss.float(), grad.float()
+        guard's pure route (the op ``ctc_port::pure_repair``)."""
+        return tuple(_log.pure_repair(self.name, c, "grad"))
 
     def _pure_repair_loss(self, c: CtcContext):
-        return self.pure_loss(_core.float64_context(c)).float()
+        return _log.pure_repair(self.name, c, "loss")[0]
 
     def _exact_grad(self, c: CtcContext):
         return -torch.exp(self._loss_and_gradient_log_exact(c)[1])
