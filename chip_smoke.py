@@ -48,7 +48,15 @@ then simplified):
    must give the plain version's acts and beta carry bit for bit, also
    from random carries with every lane live, at a label for every
    lanes-per-thread instantiation (``lane_cases``: up to the widest
-   label at window 8, then at window 1) and at window 3;
+   label at window 8, then at window 1) and at window 3.  The float64
+   scans of the guard's pure repair (``classic_alpha64``,
+   ``classic_beta64``, ``simplified_alpha64``, ``simplified_beta64``,
+   ``ops/pure_scan.py``) run on the repair round with the infeasible row
+   0, on a long-T row at full T=4000 (2001 lanes), on labels [8, 2000]
+   and on labels too wide for their shared memory (``PURE64_WIDE``:
+   the carry read from the output), each bit for bit their plain
+   versions, the pure path's loops (else every entry within 1e-12
+   relative, the largest difference printed);
 3. the main path, with TF32 allowed for float32 matrix products as
    training scripts on an H100 commonly set it: ``classic_ctc_loss`` (then
    ``simplified_ctc_loss``) forward plus ``.backward()``, then a
@@ -64,7 +72,8 @@ then simplified):
    streamed one); at V=128 each topology's fused step and a saturated
    batch through it, then the classic half-stream step fused; a classic
    step on labels [8, 2000] (2016 lanes: the residual-free scheme, and a
-   repair through the pure path); for each topology, label arrays wider
+   repair through the pure path in float64: ``classic_alpha64`` twice,
+   ``classic_beta64`` once); for each topology, label arrays wider
    than the kernels hold (a training step through the pure path, an
    evaluation call through the forward's mode final where it holds the
    lanes, else the pure path);
@@ -98,10 +107,12 @@ then simplified):
    504 steps, 2016 lanes): a training step, an evaluation call and a step
    with row 2 saturated at 1e2 (12 steps: the guard repairs it on its own
    time axis, through the log-space kernels where they hold the lanes, B8
-   and B9 but not B5); launches per call, read
-   just after that step; the classic step's peak device memory under
-   16 GB.  Then checks outside the path: the rows whose forward and beta
-   scans disagree, over the whole batch (at seed 0 ``LONG_FLAGGED``,
+   and B9 but not B5, else the float64 scans); launches per call, read
+   just after that step, the float64 scans' too (a flagged row's repair,
+   the simplified row 220 at seed 0, takes an alpha and a beta); the
+   classic step's peak device memory under 16 GB.  Then checks outside
+   the path: the rows whose forward and beta scans disagree, over the
+   whole batch (at seed 0 ``LONG_FLAGGED``,
    repaired through the pure path in float64), and none on peaked
    low-loss logits at T=500 and T=4000; loss (rtol 1e-5) and d_logits
    (atol 1e-5) of ``LONG_ROWS``, repaired rows included, against the pure
@@ -240,9 +251,18 @@ then simplified):
    its eager function (loss and d_logits, clean and with 40 rows flushed,
    each call's still so after the next call, two forwards before one
    backward, and a ``no_grad`` call);
-   then the clean long-T classic step (B=256, T=4000) under capture, which
-   raises ``ValueError`` (a chunked time axis), and the capture of one of
-   its repair rounds through the float64 pure path: seconds and nodes;
+   the graphed ``sharded_mean_ctc_loss`` also on the clean classic long-T
+   batch, bit for bit its eager function; (d) for each topology the long-T
+   step (B=256, T=4000, 8 chunks, guard "while") captured, each repair
+   round an IF node at full T through the float64 scans, 16 rounds of 16
+   rows a guard (``drive_jit_long_t``), replayed on the seed's batch and
+   with rows 2-21 flushed by ``saturate`` (two rounds a guard): rows that
+   differ from the eager step are repaired rows, within 1e-5 of float64
+   and of the eager step within 1e-6 (2e-4 where the eager step took the
+   float32 log-space kernels), the float64 scans counted on the device
+   (``ScanTally``), none of the log-space ones; the capture's seconds and
+   nodes, each round's nodes, the replays' and the eager steps' host and
+   CUDA-event ms and each replay's peak memory;
 13. the loss under ``torch.compile(fullgraph=True, dynamic=False)``,
    inductor's default mode, its cache in a new temporary directory
    (``drive_compile``): the kernels are ``ctc_port::`` custom ops of the
@@ -282,7 +302,8 @@ phase 7, each posteriors call of phase 8, each step and call of phase 9,
 each step, call and pair of them of phase 10, each call of phase 11, each
 capture of phase 12, each call of phase 13) and read after it: a kernel
 that its path never launched fails the run, and the ``kernels`` line
-gives each kernel's launches summed over the paths.  A graph's replays
+gives each kernel's launches summed over the paths (the float64 scans'
+over phase 3's labels [8, 2000], phase 7 and phase 12's captures).  A graph's replays
 launch nothing on the host: its kernels count once, at the capture.  A
 compiled function's kernels count at every call: their custom ops count
 where they launch, at run time.  The last lines are the ``kernels`` JSON,
@@ -305,9 +326,10 @@ REPO = Path(__file__).resolve().parent
 BATCH, MAX_T, VOCAB = 256, 500, 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores
 RUNS = 20
 PLAIN_RUNS = 3  # the plain versions take 0.1 to 0.4 s a launch at the headline
-LONG_RUNS = 3  # a long-T step takes 0.2 s, 5 s with a row the pure path repairs
+LONG_RUNS = 3  # a long-T step takes 0.15-0.4 s
 
 
 class CheckFailed(Exception):
@@ -448,9 +470,9 @@ def host_ms(torch, fn, runs=RUNS) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -662,6 +684,135 @@ def compare_log_lanes(torch, dev, seed, topology="classic", batch=2) -> dict:
     for name, v in compare(round_ctx, " on the repair round")[0].items():
         errs[name] = max(errs[name], v)
     return errs
+
+
+# ---- the float64 pure scans (ops/pure_scan.py) ---------------------------------
+PURE64 = {  # kernel: (topology, source, the JAX package's lax.scan it stands for)
+    "classic_alpha64": ("classic", "csrc/classic_pure64.cu",
+                        "tf_seq2seq_losses_tpu/ops/classic.py:136"),
+    "classic_beta64": ("classic", "csrc/classic_pure64.cu",
+                       "tf_seq2seq_losses_tpu/ops/classic.py:184"),
+    "simplified_alpha64": ("simplified", "csrc/simplified_pure64.cu",
+                           "tf_seq2seq_losses_tpu/ops/simplified.py:63"),
+    "simplified_beta64": ("simplified", "csrc/simplified_pure64.cu",
+                          "tf_seq2seq_losses_tpu/ops/simplified.py:92"),
+}
+# float64 operations a lattice cell: classic three logsumexps (subtract,
+# exp, log1p, add) and four adds, simplified one and two
+PURE64_CELL_OPS = {"classic": 16, "simplified": 6}
+# the unstaged route (the carry read from the output): labels wider than
+# the staged kernels' shared memory holds, 7264 / 14528 lanes on an H100
+PURE64_WIDE = {"classic": 7400, "simplified": 14600}
+
+
+def pure64_args(ctx) -> dict:
+    """``{kernel: (kernel call, plain call, arguments)}`` of the four float64
+    scans on the float64 form of ``ctx`` (``core.float64_context``), the
+    arguments that ``pure_scan.SCANS`` gives them."""
+    from tf_seq2seq_losses_tpu_torch.ops import classic, core, pure_scan, simplified
+
+    c64 = core.float64_context(ctx)
+    t = classic.terms(c64)
+    c_args = tuple(a.contiguous() for a in (t.blank_lp, t.prev_tok_masked,
+                                            t.diag_closed, t.diag_open))
+    s_args = (c64.blank_lp.contiguous(), core.expected_token_lp(c64).contiguous())
+    lab = c64.label_length
+    return {
+        "classic_alpha64": (pure_scan.classic_alpha64, classic.alpha_scan, c_args),
+        "classic_beta64": (pure_scan.classic_beta64, classic.beta_scan, c_args + (lab,)),
+        "simplified_alpha64": (pure_scan.simplified_alpha64, simplified.alpha_scan, s_args),
+        "simplified_beta64": (pure_scan.simplified_beta64, simplified.beta_scan,
+                              s_args + (lab,)),
+    }
+
+
+def pure64_bound(name, args) -> tuple:
+    """``(bytes, float64 operations, the float64 rate)`` of a float64 scan
+    on ``args``: every step of every lane (the pure path runs them all),
+    ``blank_lp`` and the terms read once, ``label_length`` too, the lattice
+    ``[B, T+1, Lp1(, 2)]`` written once."""
+    topology = PURE64[name][0]
+    terms = [a for a in args if a.dim() == 3]
+    batch, num_t, lp1 = terms[0].shape
+    states = 2 if topology == "classic" else 1
+    lengths = batch if name.endswith("beta64") else 0
+    nbytes = 8 * (batch * num_t + len(terms) * batch * num_t * lp1
+                  + states * batch * (num_t + 1) * lp1 + lengths)
+    return nbytes, PURE64_CELL_OPS[topology] * batch * num_t * lp1, F64_OPS_PER_S
+
+
+def rel_err(a, b) -> float:
+    """The largest ``|a - b| / |b|`` over the entries finite in both (``|a -
+    b|`` where ``b`` is 0)."""
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(fin.any()):
+        return 0.0
+    diff = torch.abs(a[fin] - b[fin])
+    scale = torch.abs(b[fin])
+    return float(torch.max(torch.where(scale > 0, diff / scale, diff)))
+
+
+def pure64_contexts(torch, dev, seed) -> dict:
+    """``{case: float32 context}`` on which phase 2 holds the float64 scans
+    to their plain versions, each with -inf entries (the lanes past a
+    label, a flushed frame) and an infeasible row: the repair round of
+    ``tools/time_scans.py`` (rows 2-5 flushed) with the infeasible row 0
+    (``time_scans.pure_round``); a long-T row at full T (row 2 of the
+    long-T batch, with its infeasible row 0, gathered as the guard's
+    device form gathers a round: ``topology._take_rows``); labels [8,
+    2000] at T=500; and labels wider than the staged kernels hold
+    (``PURE64_WIDE``, T=64), which read their carry from the output."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import topology as topo_mod
+    from tf_seq2seq_losses_tpu_torch.tools import time_scans
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    def ctx_of(inputs):
+        return core.make_context(inputs[0], logit_to_logproba(inputs[1], 2), *inputs[2:],
+                                 0)
+
+    long_ctx = ctx_of(make_inputs(torch, seed, dev, max_t=LONG_T))
+    out = {
+        "repair round": time_scans.pure_round(sys.modules[__name__], torch, dev, seed),
+        f"long-T row (T={LONG_T})": topo_mod._take_rows(
+            long_ctx, torch.tensor([0, 2], device=dev)),
+        f"labels [8, {WIDE_LABELS}]": ctx_of(make_inputs(
+            torch, seed + 4, dev, batch=8, label_width=WIDE_LABELS)),
+    }
+    for topology, width in PURE64_WIDE.items():
+        out[f"{topology} labels [3, {width}] (unstaged)"] = ctx_of(make_inputs(
+            torch, seed + 5, dev, batch=3, label_width=width, max_t=64))
+    return out
+
+
+def compare_pure64(torch, dev, seed) -> tuple:
+    """Hold each float64 scan to its plain version on ``pure64_contexts``:
+    bit for bit, or failing that every finite entry within 1e-12 relative
+    (the same inf pattern).  Returns ``(largest abs error by kernel,
+    largest relative error by kernel and case, the long-T row's kernel ms
+    by kernel)``."""
+    errs, rel, long_ms = {}, {}, {}
+    for case, ctx in pure64_contexts(torch, dev, seed).items():
+        unstaged = case.endswith("(unstaged)")
+        for name, (kern, plain, args) in pure64_args(ctx).items():
+            if unstaged and not case.startswith(PURE64[name][0]):
+                continue
+            got, want = kern(*args), plain(*args)
+            check(got.dtype == want.dtype == torch.float64 and got.shape == want.shape,
+                  f"{name} on {case}: {got.dtype} {tuple(got.shape)} against "
+                  f"{want.dtype} {tuple(want.shape)}")
+            same = torch.equal(got, want)
+            r = 0.0 if same else rel_err(got, want)
+            check(same or (close(got, want, 1e-12, 0.0)),
+                  f"{name} on {case}: not its plain version's bits, largest relative "
+                  f"difference {r:.3g} (limit 1e-12)")
+            errs[name] = max(errs.get(name, 0.0), max_err(got, want))
+            rel[f"{name} on {case}"] = "bit for bit" if same else r
+            if case.startswith("long-T"):
+                long_ms[name] = time_ms(torch, lambda: kern(*args), runs=3, burst=1)
+    return errs, rel, long_ms
 
 
 def compare_simplified_kernels(ctx):
@@ -1186,11 +1337,14 @@ def compare_fwd_lanes(torch, dev, seed, cases, max_t=40, batch=4) -> dict:
 
 
 def kernel_counters() -> dict:
-    """``{topology: {kernel name: (wrapper, mode or None)}}``: the launch
-    counts that the topology's paths may move (B12 serves both)."""
+    """``{path: {kernel name: (wrapper, mode or None)}}``: the launch counts
+    that each topology's paths may move (B12 serves both), and under
+    ``"pure64"`` the float64 scans of the guard's pure repair, which the
+    paths that repair through it read apart."""
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+    from tf_seq2seq_losses_tpu_torch.ops import pure_scan as ps
 
     return {
         "classic": {
@@ -1217,6 +1371,7 @@ def kernel_counters() -> dict:
             "simplified_bwd": (cs.simplified_bwd, None),
             "fused_dlogits": (cl.fused_dlogits, None),
         },
+        "pure64": {name: (getattr(ps, name), None) for name in PURE64},
     }
 
 
@@ -1501,8 +1656,15 @@ def drive_slice_paths(torch, dev, seed, inputs, classic_main, sync):
     ws_logits, ws_ll, ws_gl = saturate(torch, *w_inputs, rows=((2, 1e2),))
     ((w_loss, w_d), (ws_loss, ws_d)), got = path("classic", lambda: (
         w_step(w_logits, w_ll, w_gl), w_step(ws_logits, ws_ll, ws_gl)))
+    # row 2's repair: its loss (alpha) and its gradient (alpha and beta)
+    # through the float64 scans, which the log-space kernels' lanes do not
+    # reach
+    got_pure = {k: n for k, n in read_launches("pure64").items() if n}
+    totals.update(got_pure)
     check(got == {"classic_fwd[bound]": 2, "classic_bwd": 2},
           f"labels [8, {WIDE_LABELS}] launches {got}")
+    check(got_pure == {"classic_alpha64": 2, "classic_beta64": 1},
+          f"labels [8, {WIDE_LABELS}] float64 scan launches {got_pure}")
     loss64, d64 = pure_float64(*w_inputs)
     agree(w_loss, loss64, 1e-5, 0.0, f"labels [8, {WIDE_LABELS}] loss vs float64 pure")
     agree(w_d, d64, 0.0, 1e-5, f"labels [8, {WIDE_LABELS}] d_logits vs float64 pure")
@@ -1520,8 +1682,9 @@ def drive_slice_paths(torch, dev, seed, inputs, classic_main, sync):
         f"{-(-lanes // 32) * 32}), one chunk: ok through the residual-free scheme; "
         f"vs float64 pure: loss {max_err(w_loss, loss64):.3g} "
         f"d_logits {max_err(w_d, d64):.3g}; row 2 repaired through the pure path "
-        f"(d_logits {max_err(ws_d[2:3], p_d[2:3]):.3g} from it), clean rows bit for "
-        f"bit; launches for the step and the saturated step {json.dumps(got)}")
+        f"in float64 (d_logits {max_err(ws_d[2:3], p_d[2:3]):.3g} from the float32 "
+        f"one), clean rows bit for bit; launches for the step and the saturated step "
+        f"{json.dumps({**got, **got_pure})}")
     steps[f"classic_fwd_bwd_step_labels_{WIDE_LABELS}"] = (w_step, w_inputs[1:])
 
     # label arrays wider than the kernels hold: past the residual-free pair,
@@ -1642,6 +1805,8 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     ones included, against the pure path in float64, and the first 32
     rows run again as one chunk, which must give the same bits.  Returns
     the launches, the peak memory and the step for timing."""
+    from collections import Counter
+
     from tf_seq2seq_losses_tpu_torch.ops import _build, core
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
@@ -1666,16 +1831,18 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
     reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    per_step = {}
-    mark = read_launches(topology)
+    per_step, per_pure = {}, {}
+    mark, p_mark = read_launches(topology), read_launches("pure64")
     loss, d_logits = train_step(logits, label_length, logit_length)
     sync()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     per_step["training step"] = launches_since(topology, mark)
-    mark = read_launches(topology)
+    per_pure["training step"] = launches_since("pure64", p_mark)
+    mark, p_mark = read_launches(topology), read_launches("pure64")
     with torch.no_grad():
         loss_eval = loss_fn(labels, logits, label_length, logit_length, 0)
     per_step["evaluation call"] = launches_since(topology, mark)
+    per_pure["evaluation call"] = launches_since("pure64", p_mark)
     sync()
     check(per_step["training step"] == {fwd_final: n_chunks, fwd_bound: n_chunks,
                                         bwd_rf: n_chunks},
@@ -1694,12 +1861,13 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
 
     s_logits, s_ll, s_gl = saturate(torch, labels, logits, label_length, logit_length,
                                     rows=((2, 1e2),))
-    mark = read_launches(topology)
+    mark, p_mark = read_launches(topology), read_launches("pure64")
     s_loss, s_d = train_step(s_logits, s_ll, s_gl)
     per_step["step with 1 row repaired"] = launches_since(topology, mark)
+    per_pure["step with 1 row repaired"] = launches_since("pure64", p_mark)
     sync()
     # the end of the path: what follows checks it, and its launches do not count
-    launches = read_launches(topology)
+    launches = {**read_launches(topology), **read_launches("pure64")}
     check(per_step["step with 1 row repaired"] == {**per_step["training step"],
                                                    **log_kernels},
           f"{topology} long-T step with row 2 repaired launches "
@@ -1733,6 +1901,25 @@ def drive_long_t(torch, dev, topology, inputs, sync, seed):
         check(gaps["random"]["flagged"] == LONG_FLAGGED[topology],
               f"{topology} long-T rows flagged {gaps['random']['flagged']}, expected "
               f"{LONG_FLAGGED[topology]}")
+    # the float64 scans: a flagged row's repair in the backward (alpha and
+    # beta a round), and row 2's where the log-space kernels do not hold
+    # the lanes (its loss, then its gradient)
+    alpha64, beta64 = f"{topology}_alpha64", f"{topology}_beta64"
+    flag_pure = per_pure["training step"]
+    check(bool(flag_pure) == bool(gaps["random"]["flagged"])
+          and set(flag_pure) <= {alpha64, beta64}
+          and flag_pure.get(alpha64) == flag_pure.get(beta64),
+          f"{topology} long-T training step float64 scan launches {flag_pure} with rows "
+          f"{gaps['random']['flagged']} flagged")
+    want_sat = Counter(flag_pure)
+    if not log_repair:
+        want_sat.update({alpha64: 2, beta64: 1})
+    check(not per_pure["evaluation call"]
+          and per_pure["step with 1 row repaired"] == dict(want_sat),
+          f"{topology} long-T float64 scan launches {json.dumps(per_pure)}")
+    for name in want_sat:
+        check(launches[name] >= 1, f"{name} launched on the {topology} long-T path")
+    per_step = {k: {**v, **per_pure[k]} for k, v in per_step.items()}
     for kind in ("peaked", "peaked, T=500"):
         check(not gaps[kind]["flagged"],
               f"{topology} {kind} logits: rows {gaps[kind]['flagged']} flagged")
@@ -2977,6 +3164,47 @@ class PureTally:
         return {k: n for k, n in zip(self.NAMES, self.counts.tolist()) if n}
 
 
+class ScanTally:
+    """Adds one on the device to a counter of a float64 scan (``PURE64``)
+    after each call, by a spy in its wrapper's place in
+    ``ops/pure_scan.py`` while entered: in a graph captured while entered
+    the adds sit in the IF bodies beside the kernels, so the counters
+    (:meth:`read`, :meth:`zero`) count the launches that the replays ran.
+    Each spy carries its wrapper's launch count and gives it back on
+    exit."""
+
+    def __init__(self, torch, dev):
+        self.counts = torch.zeros(len(PURE64), dtype=torch.int64, device=dev)
+
+    def __enter__(self):
+        from tf_seq2seq_losses_tpu_torch.ops import pure_scan
+
+        self.module, self.spies = pure_scan, {}
+        for i, name in enumerate(PURE64):
+            real = getattr(pure_scan, name)
+
+            def spy(*args, _real=real, _i=i):
+                out = _real(*args)
+                self.counts[_i].add_(1)
+                return out
+
+            spy.launches = real.launches
+            self.spies[name] = (real, spy)
+            setattr(pure_scan, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (real, spy) in self.spies.items():
+            real.launches = spy.launches
+            setattr(self.module, name, real)
+        return False
+
+    def zero(self) -> None:
+        self.counts.zero_()
+
+    def read(self) -> dict:
+        return {k: n for k, n in zip(PURE64, self.counts.tolist()) if n}
+
 class BodyNodes:
     """The node counts of the IF-node bodies captured while entered, summed
     in ``nodes``, and each body's ``(nodes, capture seconds)`` in capture
@@ -3212,6 +3440,190 @@ def drive_jit_cond(torch, dev, seed, sync, card, launched, inputs, batches,
         del graph, loss_s, d_s
 
 
+LONG_JIT_FLUSHED = 20  # rows 2-21 flushed by saturate: two 16-row rounds at T=4000
+
+
+def drive_jit_long_t(torch, dev, seed, sync, card, launched, launches) -> None:
+    """Phase 12 (d): for each topology the long-T training step (B=256,
+    T=4000, 8 chunks; loss and ``torch.autograd.grad`` to d_logits, guard
+    "while") captured in one graph, its repair rounds IF nodes at full T
+    through the float64 scans (``ops/pure_scan.py``), replayed on the
+    seed's batch (classic: no flagged row; simplified: ``LONG_FLAGGED``)
+    and on the same batch with ``LONG_JIT_FLUSHED`` rows flushed by
+    ``saturate``.  Checks: the capture's launches (the warm-up's eager step
+    and the capture's kernels, a float64 alpha a forward round and an
+    alpha and a beta a backward round); rows that differ from the eager
+    step are rows the guard repairs, within 1e-5 of the float64 pure path
+    (loss rtol, d_logits atol, as phase 7) and of the eager step within
+    1e-6 where the eager step repaired them in float64 too, within phase
+    4's 2e-4 where it took the float32 log-space kernels; the float64 scans
+    that the replays ran, counted on the device (``ScanTally``), a round
+    for every ``round_rows`` flushed rows, and no log-space launch
+    (``DeviceTally``).  Prints the capture's seconds and nodes, each IF
+    body's nodes, the replays' and the eager steps' host ms and CUDA-event
+    ms, and each replay's peak memory."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
+    from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+    from tf_seq2seq_losses_tpu_torch.ops import topology as topo_mod
+    from tf_seq2seq_losses_tpu_torch.utils.config import get_config
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    t0_d = time.perf_counter()
+    inputs = make_inputs(torch, seed, dev, max_t=LONG_T, infeasible=False)
+    labels, logits, label_length, logit_length = inputs
+    batch, lp1 = len(labels), labels.shape[1] + 1
+    cfg = get_config()
+    plan = topo_mod._tier_plan(batch, LONG_T, lp1, cfg.repair_bucket, cfg.repair_bucket2,
+                               cfg.log_fallback, cfg.guard_struct)
+    round_rows = plan[-1]
+    rounds = -(-batch // round_rows)
+    sat = tuple(range(2, 2 + LONG_JIT_FLUSHED))
+    batches = {"seed": (logits, label_length, logit_length),
+               f"{len(sat)} flushed": saturate(torch, *inputs,
+                                               rows=tuple((r, LADDER_SCALE) for r in sat))}
+    n_chunks = cl.chunk_plan(core.make_context(labels, logit_to_logproba(logits, 2),
+                                               label_length, logit_length, 0))[0]
+    for name in ("classic", "simplified"):
+        loss_fn = loss_function(name)
+        eager = make_step(torch, loss_fn, labels)
+        alpha64, beta64 = f"{name}_alpha64", f"{name}_beta64"
+        # the rows each batch's guards repair: the forward's flushed rows,
+        # the backward's (the forward's and those whose scans disagree)
+        flushed = {key: (list(sat) if key != "seed" else [],
+                         scan_gaps(torch, name, labels, *b)["flagged"])
+                   for key, b in batches.items()}
+        eager_out = {key: eager(*b) for key, b in batches.items()}
+        # the float64 scans of the capture's warm-up, the eager step, and
+        # its peak memory beside the replays'
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager(*batches["seed"])
+        sync()
+        eager_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        warm = read_launches("pure64")
+        x = logits.clone().requires_grad_(True)
+        ll_s, gl_s = label_length.clone(), logit_length.clone()
+
+        def load(b, _x=x, _ll=ll_s, _gl=gl_s):
+            with torch.no_grad():
+                _x.copy_(b[0])
+            _ll.copy_(b[1])
+            _gl.copy_(b[2])
+
+        def body(_fn=loss_fn, _x=x, _ll=ll_s, _gl=gl_s):
+            loss = _fn(labels, _x, _ll, _gl, 0)
+            total = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
+            return loss.detach(), torch.autograd.grad(total, _x)[0]
+
+        load(batches["seed"])
+        t0 = time.perf_counter()
+        with DeviceTally(torch, dev) as tally, ScanTally(torch, dev) as scans, \
+                BodyNodes() as bodies:
+            (graph, (loss_s, d_s)), got, rows = launched(
+                name, lambda: capture(torch, body, keep=True))
+            got_pure = {k: n for k, n in read_launches("pure64").items() if n}
+        capture_s = time.perf_counter() - t0
+        launches.update(got_pure)
+        nodes = graph_nodes(graph) + bodies.nodes
+        per_step = {f"{name}_fwd[final]": n_chunks, f"{name}_fwd[bound]": n_chunks,
+                    f"{name}_bwd": n_chunks}
+        check(got == {k: 2 * n for k, n in per_step.items()} and not rows,
+              f"phase 12 (d) {name} capture: launches {got}, log-space rows {dict(rows)}; "
+              f"expected twice {per_step}")
+        want_pure = {alpha64: warm[alpha64] + 2 * rounds, beta64: warm[beta64] + rounds}
+        check(got_pure == want_pure and len(bodies.each) == 2 * rounds,
+              f"phase 12 (d) {name} capture: float64 scan launches {got_pure}, expected "
+              f"{want_pure}; {len(bodies.each)} IF bodies, expected {2 * rounds}")
+        out = {"capture_s": capture_s, "graph_nodes": nodes,
+               "eager peak GB": eager_peak,
+               "forward round nodes": bodies.each[0][0],
+               "backward round nodes": bodies.each[rounds][0],
+               "bodies' capture s": sum(b[1] for b in bodies.each)}
+        for key, b in batches.items():
+            fwd_rows, bwd_rows = flushed[key]
+            load(b)
+            tally.zero()
+            scans.zero()
+            torch.cuda.reset_peak_memory_stats(dev)
+            graph.replay()
+            sync()
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            counted, counted_log = scans.read(), tally.read()
+            f_r, b_r = -(-len(fwd_rows) // round_rows), -(-len(bwd_rows) // round_rows)
+            want = {k: n for k, n in ((alpha64, f_r + b_r), (beta64, b_r)) if n}
+            check(counted == want and not counted_log,
+                  f"phase 12 (d) {name} {key}: counted on the device {counted} and "
+                  f"log-space {counted_log}; expected {want} and none")
+            e_loss, e_d = eager_out[key]
+            same_row = (loss_s == e_loss) & (d_s == e_d).flatten(1).all(1)
+            differ = torch.nonzero(~same_row)[:, 0].tolist()
+            repaired = sorted(set(fwd_rows) | set(bwd_rows))
+            check(set(differ) <= set(repaired),
+                  f"phase 12 (d) {name} {key}: rows {differ} not the eager step's bits, "
+                  f"repaired rows {repaired}")
+            errs = {}
+            if repaired:
+                idx = torch.tensor(repaired, device=dev)
+                t_cut = int(b[2][idx].max())
+                sub = (labels[idx], b[0][idx, :t_cut], b[1][idx], b[2][idx])
+                loss64, d64 = pure_float64(*sub, name)
+                agree(loss_s[idx], loss64, 1e-5, 0.0,
+                      f"phase 12 (d) {name} {key}: repaired rows' loss vs float64")
+                agree(d_s[idx, :t_cut], d64, 0.0, 1e-5,
+                      f"phase 12 (d) {name} {key}: repaired rows' d_logits vs float64")
+                # the eager step repairs the flushed rows on their own 12
+                # steps, through the float32 log-space kernels where they
+                # hold the lanes (B8 and B9 do, B5 does not), the others in
+                # float64 too
+                log_rows = fwd_rows if fwd_rows and ll.fits_log_fallback(
+                    topo_mod.take_ctx(core.make_context(
+                        labels, logit_to_logproba(b[0], 2), b[1], b[2], 0),
+                        torch.tensor(fwd_rows, device=dev)), name) else []
+                for rows_, tol in ((sorted(set(repaired) - set(log_rows)), 1e-6),
+                                   (log_rows, FLUSHED_ATOL)):
+                    if not rows_:
+                        continue
+                    r_idx = torch.tensor(rows_, device=dev)
+                    agree(loss_s[r_idx], e_loss[r_idx], tol, 0.0,
+                          f"phase 12 (d) {name} {key}: rows {rows_} loss vs eager")
+                    agree(d_s[r_idx], e_d[r_idx], 0.0, tol,
+                          f"phase 12 (d) {name} {key}: rows {rows_} d_logits vs eager")
+                errs = {"loss vs float64": max_err(loss_s[idx], loss64),
+                        "d_logits vs float64": max_err(d_s[idx, :t_cut], d64),
+                        "loss vs eager": max_err(loss_s[idx], e_loss[idx]),
+                        "d_logits vs eager": max_err(d_s[idx], e_d[idx]),
+                        "rows the eager step took through the log-space kernels":
+                            len(log_rows)}
+
+            def replay(_b=b):
+                load(_b)
+                graph.replay()
+
+            def eager_step(_b=b):
+                eager(*_b)
+
+            out[key] = {
+                "repaired rows": len(repaired), "rows not bit for bit": len(differ),
+                "counted": counted, "peak GB": peak, **errs,
+                "graphed host ms": host_ms(torch, replay, runs=LONG_RUNS),
+                "eager host ms": host_ms(torch, eager_step, runs=LONG_RUNS),
+                "graphed CUDA-event ms": time_ms(torch, replay, runs=LONG_RUNS, burst=1),
+                "eager CUDA-event ms": time_ms(torch, eager_step, runs=LONG_RUNS,
+                                               burst=1)}
+        log(f"phase 12 (d) {name} long T (B={batch}, T={LONG_T}, labels "
+            f"{list(labels.shape)}, {n_chunks} chunks) captured: ok, replays on the seed "
+            f"batch and with rows {sat[0]}-{sat[-1]} flushed; {rounds} rounds of "
+            f"{round_rows} rows a guard (one round at T={LONG_T} took 564214 nodes "
+            f"through the pure path's loop); launches at the capture "
+            f"{json.dumps({**got, **got_pure})}; ({card}; host ms median of "
+            f"{LONG_RUNS}, CUDA events around single calls; peak GB of each replay "
+            f"beside the eager step's) {json.dumps(out)}; the IF "
+            f"bodies' memory pool GB {body_pool_gb(torch, dev)}")
+        del graph, loss_s, d_s, x, eager_out
+    log(f"phase 12 (d): {time.perf_counter() - t0_d:.1f} s")
+
+
 def drive_jit(torch, dev, seed, sync, card) -> dict:
     """Phase 12, the port's counterparts of the JAX package's three
     ``jax.jit`` entry points, as CUDA graphs (the guard's "while" struct on
@@ -3225,11 +3637,12 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
     the eager body (``train_step_eager``) from the same parameters, on one
     NCCL rank; (c) the graphed ``sharded_mean_ctc_loss`` against its eager
     function, loss and d_logits bit for bit, each call's held after the
-    next, two forwards before one backward, and a ``no_grad`` call; (d) the clean long-T classic
-    step under capture (the chunked geometry raises ``ValueError``) and the
-    capture of one of its repair rounds through the pure path.  The launch
-    counts of each capture are set to 0 just before it and read just
-    after (a replay counts none).  Returns the launches."""
+    next, two forwards before one backward, and a ``no_grad`` call, and on
+    the clean classic long-T batch, whose capture holds the guards' rounds
+    at T=4000; (d) each topology's long-T step captured and replayed
+    (``drive_jit_long_t``).  The launch counts of each capture are set to
+    0 just before it and read just after (a replay counts none).  Returns
+    the launches."""
     import os
     import tempfile
     from collections import Counter
@@ -3237,14 +3650,6 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
     import torch.distributed as dist
 
     from tf_seq2seq_losses_tpu_torch.models import encoder as enc
-    from tf_seq2seq_losses_tpu_torch.ops import capture as cap
-    from tf_seq2seq_losses_tpu_torch.ops import core
-    from tf_seq2seq_losses_tpu_torch.ops import topology as topo_mod
-    from tf_seq2seq_losses_tpu_torch.ops.topology import (
-        TOPOLOGIES,
-        est_fallback_bytes,
-        fallback_cap,
-    )
     from tf_seq2seq_losses_tpu_torch.parallel import (
         init_distributed,
         make_mesh,
@@ -3253,7 +3658,6 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
         train_step_eager,
     )
     from tf_seq2seq_losses_tpu_torch.utils.config import get_config
-    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
 
     t_phase = time.perf_counter()
     launches = Counter()
@@ -3506,57 +3910,47 @@ def drive_jit(torch, dev, seed, sync, card) -> dict:
         check(torch.equal(no_grad, want[0][0]),
               f"phase 12 sharded_mean_ctc_loss no_grad: {float(no_grad)} vs eager "
               f"{float(want[0][0])}")
+        # the clean classic long-T batch (8 chunks): the graphs hold each
+        # guard's rounds at T=4000 through the float64 scans
+        l_inputs = make_inputs(torch, seed, dev, max_t=LONG_T, infeasible=False)
+
+        def long_mean(fn):
+            x = l_inputs[1].clone().requires_grad_(True)
+
+            def run():
+                mean = fn(l_inputs[0], x, *l_inputs[2:])
+                mean.backward()
+                return mean.detach()
+
+            mean, got, _ = launched("classic", run)
+            got_pure = {k: n for k, n in read_launches("pure64").items() if n}
+            launches.update(got_pure)
+            return mean, x.grad, {**got, **got_pure}
+
+        t0 = time.perf_counter()
+        e_mean, e_grad, _ = long_mean(mean_fn.eager)
+        g_mean, g_grad, got = long_mean(mean_fn)
+        long_s = time.perf_counter() - t0
+        # the mean is +inf where a row is infeasible (classic row 220 at
+        # seed 0); its d_logits stay finite, the infeasible rows' zero
+        check(torch.equal(g_mean, e_mean) and torch.equal(g_grad, e_grad)
+              and bool(torch.isfinite(e_grad).all()),
+              f"phase 12 sharded_mean_ctc_loss long T: graphed {float(g_mean)} vs eager "
+              f"{float(e_mean)}, loss and d_logits bit for bit, d_logits finite")
+        report[f"long T (B={len(l_inputs[0])}, T={LONG_T}) launches"] = got
+        report["long T eager call and graphed capture s"] = long_s
+        del l_inputs, e_grad, g_grad
         log(f"phase 12 sharded_mean_ctc_loss (make_graphed_callables, one NCCL rank): ok, "
             f"loss and d_logits bit for bit the eager function's, each call's held after "
-            f"the next, two forwards and one backward (a second slot), and a no_grad "
-            f"call {json.dumps(report)}")
+            f"the next, two forwards and one backward (a second slot), a no_grad "
+            f"call, and the clean classic long-T batch {json.dumps(report)}")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         tmp.cleanup()
 
-    # ---- (d) the clean long-T classic step ----------------------------------
-    l_labels, l_logits, l_ll, l_gl = make_inputs(torch, seed, dev, max_t=LONG_T,
-                                                 infeasible=False)
-    xl = l_logits.clone().requires_grad_(True)
-    ctc_classic = loss_function("classic")
-
-    def long_body():
-        loss = ctc_classic(l_labels, xl, l_ll, l_gl, 0)
-        total = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss)).sum()
-        return torch.autograd.grad(total, xl)[0]
-
-    t0 = time.perf_counter()
-    try:
-        capture(torch, long_body)
-        raised = None
-    except ValueError as exc:
-        raised = str(exc)
-    raise_s = time.perf_counter() - t0
-    check(raised is not None and "chunk_time" in raised,
-          f"phase 12 long-T capture: expected the chunked geometry's ValueError, got "
-          f"{raised!r}")
-    # one of the step's repair rounds through the float64 pure path, captured
-    ctx = core.make_context(l_labels, logit_to_logproba(l_logits, 2), l_ll, l_gl, 0)
-    lp1 = ctx.label.shape[1]
-    long_rb = rb if est_fallback_bytes(rb, LONG_T, lp1, True) <= fallback_cap() else \
-        min(cfg.repair_bucket, batch)
-    idx = torch.arange(long_rb, device=dev)
-    never = torch.zeros((), dtype=torch.bool, device=dev)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
-        with cap.if_node(never) as round_body:
-            TOPOLOGIES["classic"]._pure_repair(topo_mod._take_rows(ctx, idx))
-    round_s = time.perf_counter() - t0
-    round_nodes = round_body.nodes
-    long_rounds = -(-batch // long_rb)
-    log(f"phase 12 long T (B={batch}, T={LONG_T}, {ctx.label.shape[1] - 1} labels): ok, "
-        f"the capture raised ValueError after {raise_s:.2f} s: {raised}; one repair "
-        f"round of {long_rb} rows (loss and gradient through the float64 pure path) "
-        f"captured in {round_s:.1f} s, {round_nodes} nodes; the step's two guards hold "
-        f"{long_rounds} rounds each")
-    del graph, ctx, xl, l_logits
+    # ---- (d) the long-T step, captured -----------------------------------------
+    drive_jit_long_t(torch, dev, seed, sync, card, launched, launches)
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches)
 
@@ -4118,6 +4512,10 @@ def run(seed: int, dev) -> dict:
             errs[name] = max(errs[name], e)
     errs["fused_dlogits"] = compare_fused(torch, seed, dev)
     fused_widest = compare_fused_lanes(torch, dev, seed)
+    t_pure = time.perf_counter()
+    pure_errs, pure_rel, pure_long_ms = compare_pure64(torch, dev, seed)
+    errs.update(pure_errs)
+    t_pure = time.perf_counter() - t_pure
     sync()
     worst = {name: float(f"{max(e.values()):.3g}") for name, e in extra.items()}
     log("phase 2 kernel vs plain on the card: ok, max abs err at the headline "
@@ -4130,6 +4528,11 @@ def run(seed: int, dev) -> dict:
         + "; worst over the kernels at batch 8: " + json.dumps(worst)
         + f"; {time.perf_counter() - t_phase:.1f} s, of which B4/B5's lane and "
         f"repair-round checks {t_log:.1f} s, B8/B9's {t_slog:.1f} s")
+    log("phase 2 float64 scans vs their plain versions (the pure path's loops) on the "
+        "card, largest relative difference (limit 1e-12) by case: "
+        + json.dumps(pure_rel) + f"; the long-T row's kernel ms ({card}; CUDA events "
+        f"around single launches, median of 3): " + json.dumps(pure_long_ms)
+        + f"; {t_pure:.1f} s")
 
     # ---- 3 and 4. each main path, then the guard ---------------------------
     # TF32 on, as an H100 training script sets it: the act scatter must not
@@ -4291,6 +4694,15 @@ def run(seed: int, dev) -> dict:
             lambda: cs.simplified_bwd_plain(*srfb),
             "csrc/simplified_bwd_rf.cu", f"{pl}:1961", None),
     }
+    # the float64 scans on the repair round with its infeasible row
+    # (tools/time_scans.py); no PyTorch call computes the pure path's lattice
+    from tf_seq2seq_losses_tpu_torch.tools import time_scans
+
+    pure_ctx = time_scans.pure_round(sys.modules[__name__], torch, dev, seed)
+    for name, (kern, plain, p_args) in pure64_args(pure_ctx).items():
+        table[name] = ((lambda k=kern, a=p_args: k(*a)), (lambda f=plain, a=p_args: f(*a)),
+                       PURE64[name][1], PURE64[name][2], None)
+        bounds[name] = pure64_bound(name, p_args)
     kernels = []
     for name, (kern, plain, src, replaces, lib_ms) in table.items():
         ms = time_ms(torch, kern)
@@ -4333,8 +4745,6 @@ def run(seed: int, dev) -> dict:
     # a repair round of four full-length rows (tools/time_scans.py): each
     # topology's step with rows 2-5 flushed at one frame, and B4, B5, B8
     # and B9 on the round's own time axis
-    from tf_seq2seq_losses_tpu_torch.tools import time_scans
-
     f_logits = time_scans.flushed(labels, logits)
     for name, path in paths.items():
         steps_ms[f"{name}_fwd_bwd_step_4_full_rows_repaired"] = host_ms(
@@ -4374,7 +4784,7 @@ def run(seed: int, dev) -> dict:
     del inputs, logits, ctx, lib_lp, paths, kargs, sargs, rfargs, table
     del fwd, bwd, logf, logb, sfwd, sbwd, slogf, slogb, rff, rfb, srff, srfb
     del slice_paths, hbwd, v_logits, v_ctx, eargs, acts, lm_, fast_loss, scale, d_loss
-    del step, args, f_logits, round_ctx, round_cases
+    del step, args, f_logits, round_ctx, round_cases, pure_ctx
     del small, wide, small_ctx, multi, multi_ctx
     long_paths = {name: drive_long_t(torch, dev, name, long_inputs, sync, seed)
                   for name in ("classic", "simplified")}

@@ -24,7 +24,9 @@ while struct in interpret mode at rtol 1e-5 (loss) and atol 1e-4
 full T goes through the float64 pure path where the host form repairs a
 row of at most 8 steps with the log-space kernels on its own axis: the
 device form is held to float64 (loss rtol 1e-6, d_logits atol 1e-5) and
-to the host form within the log-space repair's 2e-4.
+to the host form within the log-space repair's 2e-4; with
+``capture.capturing`` patched it is the device form that a capture
+takes there, under either struct.
 """
 
 import functools
@@ -225,14 +227,26 @@ def test_device_form_reads_no_device_value(tier1, gate, monkeypatch):
     assert torch.equal(one, want_one)
 
 
+@pytest.mark.parametrize("n_flushed", [3, 8])
+@pytest.mark.parametrize("topology_name", ["classic", "simplified"])
 @pytest.mark.parametrize("struct", ["while", "cond"])
-def test_a_chunked_time_axis_raises_under_capture(struct, monkeypatch):
-    """Under capture (``capture.capturing`` patched) a time axis longer than
-    one chunk raises ``ValueError`` under either struct: its rounds would
-    capture the float64 pure path's loop over T."""
+def test_a_chunked_time_axis_under_capture(struct, topology_name, n_flushed,
+                                           monkeypatch):
+    """Under capture (``capture.capturing`` patched; a CPU predicate's IF
+    node runs its block) a time axis longer than one chunk takes the
+    device form under either struct, its rounds through the float64 pure
+    path: the uncaptured device form's values bit for bit, and float64's
+    within 1e-5."""
+    args = flushed_batch(n_flushed)
+    cfg = dict(BUCKETS, guard_struct=struct, **CHUNKED)
+    want = port_step(args, topology_name, device=True, **cfg)
     monkeypatch.setattr(capture, "capturing", lambda: True)
-    with pytest.raises(ValueError, match="chunk_time"):
-        port_step(flushed_batch(3), guard_struct=struct, **BUCKETS, **CHUNKED)
+    got = port_step(args, topology_name, **cfg)
+    monkeypatch.undo()
+    assert_same(got, want)
+    loss64, grad64 = pure64(args, topology_name)
+    np.testing.assert_allclose(got[0].numpy(), loss64.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), grad64.numpy(), atol=1e-5)
 
 
 class _HostData:

@@ -1,0 +1,187 @@
+// The classic pure path's recursions in float64: the saturation guard's
+// float64 repair (ops/log_lattice.py, the op ctc_port::pure_repair) on the
+// card.
+//
+// Replaces no Pallas kernel.  The JAX package repairs these rows through
+// its pure path, a lax.scan that XLA compiles into one loop
+// (tf_seq2seq_losses_tpu/ops/classic.py, alpha and beta); the port's pure
+// path is a Python loop over T of about ten launches a step
+// (ops/classic.py, alpha_scan and beta_scan), which a CUDA graph captures
+// as hundreds of thousands of nodes at T=4000.  These kernels compute that
+// loop's steps exactly:
+//
+// classic_alpha64_kernel: out[b, 0] = (lane 0 closed at 0, else -inf), then
+//   a step t (ops/classic.py:_alpha_step):
+//     closed'[l] = lse(closed[l], open[l]) + blank[t]
+//     open'[l]   = lse(open[l] + pm[t, l],
+//                      lse(closed[l-1] + dc[t, l-1], open[l-1] + do[t, l-1]))
+//   with lane l-1 of lane 0 the last lane (torch.roll; that lane's
+//   transitions are -inf, ops/classic.py:73).
+// classic_beta64_kernel: out[b, T] = one-hot at label_length in both
+//   states, then a step t from T-1 down (ops/classic.py:_beta_step):
+//     hc = blank[t] + closed[l]
+//     closed'[l] = lse(hc, dc[t, l] + open[l+1])
+//     open'[l]   = lse(lse(hc, pm[t, l] + open[l]), do[t, l] + open[l+1])
+//   with lane l+1 of the last lane lane 0.
+// Every operation is the plain version's, in its order, in float64 (lse:
+// pure64.cuh), so a kernel writes its plain version's bits.
+//
+// What bounds them on the H100: the chain of T dependent steps, each one
+// barrier and three float64 logsumexps (an exp and a log1p each) a lane.
+// A repair round holds 1 to 32 rows, so 1 to 32 of the 132 SMs work; the
+// bytes ([B, T, Lp1] of three transitions in, [B, T+1, Lp1, 2] out) are
+// far below the chain's time.  Latency-bound.
+//
+// Design (a first, simple one): one CTA per row, its threads strided over
+// the lanes, one __syncthreads() a step.  A step reads the previous step's
+// carry from a double buffer in shared memory where the row's lanes fit
+// (32 bytes a lane: 7264 lanes on an H100), else from the output row the
+// previous step wrote (it stays in L2): every label width is served.  A
+// lane reads its neighbour's carry and that neighbour's transitions and
+// forms the neighbour's diagonal term itself, so a step needs no second
+// barrier.
+#include "pure64.cuh"
+
+namespace ctc {
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kPure64Threads)
+classic_alpha64_kernel(const double* __restrict__ blank, const double* __restrict__ pm,
+                       const double* __restrict__ dc, const double* __restrict__ dov,
+                       int num_t, int lp1, double* out) {
+  extern __shared__ double carry[];  // kStaged: [2][lp1][2]
+  const int b = blockIdx.x;
+  const size_t steps = (size_t)num_t * lp1;
+  blank += (size_t)b * num_t;
+  pm += b * steps;
+  dc += b * steps;
+  dov += b * steps;
+  double* o = out + (size_t)b * (num_t + 1) * lp1 * 2;
+  for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+    const double c = l == 0 ? 0.0 : -CUDART_INF;
+    o[2 * l] = c;
+    o[2 * l + 1] = -CUDART_INF;
+    if (kStaged) {
+      carry[2 * l] = c;
+      carry[2 * l + 1] = -CUDART_INF;
+    }
+  }
+  __syncthreads();
+  for (int t = 0; t < num_t; ++t) {
+    const double* prev = kStaged ? carry + (t & 1) * 2 * lp1 : o + (size_t)t * 2 * lp1;
+    double* next = carry + ((t + 1) & 1) * 2 * lp1;
+    double* row = o + (size_t)(t + 1) * 2 * lp1;
+    const double bl = blank[t];
+    const double* pm_t = pm + (size_t)t * lp1;
+    const double* dc_t = dc + (size_t)t * lp1;
+    const double* do_t = dov + (size_t)t * lp1;
+    for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+      const int lm = l == 0 ? lp1 - 1 : l - 1;
+      const double a_closed = prev[2 * l];
+      const double a_open = prev[2 * l + 1];
+      const double diag = lse64(prev[2 * lm] + dc_t[lm], prev[2 * lm + 1] + do_t[lm]);
+      const double closed = lse64(a_closed, a_open) + bl;
+      const double open = lse64(a_open + pm_t[l], diag);
+      row[2 * l] = closed;
+      row[2 * l + 1] = open;
+      if (kStaged) {
+        next[2 * l] = closed;
+        next[2 * l + 1] = open;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kPure64Threads)
+classic_beta64_kernel(const double* __restrict__ blank, const double* __restrict__ pm,
+                      const double* __restrict__ dc, const double* __restrict__ dov,
+                      const long long* __restrict__ label_length, int num_t, int lp1,
+                      double* out) {
+  extern __shared__ double carry[];  // kStaged: [2][lp1][2]
+  const int b = blockIdx.x;
+  const size_t steps = (size_t)num_t * lp1;
+  blank += (size_t)b * num_t;
+  pm += b * steps;
+  dc += b * steps;
+  dov += b * steps;
+  double* o = out + (size_t)b * (num_t + 1) * lp1 * 2;
+  const long long hot = label_length[b];
+  double* last = o + (size_t)num_t * 2 * lp1;
+  for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+    const double c = l == hot ? 0.0 : -CUDART_INF;
+    last[2 * l] = c;
+    last[2 * l + 1] = c;
+    if (kStaged) {
+      carry[2 * l] = c;
+      carry[2 * l + 1] = c;
+    }
+  }
+  __syncthreads();
+  for (int t = num_t - 1, s = 0; t >= 0; --t, ++s) {
+    const double* prev =
+        kStaged ? carry + (s & 1) * 2 * lp1 : o + (size_t)(t + 1) * 2 * lp1;
+    double* next = carry + ((s + 1) & 1) * 2 * lp1;
+    double* row = o + (size_t)t * 2 * lp1;
+    const double bl = blank[t];
+    const double* pm_t = pm + (size_t)t * lp1;
+    const double* dc_t = dc + (size_t)t * lp1;
+    const double* do_t = dov + (size_t)t * lp1;
+    for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+      const int lp = l == lp1 - 1 ? 0 : l + 1;
+      const double b_open = prev[2 * l + 1];
+      const double b_open_next = prev[2 * lp + 1];
+      const double hc = bl + prev[2 * l];
+      const double ho = lse64(hc, pm_t[l] + b_open);
+      const double closed = lse64(hc, dc_t[l] + b_open_next);
+      const double open = lse64(ho, do_t[l] + b_open_next);
+      row[2 * l] = closed;
+      row[2 * l + 1] = open;
+      if (kStaged) {
+        next[2 * l] = closed;
+        next[2 * l + 1] = open;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// shared memory of the staged kernels: two carries of two states a lane
+inline size_t classic_pure64_smem(int lp1) { return (size_t)2 * 2 * lp1 * sizeof(double); }
+
+}  // namespace ctc
+
+extern "C" {
+
+size_t ctc_classic_pure64_smem_bytes(int lp1) { return ctc::classic_pure64_smem(lp1); }
+
+// staged: the carries in shared memory (the wrapper checks that the card
+// gives ctc_classic_pure64_smem_bytes(lp1)), else in the output
+int ctc_classic_alpha64(const double* blank, const double* pm, const double* dc,
+                        const double* dov, int batch, int num_t, int lp1, int staged,
+                        double* out, void* stream) {
+  if (batch == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (staged)
+    return ctc::launch_pure64(ctc::classic_alpha64_kernel<true>, batch, lp1,
+                              ctc::classic_pure64_smem(lp1), st, blank, pm, dc, dov,
+                              num_t, lp1, out);
+  return ctc::launch_pure64(ctc::classic_alpha64_kernel<false>, batch, lp1, 0, st, blank,
+                            pm, dc, dov, num_t, lp1, out);
+}
+
+int ctc_classic_beta64(const double* blank, const double* pm, const double* dc,
+                       const double* dov, const long long* label_length, int batch,
+                       int num_t, int lp1, int staged, double* out, void* stream) {
+  if (batch == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (staged)
+    return ctc::launch_pure64(ctc::classic_beta64_kernel<true>, batch, lp1,
+                              ctc::classic_pure64_smem(lp1), st, blank, pm, dc, dov,
+                              label_length, num_t, lp1, out);
+  return ctc::launch_pure64(ctc::classic_beta64_kernel<false>, batch, lp1, 0, st, blank,
+                            pm, dc, dov, label_length, num_t, lp1, out);
+}
+
+}  // extern "C"

@@ -1,0 +1,137 @@
+// The simplified pure path's recursions in float64: the saturation guard's
+// float64 repair (ops/log_lattice.py, the op ctc_port::pure_repair) of the
+// simplified topology on the card.
+//
+// Replaces no Pallas kernel.  The JAX package repairs these rows through
+// its pure path, a lax.scan (tf_seq2seq_losses_tpu/ops/simplified.py,
+// alpha and beta); the port's pure path is a Python loop over T
+// (ops/simplified.py, alpha_scan and beta_scan).  These kernels compute
+// that loop's steps exactly:
+//
+// simplified_alpha64_kernel: out[b, 0] = (0 at lane 0, else -inf), then a
+//   step t (ops/simplified.py:_alpha_step):
+//     a'[l] = lse(a[l] + blank[t], a[l-1] + dg[t, l-1])
+//   with lane l-1 of lane 0 the last lane (torch.roll; its dg is -inf).
+// simplified_beta64_kernel: out[b, T] = one-hot at label_length, then a
+//   step t from T-1 down (ops/simplified.py:_beta_step):
+//     b'[l] = lse(b[l] + blank[t], dg[t, l] + b[l+1])
+//   with lane l+1 of the last lane lane 0.
+// Every operation is the plain version's, in its order, in float64 (lse:
+// pure64.cuh), so a kernel writes its plain version's bits.
+//
+// What bounds them on the H100: the chain of T dependent steps, each one
+// barrier and one float64 logsumexp a lane; a repair round of 1 to 32 rows
+// keeps 1 to 32 of the 132 SMs busy.  Latency-bound.
+//
+// Design: classic_pure64.cu's with one state: one CTA per row, threads
+// strided over the lanes, one __syncthreads() a step, the previous carry
+// from a shared double buffer where the lanes fit (16 bytes a lane: 14528
+// lanes on an H100), else from the output row the previous step wrote.
+#include "pure64.cuh"
+
+namespace ctc {
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kPure64Threads)
+simplified_alpha64_kernel(const double* __restrict__ blank, const double* __restrict__ dg,
+                          int num_t, int lp1, double* out) {
+  extern __shared__ double carry[];  // kStaged: [2][lp1]
+  const int b = blockIdx.x;
+  blank += (size_t)b * num_t;
+  dg += (size_t)b * num_t * lp1;
+  double* o = out + (size_t)b * (num_t + 1) * lp1;
+  for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+    const double c = l == 0 ? 0.0 : -CUDART_INF;
+    o[l] = c;
+    if (kStaged) carry[l] = c;
+  }
+  __syncthreads();
+  for (int t = 0; t < num_t; ++t) {
+    const double* prev = kStaged ? carry + (t & 1) * lp1 : o + (size_t)t * lp1;
+    double* next = carry + ((t + 1) & 1) * lp1;
+    double* row = o + (size_t)(t + 1) * lp1;
+    const double bl = blank[t];
+    const double* dg_t = dg + (size_t)t * lp1;
+    for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+      const int lm = l == 0 ? lp1 - 1 : l - 1;
+      const double a = lse64(prev[l] + bl, prev[lm] + dg_t[lm]);
+      row[l] = a;
+      if (kStaged) next[l] = a;
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kPure64Threads)
+simplified_beta64_kernel(const double* __restrict__ blank, const double* __restrict__ dg,
+                         const long long* __restrict__ label_length, int num_t, int lp1,
+                         double* out) {
+  extern __shared__ double carry[];  // kStaged: [2][lp1]
+  const int b = blockIdx.x;
+  blank += (size_t)b * num_t;
+  dg += (size_t)b * num_t * lp1;
+  double* o = out + (size_t)b * (num_t + 1) * lp1;
+  const long long hot = label_length[b];
+  double* last = o + (size_t)num_t * lp1;
+  for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+    const double c = l == hot ? 0.0 : -CUDART_INF;
+    last[l] = c;
+    if (kStaged) carry[l] = c;
+  }
+  __syncthreads();
+  for (int t = num_t - 1, s = 0; t >= 0; --t, ++s) {
+    const double* prev = kStaged ? carry + (s & 1) * lp1 : o + (size_t)(t + 1) * lp1;
+    double* next = carry + ((s + 1) & 1) * lp1;
+    double* row = o + (size_t)t * lp1;
+    const double bl = blank[t];
+    const double* dg_t = dg + (size_t)t * lp1;
+    for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
+      const int lp = l == lp1 - 1 ? 0 : l + 1;
+      const double v = lse64(prev[l] + bl, dg_t[l] + prev[lp]);
+      row[l] = v;
+      if (kStaged) next[l] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// shared memory of the staged kernels: two carries a lane
+inline size_t simplified_pure64_smem(int lp1) { return (size_t)2 * lp1 * sizeof(double); }
+
+}  // namespace ctc
+
+extern "C" {
+
+size_t ctc_simplified_pure64_smem_bytes(int lp1) {
+  return ctc::simplified_pure64_smem(lp1);
+}
+
+// staged: the carries in shared memory (the wrapper checks that the card
+// gives ctc_simplified_pure64_smem_bytes(lp1)), else in the output
+int ctc_simplified_alpha64(const double* blank, const double* dg, int batch, int num_t,
+                           int lp1, int staged, double* out, void* stream) {
+  if (batch == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (staged)
+    return ctc::launch_pure64(ctc::simplified_alpha64_kernel<true>, batch, lp1,
+                              ctc::simplified_pure64_smem(lp1), st, blank, dg, num_t, lp1,
+                              out);
+  return ctc::launch_pure64(ctc::simplified_alpha64_kernel<false>, batch, lp1, 0, st,
+                            blank, dg, num_t, lp1, out);
+}
+
+int ctc_simplified_beta64(const double* blank, const double* dg,
+                          const long long* label_length, int batch, int num_t, int lp1,
+                          int staged, double* out, void* stream) {
+  if (batch == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (staged)
+    return ctc::launch_pure64(ctc::simplified_beta64_kernel<true>, batch, lp1,
+                              ctc::simplified_pure64_smem(lp1), st, blank, dg,
+                              label_length, num_t, lp1, out);
+  return ctc::launch_pure64(ctc::simplified_beta64_kernel<false>, batch, lp1, 0, st,
+                            blank, dg, label_length, num_t, lp1, out);
+}
+
+}  // extern "C"

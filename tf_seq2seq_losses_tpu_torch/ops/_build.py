@@ -30,7 +30,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = (
     "classic_fwd", "classic_bwd", "classic_bwd_half", "classic_bwd_rf", "classic_log",
     "simplified_fwd", "simplified_bwd", "simplified_bwd_rf", "simplified_log",
-    "fused_epilogue", "graph_cond",
+    "fused_epilogue", "graph_cond", "classic_pure64", "simplified_pure64",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -88,6 +88,16 @@ _SIGNATURES = {
         "ctc_cond_load": [],
         "ctc_cond_begin": [_P] * 3,
         "ctc_cond_end": [_P, _P],
+    },
+    "classic_pure64": {
+        "ctc_classic_alpha64": [_P] * 4 + [_I] * 4 + [_P] * 2,
+        "ctc_classic_beta64": [_P] * 5 + [_I] * 4 + [_P] * 2,
+        "ctc_classic_pure64_smem_bytes": [_I],
+    },
+    "simplified_pure64": {
+        "ctc_simplified_alpha64": [_P] * 2 + [_I] * 4 + [_P] * 2,
+        "ctc_simplified_beta64": [_P] * 3 + [_I] * 4 + [_P] * 2,
+        "ctc_simplified_pure64_smem_bytes": [_I],
     },
 }
 
@@ -155,7 +165,7 @@ def _fwd_bytes(min_ring: int):
 
 # Python mirrors of the libraries' ``ctc_<name>_smem_bytes(lpad, x)``: x is
 # the window for the block-float kernels, the vocabulary size for the fused
-# epilogue, and unused by the log-space kernels.
+# epilogue, and unused by the log-space kernels and the float64 pure scans.
 SMEM_BYTES = {
     "classic_fwd": _fwd_bytes(10),
     "classic_bwd": _classic_bwd_bytes(False),
@@ -173,6 +183,10 @@ SMEM_BYTES = {
     "simplified_log_fwd": _log_bytes(1),
     "simplified_log_bwd": _log_bytes(2),
     "fused_epilogue": _fused_epilogue_bytes,
+    # the float64 pure scans' carries, double-buffered: two doubles a lane
+    # for each state (the staged kernels; wider labels read the output)
+    "classic_pure64": lambda lp, _: 2 * 2 * 8 * lp,
+    "simplified_pure64": lambda lp, _: 2 * 8 * lp,
 }
 
 # Shared memory one CTA may opt into on an H100 (227 KB): the limit that

@@ -67,9 +67,10 @@ def if_node(pred: torch.Tensor):
     Inside the block the current stream is the body stream and this
     thread's allocations come from the bodies' memory pool, which outlives
     the graph; the block must leave its results in tensors made before it.
-    Outside a capture the block simply runs.  Yields a :class:`Body`."""
+    Outside a capture, and for a predicate on the CPU (which no graph
+    holds), the block simply runs.  Yields a :class:`Body`."""
     body = Body()
-    if not capturing():
+    if not capturing() or pred.device.type != "cuda":
         yield body
         return
     device = pred.device

@@ -56,10 +56,8 @@ def terms(ctx: CtcContext) -> ClassicTerms:
     )
 
 
-def _alpha_init(ctx: CtcContext) -> torch.Tensor:
-    batch = ctx.logproba.shape[0]
-    lp1 = ctx.label.shape[1]
-    init = torch.full((batch, lp1, 2), NEG_INF, device=ctx.logproba.device)
+def _alpha_init(batch: int, lp1: int, device) -> torch.Tensor:
+    init = torch.full((batch, lp1, 2), NEG_INF, device=device)
     init[:, 0, 0] = 0.0
     return init
 
@@ -79,27 +77,35 @@ def alpha(ctx: CtcContext, t: ClassicTerms = None) -> torch.Tensor:
     """Forward lattice log-probabilities [B, T+1, Lp1, 2]."""
     if t is None:
         t = terms(ctx)
-    carry = _alpha_init(ctx)
+    return alpha_scan(t.blank_lp, t.prev_tok_masked, t.diag_closed, t.diag_open)
+
+
+def alpha_scan(blank_lp, prev_tok_masked, diag_closed, diag_open) -> torch.Tensor:
+    """The forward recursion over the terms of :func:`terms` (``blank_lp``
+    [B, T], the others [B, T, Lp1]): [B, T+1, Lp1, 2].  The plain version
+    of the kernel ``classic_alpha64`` (``ops/pure_scan.py``)."""
+    batch, num_t, lp1 = diag_closed.shape
+    carry = _alpha_init(batch, lp1, diag_closed.device)
     out = [carry]
-    for k in range(ctx.logproba.shape[1]):
+    for k in range(num_t):
         carry = _alpha_step(
-            t.blank_lp[:, k],
-            t.prev_tok_masked[:, k],
-            t.diag_closed[:, k],
-            t.diag_open[:, k],
+            blank_lp[:, k],
+            prev_tok_masked[:, k],
+            diag_closed[:, k],
+            diag_open[:, k],
             carry,
         )
         out.append(carry)
     return torch.stack(out, dim=1)
 
 
-def _beta_last(ctx: CtcContext) -> torch.Tensor:
-    lp1 = ctx.label.shape[1]
-    hot = torch.arange(lp1, device=ctx.label.device)[None, :] == ctx.label_length[:, None]
+def _beta_last(label_length: torch.Tensor, lp1: int, device) -> torch.Tensor:
+    lanes = torch.arange(lp1, device=label_length.device)
+    hot = lanes[None, :] == label_length[:, None]
     onehot = torch.where(
         hot,
-        torch.zeros((), device=ctx.logproba.device),
-        torch.full((), NEG_INF, device=ctx.logproba.device),
+        torch.zeros((), device=device),
+        torch.full((), NEG_INF, device=device),
     )
     return torch.stack([onehot, onehot], dim=-1)
 
@@ -118,14 +124,24 @@ def _beta_step(blank, prev_masked, d_closed, d_open, carry):
 def beta(ctx: CtcContext) -> torch.Tensor:
     """Backward lattice log-probabilities [B, T+1, Lp1, 2]."""
     t = terms(ctx)
-    carry = _beta_last(ctx)
+    return beta_scan(t.blank_lp, t.prev_tok_masked, t.diag_closed, t.diag_open,
+                     ctx.label_length)
+
+
+def beta_scan(blank_lp, prev_tok_masked, diag_closed, diag_open,
+              label_length) -> torch.Tensor:
+    """The backward recursion over the terms of :func:`terms` from the
+    one-hot at ``label_length`` [B]: [B, T+1, Lp1, 2].  The plain version
+    of the kernel ``classic_beta64`` (``ops/pure_scan.py``)."""
+    _, num_t, lp1 = diag_closed.shape
+    carry = _beta_last(label_length, lp1, diag_closed.device)
     out = [carry]
-    for k in range(ctx.logproba.shape[1] - 1, -1, -1):
+    for k in range(num_t - 1, -1, -1):
         carry = _beta_step(
-            t.blank_lp[:, k],
-            t.prev_tok_masked[:, k],
-            t.diag_closed[:, k],
-            t.diag_open[:, k],
+            blank_lp[:, k],
+            prev_tok_masked[:, k],
+            diag_closed[:, k],
+            diag_open[:, k],
             carry,
         )
         out.append(carry)

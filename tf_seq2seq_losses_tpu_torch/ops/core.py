@@ -205,14 +205,16 @@ def select_from_act(act: torch.Tensor, label: torch.Tensor, num_tokens: int):
 
 
 def gradient_log(topology, ctx: CtcContext, loss: torch.Tensor,
-                 alpha: torch.Tensor = None) -> torch.Tensor:
+                 alpha: torch.Tensor = None, beta: torch.Tensor = None) -> torch.Tensor:
     """Log of minus the loss gradient w.r.t. log-probabilities:
     ``loss + combine(alpha[:, :-1], beta[:, 1:])``, -inf for infinite-loss
-    samples and for steps past ``logit_length``; ``alpha`` is
-    ``topology.alpha(ctx)`` where the caller has it already."""
+    samples and for steps past ``logit_length``; ``alpha`` and ``beta`` are
+    ``topology.alpha(ctx)`` and ``topology.beta(ctx)`` where the caller has
+    them already."""
     if alpha is None:
         alpha = topology.alpha(ctx)
-    beta = topology.beta(ctx)
+    if beta is None:
+        beta = topology.beta(ctx)
     combined = topology.combine(ctx, alpha[:, :-1], beta[:, 1:])
     out = loss[:, None, None] + combined
     out = torch.where(

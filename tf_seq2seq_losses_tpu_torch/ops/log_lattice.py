@@ -17,7 +17,8 @@ chunk only (a rare repair needs no chunked scan), and labels whose lanes
 their shared memory holds (at most :data:`CLASSIC_LOG_LANES` and
 :data:`SIMPLIFIED_LOG_LANES`): beyond either the repair takes the pure
 path (:func:`fits_log_fallback`, the op ``ctc_port::pure_repair``), in
-float64, cast back to float32.
+float64, cast back to float32: on the card through the float64 scan
+kernels of ``ops/pure_scan.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import Tensor
 from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
 from tf_seq2seq_losses_tpu_torch.ops import core as core_mod
+from tf_seq2seq_losses_tpu_torch.ops import pure_scan
 from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, take_token_logprobas
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
@@ -379,10 +381,34 @@ def pure_repair(topology: str, ctx: CtcContext, result: str):
     ``result`` is ``"loss"`` (``[loss]``), ``"grad"`` (``[loss, grad]``) or
     ``"grad_log"`` (``[loss, log(-grad)]``).
 
-    The op ``ctc_port::pure_repair``, on CPU and CUDA tensors alike: under
-    ``torch.compile`` its Python loop over T is one opaque node of the
-    graph, where traced it would be tens of thousands."""
+    The op ``ctc_port::pure_repair``: on CPU tensors the pure path's
+    Python loops over T; on CUDA tensors the same arithmetic with alpha and
+    beta from the float64 scan kernels (``ops/pure_scan.py``), a few
+    launches where the loop took about ten a step, so that a CUDA graph
+    captures a repair round as a few hundred nodes.  Under
+    ``torch.compile`` it is one opaque node of the graph."""
     return _pure_repair_op(*ctx, topology, result)
+
+
+def _repair64(ctx: CtcContext, topology: str, result: str, scans):
+    """The pure repair's arithmetic on ``ctx`` in float64, with ``(alpha,
+    beta)`` from ``scans(c64, with_beta)`` (beta None for ``"loss"``):
+    ``loss``, ``core.gradient_log`` and its ``combine`` in float64."""
+    pure = _PURE[topology]
+    c64 = core_mod.float64_context(ctx)
+    alpha, beta = scans(c64, result != "loss")
+    loss = pure.loss(c64, alpha)
+    if result == "loss":
+        return [loss.float()]
+    grad_log = core_mod.gradient_log(pure, c64, loss, alpha, beta)
+    second = -torch.exp(grad_log) if result == "grad" else grad_log
+    return [loss.float(), second.float()]
+
+
+def _loop_scans(topology: str):
+    """``scans`` of :func:`_repair64` through the pure path's loops."""
+    pure = _PURE[topology]
+    return lambda c, with_beta: (pure.alpha(c), pure.beta(c) if with_beta else None)
 
 
 @torch.library.custom_op("ctc_port::pure_repair", mutates_args=())
@@ -391,17 +417,16 @@ def _pure_repair_op(logproba: Tensor, raw_logproba: Tensor, label: Tensor,
                     blank_index: Tensor, label_length_mask: Tensor,
                     logit_length_mask: Tensor, blank_lp: Tensor, topology: str,
                     result: str) -> List[Tensor]:
-    pure = _PURE[topology]
-    c64 = core_mod.float64_context(CtcContext(
-        logproba, raw_logproba, label, preceded_label, label_length, logit_length,
-        blank_index, label_length_mask, logit_length_mask, blank_lp))
-    alpha = pure.alpha(c64)
-    loss = pure.loss(c64, alpha)
-    if result == "loss":
-        return [loss.float()]
-    grad_log = core_mod.gradient_log(pure, c64, loss, alpha)
-    second = -torch.exp(grad_log) if result == "grad" else grad_log
-    return [loss.float(), second.float()]
+    ctx = CtcContext(logproba, raw_logproba, label, preceded_label, label_length,
+                     logit_length, blank_index, label_length_mask, logit_length_mask,
+                     blank_lp)
+    return _repair64(ctx, topology, result, _loop_scans(topology))
+
+
+@_pure_repair_op.register_kernel("cuda")
+def _pure_repair_launch(*args):
+    *fields, topology, result = args
+    return _repair64(CtcContext(*fields), topology, result, pure_scan.SCANS[topology])
 
 
 @_pure_repair_op.register_fake

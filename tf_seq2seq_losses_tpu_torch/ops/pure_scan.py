@@ -1,0 +1,281 @@
+"""The pure path's recursions in float64 as CUDA kernels: the saturation
+guard's float64 repair on the card.
+
+No Pallas kernel stands behind these: the JAX package repairs such rows
+through its pure path, a ``lax.scan`` that XLA compiles into one loop.  The
+port's pure path is a Python loop over T (``ops/classic.py``,
+``ops/simplified.py``) of about ten launches a step, which the op
+``ctc_port::pure_repair`` (``ops/log_lattice.py``) ran for every repair that
+the float32 log-space kernels do not serve: rows longer than one chunk,
+labels wider than they hold, and the guard's pure tier.  On the card it now
+takes its alpha and beta from these kernels:
+
+* ``classic_alpha64`` and ``classic_beta64`` (csrc/classic_pure64.cu): the
+  classic topology's recursions over the terms of ``classic.terms``,
+  ``[B, T+1, Lp1, 2]``;
+* ``simplified_alpha64`` and ``simplified_beta64``
+  (csrc/simplified_pure64.cu): the simplified topology's over ``blank_lp``
+  and ``expected_token_lp``, ``[B, T+1, Lp1]``.
+
+Each is a custom op (``ctc_port::<name>``, ``cuda_lattice.kernel_op``):
+CUDA tensors launch the kernel, CPU tensors run its plain version, which is
+the pure module's own loop (``classic.alpha_scan`` and ``beta_scan``,
+``simplified.alpha_scan`` and ``beta_scan``), so a kernel and the pure path
+compute the same operations in the same order, and the kernels write its
+bits.  A kernel keeps the previous step's carry in shared memory where the
+label's lanes fit (``_build.SMEM_BYTES``), else reads it from the output
+row it wrote: every label width is served.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from tf_seq2seq_losses_tpu_torch.ops import _build
+from tf_seq2seq_losses_tpu_torch.ops import classic as classic_mod
+from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
+from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, expected_token_lp
+from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
+    check_device,
+    check_tensor,
+    kernel_op,
+)
+
+
+def _float64(tensors, what: str) -> None:
+    for name, t in tensors:
+        if t.dtype != torch.float64:
+            raise TypeError(f"{what}: {name} must be float64, got {t.dtype}")
+
+
+def _staged(library: str, lp1: int, device) -> int:
+    """1 where the card gives a CTA the shared memory of ``library``'s
+    staged kernels at ``lp1`` lanes, else 0 (the carry read from the
+    output)."""
+    return int(_build.fits((library,), lp1, 0, device))
+
+
+def _launch(library: str, fn: str, name: str, out: Tensor, inputs,
+            lengths=None) -> Tensor:
+    """Launch ``library``'s entry point ``fn`` over ``inputs`` (float64
+    ``blank_lp`` [B, T], then the [B, T, Lp1] terms), writing ``out``."""
+    batch, num_t, lp1 = inputs[-1].shape
+    dev = out.device
+    check_tensor(inputs[0], (batch, num_t), torch.float64, "blank_lp", dev)
+    for i, t in enumerate(inputs[1:]):
+        check_tensor(t, (batch, num_t, lp1), torch.float64, f"term {i}", dev)
+    ptrs = [t.data_ptr() for t in inputs]
+    if lengths is not None:
+        check_tensor(lengths, (batch,), torch.int64, "label_length", dev)
+        ptrs.append(lengths.data_ptr())
+    lib = _build.lib(library)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*ptrs, batch, num_t, lp1, _staged(library, lp1, dev),
+                               out.data_ptr(), stream)
+    _build.check(err, name)
+    return out
+
+
+def _classic_shape(diag_closed: Tensor):
+    batch, num_t, lp1 = diag_closed.shape
+    return batch, num_t + 1, lp1, 2
+
+
+def _simplified_shape(diag_lp: Tensor):
+    batch, num_t, lp1 = diag_lp.shape
+    return batch, num_t + 1, lp1
+
+
+# ---------------------------------------------------------------------------
+# classic: alpha and beta over classic.terms
+# ---------------------------------------------------------------------------
+
+
+def classic_alpha64(blank_lp, prev_tok_masked, diag_closed, diag_open) -> Tensor:
+    """Forward lattice log-probabilities [B, T+1, Lp1, 2] of the classic
+    pure path, in float64, from its terms (``classic.terms``).
+
+    The op ``ctc_port::classic_alpha64``: CUDA tensors launch
+    csrc/classic_pure64.cu; CPU tensors run ``classic.alpha_scan``."""
+    args = (blank_lp, prev_tok_masked, diag_closed, diag_open)
+    check_device(diag_closed, "classic_alpha64")
+    _float64(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
+             "classic_alpha64")
+    return _classic_alpha64_op(*(t.contiguous() for t in args))
+
+
+def _classic_alpha64_plain(blank_lp: Tensor, prev_tok_masked: Tensor,
+                           diag_closed: Tensor, diag_open: Tensor) -> Tensor:
+    return classic_mod.alpha_scan(blank_lp, prev_tok_masked, diag_closed, diag_open)
+
+
+_classic_alpha64_op = kernel_op("classic_alpha64", _classic_alpha64_plain)
+
+
+@_classic_alpha64_op.register_fake
+def _classic_alpha64_fake(blank_lp, prev_tok_masked, diag_closed, diag_open):
+    return diag_closed.new_empty(_classic_shape(diag_closed))
+
+
+@_classic_alpha64_op.register_kernel("cuda")
+def _classic_alpha64_launch(blank_lp, prev_tok_masked, diag_closed, diag_open):
+    out = diag_closed.new_empty(_classic_shape(diag_closed))
+    _launch("classic_pure64", "ctc_classic_alpha64", "classic_alpha64", out,
+            (blank_lp, prev_tok_masked, diag_closed, diag_open))
+    classic_alpha64.launches += 1
+    return out
+
+
+classic_alpha64.launches = 0
+
+
+def classic_beta64(blank_lp, prev_tok_masked, diag_closed, diag_open,
+                   label_length) -> Tensor:
+    """Backward lattice log-probabilities [B, T+1, Lp1, 2] of the classic
+    pure path, in float64, from its terms and ``label_length`` [B] int64.
+
+    The op ``ctc_port::classic_beta64``: CUDA tensors launch
+    csrc/classic_pure64.cu; CPU tensors run ``classic.beta_scan``."""
+    args = (blank_lp, prev_tok_masked, diag_closed, diag_open)
+    check_device(diag_closed, "classic_beta64")
+    _float64(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
+             "classic_beta64")
+    return _classic_beta64_op(*(t.contiguous() for t in args),
+                              label_length.contiguous())
+
+
+def _classic_beta64_plain(blank_lp: Tensor, prev_tok_masked: Tensor,
+                          diag_closed: Tensor, diag_open: Tensor,
+                          label_length: Tensor) -> Tensor:
+    return classic_mod.beta_scan(blank_lp, prev_tok_masked, diag_closed, diag_open,
+                                 label_length)
+
+
+_classic_beta64_op = kernel_op("classic_beta64", _classic_beta64_plain)
+
+
+@_classic_beta64_op.register_fake
+def _classic_beta64_fake(blank_lp, prev_tok_masked, diag_closed, diag_open,
+                         label_length):
+    return diag_closed.new_empty(_classic_shape(diag_closed))
+
+
+@_classic_beta64_op.register_kernel("cuda")
+def _classic_beta64_launch(blank_lp, prev_tok_masked, diag_closed, diag_open,
+                           label_length):
+    out = diag_closed.new_empty(_classic_shape(diag_closed))
+    _launch("classic_pure64", "ctc_classic_beta64", "classic_beta64", out,
+            (blank_lp, prev_tok_masked, diag_closed, diag_open), label_length)
+    classic_beta64.launches += 1
+    return out
+
+
+classic_beta64.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# simplified: alpha and beta over blank_lp and expected_token_lp
+# ---------------------------------------------------------------------------
+
+
+def simplified_alpha64(blank_lp, diag_lp) -> Tensor:
+    """Forward lattice log-probabilities [B, T+1, Lp1] of the simplified
+    pure path, in float64, from ``blank_lp`` [B, T] and ``diag_lp`` [B, T,
+    Lp1] (``core.expected_token_lp``).
+
+    The op ``ctc_port::simplified_alpha64``: CUDA tensors launch
+    csrc/simplified_pure64.cu; CPU tensors run ``simplified.alpha_scan``."""
+    check_device(diag_lp, "simplified_alpha64")
+    _float64((("blank_lp", blank_lp), ("diag_lp", diag_lp)), "simplified_alpha64")
+    return _simplified_alpha64_op(blank_lp.contiguous(), diag_lp.contiguous())
+
+
+def _simplified_alpha64_plain(blank_lp: Tensor, diag_lp: Tensor) -> Tensor:
+    return simplified_mod.alpha_scan(blank_lp, diag_lp)
+
+
+_simplified_alpha64_op = kernel_op("simplified_alpha64", _simplified_alpha64_plain)
+
+
+@_simplified_alpha64_op.register_fake
+def _simplified_alpha64_fake(blank_lp, diag_lp):
+    return diag_lp.new_empty(_simplified_shape(diag_lp))
+
+
+@_simplified_alpha64_op.register_kernel("cuda")
+def _simplified_alpha64_launch(blank_lp, diag_lp):
+    out = diag_lp.new_empty(_simplified_shape(diag_lp))
+    _launch("simplified_pure64", "ctc_simplified_alpha64", "simplified_alpha64", out,
+            (blank_lp, diag_lp))
+    simplified_alpha64.launches += 1
+    return out
+
+
+simplified_alpha64.launches = 0
+
+
+def simplified_beta64(blank_lp, diag_lp, label_length) -> Tensor:
+    """Backward lattice log-probabilities [B, T+1, Lp1] of the simplified
+    pure path, in float64, from ``blank_lp``, ``diag_lp`` and
+    ``label_length`` [B] int64.
+
+    The op ``ctc_port::simplified_beta64``: CUDA tensors launch
+    csrc/simplified_pure64.cu; CPU tensors run ``simplified.beta_scan``."""
+    check_device(diag_lp, "simplified_beta64")
+    _float64((("blank_lp", blank_lp), ("diag_lp", diag_lp)), "simplified_beta64")
+    return _simplified_beta64_op(blank_lp.contiguous(), diag_lp.contiguous(),
+                                 label_length.contiguous())
+
+
+def _simplified_beta64_plain(blank_lp: Tensor, diag_lp: Tensor,
+                             label_length: Tensor) -> Tensor:
+    return simplified_mod.beta_scan(blank_lp, diag_lp, label_length)
+
+
+_simplified_beta64_op = kernel_op("simplified_beta64", _simplified_beta64_plain)
+
+
+@_simplified_beta64_op.register_fake
+def _simplified_beta64_fake(blank_lp, diag_lp, label_length):
+    return diag_lp.new_empty(_simplified_shape(diag_lp))
+
+
+@_simplified_beta64_op.register_kernel("cuda")
+def _simplified_beta64_launch(blank_lp, diag_lp, label_length):
+    out = diag_lp.new_empty(_simplified_shape(diag_lp))
+    _launch("simplified_pure64", "ctc_simplified_beta64", "simplified_beta64", out,
+            (blank_lp, diag_lp), label_length)
+    simplified_beta64.launches += 1
+    return out
+
+
+simplified_beta64.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# a context's alpha and beta
+# ---------------------------------------------------------------------------
+
+
+def classic_scans(ctx: CtcContext, with_beta: bool = True):
+    """``(alpha, beta or None)`` of the classic pure path on a float64
+    context, through the kernels' ops (one ``classic.terms`` for both)."""
+    t = classic_mod.terms(ctx)
+    args = (t.blank_lp, t.prev_tok_masked, t.diag_closed, t.diag_open)
+    alpha = classic_alpha64(*args)
+    return alpha, classic_beta64(*args, ctx.label_length) if with_beta else None
+
+
+def simplified_scans(ctx: CtcContext, with_beta: bool = True):
+    """``(alpha, beta or None)`` of the simplified pure path on a float64
+    context, through the kernels' ops."""
+    diag_lp = expected_token_lp(ctx)
+    alpha = simplified_alpha64(ctx.blank_lp, diag_lp)
+    if not with_beta:
+        return alpha, None
+    return alpha, simplified_beta64(ctx.blank_lp, diag_lp, ctx.label_length)
+
+
+SCANS = {"classic": classic_scans, "simplified": simplified_scans}

@@ -29,11 +29,17 @@ from tf_seq2seq_losses_tpu_torch.utils.numerics import (
 NEG_INF = float("-inf")
 
 
-def _alpha_init(ctx: CtcContext) -> torch.Tensor:
-    batch = ctx.logproba.shape[0]
-    init = torch.full((batch, ctx.label.shape[1]), NEG_INF, device=ctx.logproba.device)
+def _alpha_init(batch: int, lp1: int, device) -> torch.Tensor:
+    init = torch.full((batch, lp1), NEG_INF, device=device)
     init[:, 0] = 0.0
     return init
+
+
+def _alpha_step(blank, diag_lp, carry):
+    horizontal = carry + blank[:, None]
+    # the wrap lane is safe: position Lp1-1 is always masked to -inf
+    diag = torch.roll(carry + diag_lp, shifts=1, dims=1)
+    return _lse(horizontal, diag)
 
 
 def alpha(ctx: CtcContext, diag_lp: torch.Tensor = None) -> torch.Tensor:
@@ -41,36 +47,52 @@ def alpha(ctx: CtcContext, diag_lp: torch.Tensor = None) -> torch.Tensor:
     ``expected_token_lp(ctx)`` where the caller has it already."""
     if diag_lp is None:
         diag_lp = expected_token_lp(ctx)
-    carry = _alpha_init(ctx)
+    return alpha_scan(ctx.blank_lp, diag_lp)
+
+
+def alpha_scan(blank_lp, diag_lp) -> torch.Tensor:
+    """The forward recursion over ``blank_lp`` [B, T] and ``diag_lp`` [B, T,
+    Lp1]: [B, T+1, Lp1].  The plain version of the kernel
+    ``simplified_alpha64`` (``ops/pure_scan.py``)."""
+    batch, num_t, lp1 = diag_lp.shape
+    carry = _alpha_init(batch, lp1, diag_lp.device)
     out = [carry]
-    for k in range(ctx.logproba.shape[1]):
-        horizontal = carry + ctx.blank_lp[:, k, None]
-        # the wrap lane is safe: position Lp1-1 is always masked to -inf
-        diag = torch.roll(carry + diag_lp[:, k], shifts=1, dims=1)
-        carry = _lse(horizontal, diag)
+    for k in range(num_t):
+        carry = _alpha_step(blank_lp[:, k], diag_lp[:, k], carry)
         out.append(carry)
     return torch.stack(out, dim=1)
 
 
-def _beta_last(ctx: CtcContext) -> torch.Tensor:
-    lp1 = ctx.label.shape[1]
-    hot = torch.arange(lp1, device=ctx.label.device)[None, :] == ctx.label_length[:, None]
+def _beta_last(label_length: torch.Tensor, lp1: int, device) -> torch.Tensor:
+    lanes = torch.arange(lp1, device=label_length.device)
+    hot = lanes[None, :] == label_length[:, None]
     return torch.where(
         hot,
-        torch.zeros((), device=ctx.logproba.device),
-        torch.full((), NEG_INF, device=ctx.logproba.device),
+        torch.zeros((), device=device),
+        torch.full((), NEG_INF, device=device),
     )
+
+
+def _beta_step(blank, diag_lp, carry):
+    horizontal = carry + blank[:, None]
+    diag = diag_lp + torch.roll(carry, shifts=-1, dims=1)
+    return _lse(horizontal, diag)
 
 
 def beta(ctx: CtcContext) -> torch.Tensor:
     """Backward lattice log-probabilities [B, T+1, Lp1]."""
-    diag_lp = expected_token_lp(ctx)
-    carry = _beta_last(ctx)
+    return beta_scan(ctx.blank_lp, expected_token_lp(ctx), ctx.label_length)
+
+
+def beta_scan(blank_lp, diag_lp, label_length) -> torch.Tensor:
+    """The backward recursion over ``blank_lp`` and ``diag_lp`` from the
+    one-hot at ``label_length`` [B]: [B, T+1, Lp1].  The plain version of
+    the kernel ``simplified_beta64`` (``ops/pure_scan.py``)."""
+    _, num_t, lp1 = diag_lp.shape
+    carry = _beta_last(label_length, lp1, diag_lp.device)
     out = [carry]
-    for k in range(ctx.logproba.shape[1] - 1, -1, -1):
-        horizontal = carry + ctx.blank_lp[:, k, None]
-        diag = diag_lp[:, k] + torch.roll(carry, shifts=-1, dims=1)
-        carry = _lse(horizontal, diag)
+    for k in range(num_t - 1, -1, -1):
+        carry = _beta_step(blank_lp[:, k], diag_lp[:, k], carry)
         out.append(carry)
     return torch.stack(out[::-1], dim=1)
 

@@ -60,8 +60,9 @@ values are the host form's bit for bit on the kernels, whose rows never
 interact, except on a chunked time axis: there a round at full T goes
 through the float64 pure path where the host form repairs a short row
 with the log-space kernels on its own axis (within their 2e-4, and closer
-to float64).  A chunked time axis raises ``ValueError`` under capture (its
-rounds' pure-path loop over T would take minutes to capture).
+to float64).  On the card a pure-path round is a few launches (the float64
+scan kernels of ``ops/pure_scan.py``), so a chunked time axis is captured
+as any other.
 
 Under ``torch.compile`` the guard takes the device form too: the "while"
 struct's rounds are one ``while_loop`` (:func:`_round_loop`), each other
@@ -429,14 +430,6 @@ def _guarded_device(fast_value, exact_fn, pure_fn, loss_like, feasible, ctx, aux
     predicate, so an uncaptured call gives the replay's values.  ``gate``
     (a 0-d bool tensor) ands into every row's flush: ``guard_mode="pre"``
     passes the forward's count ``> 0``."""
-    cfg = get_config()
-    if (not torch.compiler.is_compiling() and _capture.capturing()
-            and _kernels.chunk_plan(ctx)[0] > 1):
-        raise ValueError(
-            f"a time axis of {ctx.logproba.shape[1]} steps, longer than one chunk "
-            f"(chunk_time={cfg.chunk_time}), cannot be captured in a CUDA graph: its "
-            "guard's rounds repair through the float64 pure path, a Python loop over "
-            "T whose capture takes minutes; run it eagerly")
     flushed = torch.isposinf(loss_like) & feasible
     if gate is not None:
         flushed = flushed & gate

@@ -13,7 +13,11 @@ log-space scans, classic B4 (``classic_log_fwd``, modes final and resid)
 and B5 (``classic_log_bwd``, over mode resid's residuals) and simplified
 B8 (``simplified_log_fwd``, modes final and resid) and B9
 (``simplified_log_bwd``, over mode resid's residual), at the headline and
-on a repair round (:func:`repair_round`).
+on a repair round (:func:`repair_round`); and the float64 scans of the
+guard's pure repair (``classic_alpha64``, ``classic_beta64``,
+``simplified_alpha64``, ``simplified_beta64``, ``ops/pure_scan.py``) on
+that round with the infeasible row 0 (:func:`pure_round`, bursts of 5) and
+on a long-T row at full T (:func:`long_row`, single launches).
 
     python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
@@ -220,18 +224,56 @@ def flushed(labels, logits, rows=ROUND_ROWS):
     return logits
 
 
-def repair_round(smoke, torch, dev, seed=0):
+def repair_round(smoke, torch, dev, seed=0, rows=ROUND_ROWS):
     """The context of one repair round: rows ``ROUND_ROWS`` of the
     headline batch (``make_inputs`` at ``seed``), flushed (:func:`flushed`),
-    gathered by the guard's own ``topology.take_ctx``, which cuts the time
-    axis to their longest ``logit_length``; their lengths are kept."""
+    gathered (with ``rows``, which may add others) by the guard's own
+    ``topology.take_ctx``, which cuts the time axis to their longest
+    ``logit_length``; their lengths are kept."""
     from tf_seq2seq_losses_tpu_torch.ops import core, topology
     from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
 
     labels, logits, label_length, logit_length = smoke.make_inputs(torch, seed, dev)
     ctx = core.make_context(labels, logit_to_logproba(flushed(labels, logits), 2),
                             label_length, logit_length, 0)
-    return topology.take_ctx(ctx, torch.tensor(ROUND_ROWS, device=dev))
+    return topology.take_ctx(ctx, torch.tensor(rows, device=dev))
+
+
+def pure_round(smoke, torch, dev, seed=0):
+    """The repair round with the headline batch's infeasible row 0 beside
+    rows ``ROUND_ROWS``: the float64 scans' round (their -inf entries: the
+    lanes past each label, the flushed frame, row 0's lattice)."""
+    return repair_round(smoke, torch, dev, seed, rows=(0,) + ROUND_ROWS)
+
+
+def long_row(smoke, torch, dev, seed=0):
+    """Rows 0 (infeasible) and 2 of the long-T batch at its full T=4000,
+    gathered as the guard's device form gathers a round
+    (``topology._take_rows``): a float64 scan's long-T case."""
+    from tf_seq2seq_losses_tpu_torch.ops import core, topology
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    labels, logits, label_length, logit_length = smoke.make_inputs(
+        torch, seed, dev, max_t=smoke.LONG_T)
+    ctx = core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                            logit_length, 0)
+    return topology._take_rows(ctx, torch.tensor([0, 2], device=dev))
+
+
+def pure64_cases(smoke, ctx) -> dict:
+    """``{case: (launch, mode, lens, window)}`` of the four float64 scans
+    (``ops/pure_scan.py``) on the float64 form of ``ctx``
+    (``chip_smoke.pure64_args``)."""
+    return {name: (lambda k=kern, a=args: (k(*a),), None, None, None)
+            for name, (kern, _plain, args) in smoke.pure64_args(ctx).items()}
+
+
+def pure64_bounds(smoke, ctx, shape: str) -> dict:
+    """``{"case shape": ms}``: each float64 scan's bound on ``ctx``
+    (``chip_smoke.pure64_bound``: bytes at the HBM rate or float64
+    operations at the float64 rate)."""
+    return {f"{name} {shape}": smoke.bound(*smoke.pure64_bound(name, args))[0]
+            for name, (_k, _p, args) in smoke.pure64_args(ctx).items()}
 
 
 def fused_case(smoke, torch, dev, max_t: int):
@@ -412,6 +454,13 @@ def main() -> int:
         smoke, torch, dev, None, cases["repair_round"], round_ctx.label_length).items()})
     bursts = {shape: burst for shape, (_, _, burst) in shapes.items()}
     bursts["repair_round"] = 20
+    # the float64 scans: the repair round with its infeasible row, and a
+    # long-T row at full T
+    for shape, ctx, burst in (("pure_round", pure_round(smoke, torch, dev), 5),
+                              ("long_t_row", long_row(smoke, torch, dev), 1)):
+        cases[shape] = pure64_cases(smoke, ctx)
+        bounds.update(pure64_bounds(smoke, ctx, shape))
+        bursts[shape] = burst
     digests = {f"{name} {shape}": digest(torch, case)
                for shape in cases for name, case in cases[shape].items()}
     times = {}
