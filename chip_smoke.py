@@ -294,16 +294,45 @@ then simplified):
    Each case prints its host ms (median of 20; of 3 at long T and for a
    call over a quarter second), device ms and idle share (one profile of
    3 calls), compile seconds (the first call's) and graph count, beside
-   the eager call's.
+   the eager call's;
+14. forced alignment, sampling and decoding under the transforms
+   (``drive_transforms``), for each topology at phase 8's headline batch
+   (rows 0 and 1 infeasible): (a) the float32 forward
+   (``classic_alpha32``, ``simplified_alpha32``: the float64 scans' kernels
+   instantiated in float32), Viterbi (``classic_viterbi``,
+   ``simplified_viterbi``, csrc/viterbi.cu) and the sampling walk
+   (``classic_walk``, ``simplified_walk``, csrc/walk.cu; 32 samples) bit
+   for bit their plain versions, the loops, on the same inputs, and the
+   public calls launching each once (forced alignment Viterbi, the sampler
+   the forward and the walk); (b) ``ctc_forced_alignment``,
+   ``ctc_sample_alignments`` (its CUDA generator registered with the
+   graph), ``ctc_greedy_decode`` and ``ctc_beam_search_decode`` (K=8)
+   captured as CUDA graphs, replays bit for bit the eager calls (the
+   sampler's from a generator seeded alike, two seeds), the graphs' nodes;
+   (c) alignment and sampler of both topologies and the classic decoders
+   under ``torch.compile(fullgraph=True, dynamic=False)`` with inductor:
+   one graph each, cold compile seconds, the eager call's launches,
+   alignments and tokens equal, scores rtol 1e-6, the sampler
+   (``generator=None``, ``fallback_random``) the eager call's from the same
+   seed, twice; (d) ``torch.func.vmap`` over 4 groups of 64 rows of
+   alignment, greedy, beam search and the walk on fixed noise, bit for bit
+   the unmapped call on the folded batch, each kernel once a mapped call.
+   Times: host ms (median of 5; of 3 for a call over a quarter second) of
+   the eager call, of the plain loops on the card (alignment and sampler),
+   of the replay and of the compiled call; a replay's device ms (CUDA
+   events) and the eager call's idle share by it; device ms and idle share
+   of one profile of the eager call (beam search's not profiled).
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
 phase 7, each posteriors call of phase 8, each step and call of phase 9,
 each step, call and pair of them of phase 10, each call of phase 11, each
-capture of phase 12, each call of phase 13) and read after it: a kernel
-that its path never launched fails the run, and the ``kernels`` line
-gives each kernel's launches summed over the paths (the float64 scans'
-over phase 3's labels [8, 2000], phase 7 and phase 12's captures).  A graph's replays
+capture of phase 12, each call of phase 13, each public, captured,
+compiled and mapped call of phase 14) and read after it: a kernel that
+its path never launched fails the run, and the ``kernels`` line gives
+each kernel's launches summed over the paths (the float64 scans' over
+phase 3's labels [8, 2000], phase 7 and phase 12's captures; phase 14's
+kernels over its paths).  A graph's replays
 launch nothing on the host: its kernels count once, at the capture.  A
 compiled function's kernels count at every call: their custom ops count
 where they launch, at run time.  The last lines are the ``kernels`` JSON,
@@ -314,6 +343,7 @@ failed check exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -1340,10 +1370,12 @@ def kernel_counters() -> dict:
     """``{path: {kernel name: (wrapper, mode or None)}}``: the launch counts
     that each topology's paths may move (B12 serves both), and under
     ``"pure64"`` the float64 scans of the guard's pure repair, which the
-    paths that repair through it read apart."""
+    paths that repair through it read apart, and under ``"extras"`` phase
+    14's kernels of forced alignment and sampling."""
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
+    from tf_seq2seq_losses_tpu_torch.ops import align, sample
     from tf_seq2seq_losses_tpu_torch.ops import pure_scan as ps
 
     return {
@@ -1372,6 +1404,14 @@ def kernel_counters() -> dict:
             "fused_dlogits": (cl.fused_dlogits, None),
         },
         "pure64": {name: (getattr(ps, name), None) for name in PURE64},
+        "extras": {
+            "classic_viterbi": (align.classic_viterbi_scan, None),
+            "simplified_viterbi": (align.simplified_viterbi_scan, None),
+            "classic_walk": (sample.classic_walk_scan, None),
+            "simplified_walk": (sample.simplified_walk_scan, None),
+            "classic_alpha32": (ps.classic_alpha32, None),
+            "simplified_alpha32": (ps.simplified_alpha32, None),
+        },
     }
 
 
@@ -2201,7 +2241,9 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
                 *h_args, 0, vec, topology),
         }
         for name, fn in calls.items():
-            times[f"{topology}_{name}"] = time_ms(torch, fn, runs=5, burst=1,
+            # beam search and the HVP take over a second a call: median of 3
+            runs = LONG_RUNS if name.startswith(("beam", "hvp")) else 5
+            times[f"{topology}_{name}"] = time_ms(torch, fn, runs=runs, burst=1,
                                                   warmup=False)
         if topology == "classic":
             # where the time of a PyTorch loop goes; the profiler's cost grows
@@ -2209,7 +2251,8 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
             log("phase 8 profile of classic forced_alignment: " + json.dumps(profile_step(
                 torch, dev, times["classic_forced_alignment"], calls["forced_alignment"],
                 steps=1)))
-    log(f"phase 8 timing (ms, CUDA events around single calls, median of 5; B={BATCH}, "
+    log(f"phase 8 timing (ms, CUDA events around single calls, median of 5, of "
+        f"{LONG_RUNS} for beam search and the HVP; B={BATCH}, "
         f"T={MAX_T}, V={VOCAB}; " + card + "): " + json.dumps(times))
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, times=times)
@@ -4377,6 +4420,456 @@ def drive_compile(torch, dev, seed, sync, card) -> dict:
     return {"launches": launches, "report": report}
 
 
+# phase 14: forced alignment, sampling and decoding under the transforms
+EXTRAS = {  # kernel: (topology, source, the JAX package's scan it stands for)
+    "classic_viterbi": ("classic", "csrc/viterbi.cu",
+                        "tf_seq2seq_losses_tpu/ops/align.py:52"),
+    "simplified_viterbi": ("simplified", "csrc/viterbi.cu",
+                           "tf_seq2seq_losses_tpu/ops/align.py:127"),
+    "classic_walk": ("classic", "csrc/walk.cu", "tf_seq2seq_losses_tpu/ops/sample.py:65"),
+    "simplified_walk": ("simplified", "csrc/walk.cu",
+                        "tf_seq2seq_losses_tpu/ops/sample.py:150"),
+    "classic_alpha32": ("classic", "csrc/classic_pure64.cu",
+                        "tf_seq2seq_losses_tpu/ops/classic.py:136"),
+    "simplified_alpha32": ("simplified", "csrc/simplified_pure64.cu",
+                           "tf_seq2seq_losses_tpu/ops/simplified.py:63"),
+}
+# labels wider than a CTA's shared memory holds the carries of (16 bytes a
+# lane classic, 8 simplified: 14528 / 29056 lanes on an H100): Viterbi
+# keeps its carry in a global scratch row, the float32 forward reads it
+# back from its output; 3 rows (0 and 1 infeasible) of EXTRAS_WIDE_T frames
+EXTRAS_WIDE = {"classic": 14600, "simplified": 29100}
+EXTRAS_WIDE_T = 400
+TRANSFORM_GROUPS = 4  # vmap's groups of the headline batch: 4 of 64 rows
+TRANSFORM_RUNS = 5
+TRANSFORM_RTOL = 1e-6  # compiled scores against eager (inductor rounds the glue)
+# float32 operations a lattice cell (Viterbi: max, adds and compares) and a
+# sample's step (the walk: candidate weights, noise, argmax, the sum)
+VITERBI_CELL_OPS = {"classic": 10, "simplified": 4}
+WALK_STEP_OPS = {"classic": 12, "simplified": 8}
+
+
+def extras_args(torch, ctx, topology, gen, num_s=NUM_SAMPLES) -> dict:
+    """``{kernel: (kernel call, plain call, arguments)}`` of the topology's
+    forward in float32, Viterbi and walk on ``ctx``, the arguments that the
+    glue of ``ops/align.py`` and ``ops/sample.py`` gives them (the walk
+    over the plain alpha and ``num_s`` samples of noise from ``gen``)."""
+    from tf_seq2seq_losses_tpu_torch.ops import align, classic, core, pure_scan, sample
+    from tf_seq2seq_losses_tpu_torch.ops import simplified
+
+    label = (ctx.label, ctx.label_length, ctx.blank_index)
+    noise = sample.gumbel(sample.noise_shape(topology, num_s, ctx), gen,
+                          ctx.logproba.device)
+    if topology == "classic":
+        t = classic.terms(ctx)
+        terms = tuple(a.contiguous() for a in (t.blank_lp, t.prev_tok_masked,
+                                               t.diag_closed, t.diag_open))
+        return {
+            "classic_alpha32": (pure_scan.classic_alpha32, classic.alpha_scan, terms),
+            "classic_viterbi": (align.classic_viterbi_scan, align.classic_viterbi_plain,
+                                terms + label),
+            "classic_walk": (sample.classic_walk_scan, sample.classic_walk_plain,
+                             (classic.alpha_scan(*terms),) + terms + label + (noise,)),
+        }
+    terms = (ctx.blank_lp.contiguous(), core.expected_token_lp(ctx).contiguous())
+    return {
+        "simplified_alpha32": (pure_scan.simplified_alpha32, simplified.alpha_scan, terms),
+        "simplified_viterbi": (align.simplified_viterbi_scan,
+                               align.simplified_viterbi_plain, terms + label),
+        "simplified_walk": (sample.simplified_walk_scan, sample.simplified_walk_plain,
+                            (simplified.alpha_scan(*terms),) + terms + label + (noise,)),
+    }
+
+
+def extras_bound(name, args, logit_length, label_length) -> tuple:
+    """``(bytes, float32 operations)`` of a phase-14 kernel on ``args``.
+    The float32 forward computes its whole lattice, as the float64 scans
+    (``pure64_bound``): ``blank_lp`` and the terms read once, ``[B, T+1,
+    Lp1(, 2)]`` written once.  Viterbi needs each row's ``logit_length``
+    steps over its ``label_length + 1`` lanes (``kernel_bounds``): the
+    terms of those cells and the steps' blank read once, the label and the
+    lengths, the path log-prob and the alignment written.  A walk needs, at
+    each of its sample's ``logit_length`` steps, the noise of the step and
+    at least the predecessor's alpha and one transition term, and writes its
+    emissions and its sum."""
+    topology = EXTRAS[name][0]
+    states = 2 if topology == "classic" else 1
+    if name.endswith("alpha32"):
+        terms = [a for a in args if a.dim() == 3]
+        batch, num_t, lp1 = terms[0].shape
+        nbytes = 4 * (batch * num_t + len(terms) * batch * num_t * lp1
+                      + states * batch * (num_t + 1) * lp1)
+        return nbytes, PURE64_CELL_OPS[topology] * batch * num_t * lp1
+    lens, lanes_b = logit_length.double(), label_length.double() + 1
+    steps, cells = float(lens.sum()), float((lens * lanes_b).sum())
+    batch, lanes = len(lens), float(lanes_b.sum())
+    blank_lp = args[1] if name.endswith("walk") else args[0]
+    num_t = blank_lp.shape[1]
+    if name.endswith("viterbi"):
+        n_terms = 3 if topology == "classic" else 1
+        nbytes = 4 * (n_terms * cells + steps + batch + batch * num_t) + 8 * (lanes + batch)
+        return nbytes, VITERBI_CELL_OPS[topology] * cells
+    num_s = args[-1].shape[0]
+    slots = 3 if topology == "classic" else 2
+    nbytes = 4 * num_s * (steps * (slots + 2) + batch * num_t + batch) + 8 * (lanes + batch)
+    return nbytes, WALK_STEP_OPS[topology] * num_s * steps
+
+
+def same_nan_bits(torch, a, b) -> bool:
+    """Equal shapes, types and values, NaN where NaN (a walk's sum on an
+    infeasible row, ``-inf - -inf`` before the feasibility mask)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@contextlib.contextmanager
+def plain_extras():
+    """The extras' public calls through their plain versions on the card:
+    the wrappers of the six kernels patched to the loops."""
+    from tf_seq2seq_losses_tpu_torch.ops import align, classic, pure_scan, sample
+    from tf_seq2seq_losses_tpu_torch.ops import simplified
+
+    patches = ((align, "classic_viterbi_scan", align.classic_viterbi_plain),
+               (align, "simplified_viterbi_scan", align.simplified_viterbi_plain),
+               (sample, "classic_walk_scan", sample.classic_walk_plain),
+               (sample, "simplified_walk_scan", sample.simplified_walk_plain),
+               (pure_scan, "classic_alpha32", classic.alpha_scan),
+               (pure_scan, "simplified_alpha32", simplified.alpha_scan))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def capture_rng(torch, fn, gen):
+    """``(graph, fn's outputs)``: ``fn``, which draws from the CUDA
+    generator ``gen``, captured after a warm-up on a side stream, with
+    ``gen``'s state registered with the graph: a replay draws from ``gen``'s
+    seed and offset at the replay, as an eager call would."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def drive_transforms(torch, dev, seed, sync, card) -> dict:
+    """Phase 14, forced alignment, sampling and decoding under the
+    counterparts of ``jax.jit`` and ``jax.vmap``, for each topology at the
+    headline (phase 8's batch, rows 0 and 1 infeasible): (a) the float32
+    forward, Viterbi and the walk (``NUM_SAMPLES`` samples) bit for bit
+    their plain versions on the same inputs, also on labels wider than
+    shared memory holds (``EXTRAS_WIDE``: the unstaged route), and the
+    public calls launching each once; (b) forced alignment, the sampler (its CUDA
+    generator registered with the graph), greedy and beam search
+    (``BEAM_WIDTH``) captured as CUDA graphs, each replay bit for bit the
+    eager call (the sampler's from a generator seeded alike, two seeds),
+    the graph's nodes; (c) the same four under ``torch.compile(fullgraph=True,
+    dynamic=False)`` with inductor, for both topologies: one graph each, cold
+    compile seconds, alignments and tokens the eager call's, scores rtol
+    ``TRANSFORM_RTOL``, the sampler (``generator=None``, inductor's
+    ``fallback_random``) the eager call's from the same seed; (d)
+    ``torch.func.vmap`` over ``TRANSFORM_GROUPS`` groups of 64 rows of
+    alignment, greedy, beam search and the walk on fixed noise, bit for bit
+    the unmapped call on the folded batch, each kernel once a mapped call;
+    (e) the gradients of forced alignment's and the walk's scores through
+    the kernels (their ops' backward runs the loops again,
+    ``cuda_lattice.plain_grad``) bit for bit autograd through the loops,
+    each kernel once a gradient.
+    Times: host ms (median of ``TRANSFORM_RUNS``, of ``LONG_RUNS`` for a call
+    over a quarter second) of the eager call through the kernels, through
+    the plain loops, the replay and the compiled call; the device ms of a
+    replay (CUDA events, median of 3: the call's kernels without the
+    host's gaps) and the eager call's idle share by it; device ms and idle
+    share from one profile of the eager call (not of beam search: the
+    profiler's cost grows with its ~25000 launches a call).  The
+    launch counts are set to 0 before each path (the public calls of (a),
+    each capture, each compiled call, each mapped call, each gradient) and
+    read after it.
+    Returns the launches and the six kernels' entries of the ``kernels``
+    line (``launches`` left to the caller)."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import torch._inductor.config as inductor_config
+
+    import tf_seq2seq_losses_tpu_torch as ctc
+    from tf_seq2seq_losses_tpu_torch.ops import _build, core, sample
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    t_phase = time.perf_counter()
+    cache = tempfile.TemporaryDirectory()
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache.name  # compile seconds are cold
+    labels, logits, label_length, logit_length = make_inputs(torch, seed, dev)
+    lp = logit_to_logproba(logits, 2)
+    args = (labels, lp, label_length, logit_length)
+    ctx = core.make_context(*args, 0)
+    gen = torch.Generator(device=dev)
+    launches, kernels, report, eager = Counter(), [], {}, {}
+
+    def launched(fn):
+        reset_launches()
+        out = fn()
+        sync()
+        got = {k: n for k, n in read_launches("extras").items() if n}
+        launches.update(got)
+        return out, got
+
+    def alike(got, want, what, rtol=0.0):
+        """Integer outputs equal, float outputs bit for bit (or within
+        ``rtol``, equal -inf patterns)."""
+        for i, (a, b) in enumerate(zip(got, want)):
+            ok = same_nan_bits(torch, a, b)
+            if not ok and rtol and a.dtype.is_floating_point and a.shape == b.shape:
+                ok = close(a, b, rtol, 0.0)
+            check(ok, f"phase 14 {what}: output {i} differs (max abs err "
+                  f"{max_err(a, b) if a.shape == b.shape else 'shape'})")
+
+    def calls(topology, generator):
+        return {
+            "forced_alignment": lambda: ctc.ctc_forced_alignment(*args, 0, topology),
+            f"sample_s{NUM_SAMPLES}": lambda: ctc.ctc_sample_alignments(
+                *args, 0, generator, NUM_SAMPLES, topology),
+            "greedy_decode": lambda: ctc.ctc_greedy_decode(lp, logit_length, 0, topology),
+            f"beam_search_k{BEAM_WIDTH}": lambda: ctc.ctc_beam_search_decode(
+                lp, logit_length, 0, BEAM_WIDTH, topology),
+        }
+
+    def eager_out(topology, name, fn):
+        """The eager call's outputs, computed once: every function but the
+        sampler is deterministic, so (b), (c) and (d) hold it to one call."""
+        if (topology, name) not in eager:
+            eager[(topology, name)] = fn()
+        return eager[(topology, name)]
+
+    def seeded(fn, s=seed):
+        def call():
+            gen.manual_seed(s)
+            return fn()
+        return call
+
+    def host(fn):
+        """``(host ms, runs)``: the median of ``TRANSFORM_RUNS`` calls of
+        ``fn`` ending in a synchronize after one call, of ``LONG_RUNS`` for
+        a call over a quarter second (beam search, the plain loops), that
+        first call among them (each function timed here has run before)."""
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        first = (time.perf_counter() - t0) * 1e3
+        runs = LONG_RUNS if first > 250 else TRANSFORM_RUNS
+        times = [first] if runs == LONG_RUNS else []
+        while len(times) < runs:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), runs
+
+    for topology in ("classic", "simplified"):
+        # ---- (a) the kernels against their plain versions, then the calls --
+        errs = {}
+        gen.manual_seed(seed)
+        for name, (kern, plain, k_args) in extras_args(torch, ctx, topology, gen).items():
+            got, want = kern(*k_args), plain(*k_args)
+            got = (got,) if torch.is_tensor(got) else got
+            want = (want,) if torch.is_tensor(want) else want
+            alike(got, want, f"{name} against its plain version")
+            errs[name] = max(max_err(a, b) for a, b in zip(got, want))
+            b_ms, b_by = bound(*extras_bound(name, k_args, logit_length, label_length))
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "tf_seq2seq_losses_tpu_torch/" + EXTRAS[name][1],
+                "replaces": EXTRAS[name][2], "launches": None, "max_abs_err": errs[name],
+                "ms": time_ms(torch, lambda: kern(*k_args)),
+                "plain_ms": time_ms(torch, lambda: plain(*k_args), runs=PLAIN_RUNS,
+                                    burst=1, warmup=False),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+        # the unstaged route at labels wider than shared memory holds
+        width = EXTRAS_WIDE[topology]
+        w_labels, w_logits, w_ll, w_gl = make_inputs(torch, seed, dev, batch=3,
+                                                     label_width=width, max_t=EXTRAS_WIDE_T)
+        w_ctx = core.make_context(w_labels, logit_to_logproba(w_logits, 2), w_ll, w_gl, 0)
+        for name, (kern, plain, k_args) in extras_args(torch, w_ctx, topology, gen,
+                                                       num_s=4).items():
+            if name in _build.SMEM_BYTES:
+                check(not _build.fits((name,), width + 1, 0, dev),
+                      f"phase 14 {name}: {width + 1} lanes fit in shared memory")
+            got, want = kern(*k_args), plain(*k_args)
+            got = (got,) if torch.is_tensor(got) else got
+            want = (want,) if torch.is_tensor(want) else want
+            alike(got, want, f"{name} against its plain version at {width + 1} lanes")
+            errs[f"{name} [3, {width}]"] = max(max_err(a, b) for a, b in zip(got, want))
+        del w_ctx, w_logits
+        fns = calls(topology, gen)
+        want_launches = {"forced_alignment": {f"{topology}_viterbi": 1},
+                         f"sample_s{NUM_SAMPLES}": {f"{topology}_alpha32": 1,
+                                                    f"{topology}_walk": 1}}
+        for name, want in want_launches.items():
+            _, got = launched(seeded(fns[name]))
+            check(got == want, f"phase 14 {topology} {name} launched {got}, expected {want}")
+        cases = {name: dict() for name in fns}
+
+        # ---- (b) capture -----------------------------------------------------
+        nodes = {}
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            reset_launches()
+            if name.startswith("sample"):
+                graph, out = capture_rng(torch, fn, gen)
+            else:
+                graph, out = capture(torch, fn, keep=True)
+            sync()
+            launches.update({k: n for k, n in read_launches("extras").items() if n})
+            nodes[name] = graph_nodes(graph)
+            cases[name]["capture_s"] = time.perf_counter() - t0
+            # the sampler from two seeds; the others' replays take no seed
+            for s in (seed, seed + 1)[:2 if name.startswith("sample") else 1]:
+                gen.manual_seed(s)
+                graph.replay()
+                sync()
+                want = (seeded(fn, s)() if name.startswith("sample")
+                        else eager_out(topology, name, fn))
+                alike(out, want, f"{topology} {name} replay (seed {s})")
+            cases[name]["replay_ms"], _ = host(seeded(graph.replay))
+            # the device time of the call's kernels: CUDA events around a replay
+            cases[name]["replay_device_ms"] = time_ms(torch, seeded(graph.replay), runs=3,
+                                                      burst=1)
+            del graph, out
+
+        # ---- (c) compile -----------------------------------------------------
+        for name in fns:
+            fn = calls(topology, None)[name]
+            rtol = TRANSFORM_RTOL
+            with inductor_config.patch(fallback_random=True):
+                cf = compile_fn(torch, fn)
+                g0, t0 = unique_graphs(), time.perf_counter()
+                torch.manual_seed(seed)
+                out, got = launched(cf)
+                cases[name]["compile_s"] = time.perf_counter() - t0
+                want = want_launches.get(name, {})
+                check(got == want, f"phase 14 {topology} compiled {name} launched {got}, "
+                      f"expected {want}")
+                cases[name]["graphs"] = unique_graphs() - g0
+                check(cases[name]["graphs"] == 1,
+                      f"phase 14 {topology} {name} compiled into {cases[name]['graphs']} "
+                      "graphs")
+                torch.manual_seed(seed)
+                alike(out, fn() if name.startswith("sample") else eager_out(topology, name, fn),
+                      f"{topology} compiled {name}", rtol)
+                if name.startswith("sample"):  # a second call draws from the seed alike
+                    torch.manual_seed(seed + 1)
+                    out = cf()
+                    torch.manual_seed(seed + 1)
+                    alike(out, fn(), f"{topology} compiled {name} (second call)", rtol)
+                cases[name]["compiled_ms"], _ = host(cf)
+
+        # ---- (d) vmap over groups of the batch --------------------------------
+        groups = TRANSFORM_GROUPS
+
+        def grouped(x):
+            return x.unflatten(0, (groups, -1))
+
+        g_args = tuple(grouped(a) for a in args)
+        gen.manual_seed(seed)
+        noise_t = sample.gumbel(sample.noise_shape(topology, NUM_SAMPLES, ctx), gen, dev)
+        g_noise = noise_t.unflatten(2, (groups, -1)).movedim(2, 0)
+
+        def walk_fn(lab, x, ll_, gl_, noise):
+            return sample.WALKS[topology](core.make_context(lab, x, ll_, gl_, 0), noise)
+
+        mapped = {
+            "forced_alignment": (lambda *a: ctc.ctc_forced_alignment(*a, 0, topology),
+                                 g_args, args, {f"{topology}_viterbi": 1}),
+            "greedy_decode": (lambda x, n: ctc.ctc_greedy_decode(x, n, 0, topology),
+                              (g_args[1], g_args[3]), (lp, logit_length), {}),
+            f"beam_search_k{BEAM_WIDTH}": (
+                lambda x, n: ctc.ctc_beam_search_decode(x, n, 0, BEAM_WIDTH, topology),
+                (g_args[1], g_args[3]), (lp, logit_length), {}),
+            "walk": (walk_fn, g_args + (g_noise,), args + (noise_t,),
+                     {f"{topology}_alpha32": 1, f"{topology}_walk": 1}),
+        }
+        for name, (fn, m_args, flat_args, want) in mapped.items():
+            out, got = launched(lambda: torch.func.vmap(fn)(*m_args))
+            check(got == want, f"phase 14 {topology} vmap {name} launched {got}, "
+                  f"expected {want}")
+            want = (eager_out(topology, name, lambda: fn(*flat_args)) if name in fns
+                    else fn(*flat_args))
+            alike([o.flatten(0, 1) for o in out], want,
+                  f"{topology} vmap {name} against the folded call")
+
+        # ---- (e) gradients through the scores ---------------------------------
+        def grad_of(fn):
+            x = lp.detach().clone().requires_grad_(True)
+            out = fn(x)
+            (g,) = torch.autograd.grad(torch.where(torch.isfinite(out), out, 0.0).sum(), x)
+            return g
+
+        grads = {
+            "forced_alignment": (
+                lambda x: ctc.ctc_forced_alignment(labels, x, label_length, logit_length, 0,
+                                                   topology)[1],
+                {f"{topology}_viterbi": 1}),
+            "walk": (lambda x: walk_fn(labels, x, label_length, logit_length, noise_t)[1],
+                     {f"{topology}_alpha32": 1, f"{topology}_walk": 1}),
+        }
+        for name, (fn, want) in grads.items():
+            g, got = launched(lambda: grad_of(fn))
+            check(got == want, f"phase 14 {topology} gradient of {name} launched {got}, "
+                  f"expected {want}")
+            with plain_extras():
+                ref = grad_of(fn)
+            check(same_nan_bits(torch, g, ref) and bool(g.abs().sum() > 0),
+                  f"phase 14 {topology} gradient of {name}: not autograd through the loops "
+                  f"(max abs err {max_err(g, ref)})")
+
+        # ---- times ------------------------------------------------------------
+        for name, fn in fns.items():
+            call = seeded(fn)
+            cases[name]["eager_ms"], cases[name]["runs"] = host(call)
+            cases[name]["eager_idle_share_by_replay"] = max(
+                0.0, 1.0 - cases[name]["replay_device_ms"] / cases[name]["eager_ms"])
+            if not name.startswith("beam"):  # the profiler's cost grows with the
+                # launches it records: not beam search's ~25000 a call
+                prof = profile_step(torch, dev, cases[name]["eager_ms"], call, steps=1)
+                cases[name]["eager_device_ms"] = prof.get("device_ms_per_step")
+                cases[name]["eager_idle_share"] = prof.get("device_idle_share")
+            if name in ("forced_alignment", f"sample_s{NUM_SAMPLES}"):
+                with plain_extras():
+                    cases[name]["plain_loop_ms"], _ = host(call)
+        report[topology] = cases
+        log(f"phase 14 {topology}: ok; the float32 forward, Viterbi and the walk bit for "
+            f"bit their plain versions (also at labels wider than shared memory holds), "
+            f"max abs err {json.dumps(errs)}; captured, compiled ({', '.join(fns)}) and "
+            f"mapped ({groups} groups of {len(labels) // groups}) calls bit for bit the "
+            f"eager call (compiled scores rtol {TRANSFORM_RTOL}); the gradients of the "
+            f"alignment's and the walk's scores bit for bit autograd through the loops; "
+            f"graph nodes {json.dumps(nodes)}")
+    log(f"phase 14 timing (ms: host clock, median of {TRANSFORM_RUNS}, of {LONG_RUNS} for a "
+        f"call over a quarter second, its first call among them (runs: the eager call's); the replay's device ms by "
+        f"CUDA events (median of 3), the eager call's idle share by it; device ms and "
+        f"idle share from one profile of the eager call but beam search's; compile "
+        f"seconds cold; B={BATCH}, "
+        f"T={MAX_T}, V={VOCAB}, S={NUM_SAMPLES}, K={BEAM_WIDTH}; " + card + "): "
+        + json.dumps(report))
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, kernels=kernels, report=report)
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -4896,6 +5389,11 @@ def run(seed: int, dev) -> dict:
 
     # ---- 13. the loss under torch.compile -------------------------------------------
     launches.update(drive_compile(torch, dev, seed, sync, card)["launches"])
+
+    # ---- 14. forced alignment, sampling and decoding under the transforms -----------
+    transforms = drive_transforms(torch, dev, seed, sync, card)
+    launches.update(transforms["launches"])
+    kernels.extend(transforms["kernels"])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

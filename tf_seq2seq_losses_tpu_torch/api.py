@@ -172,8 +172,9 @@ def _decode_inputs(logprobas, logit_length, blank_index):
     if logprobas.ndim != 3:
         raise ValueError(f"logprobas must be rank 3, got {tuple(logprobas.shape)}")
     device = logprobas.device
+    # the blank index a device fill: no host-to-device copy under capture
     return (logprobas, torch.as_tensor(logit_length, device=device),
-            torch.as_tensor(blank_index, device=device))
+            _core.index_tensor(blank_index, device))
 
 
 def ctc_greedy_decode(

@@ -10,7 +10,7 @@
 // as hundreds of thousands of nodes at T=4000.  These kernels compute that
 // loop's steps exactly:
 //
-// classic_alpha64_kernel: out[b, 0] = (lane 0 closed at 0, else -inf), then
+// classic_alpha_kernel: out[b, 0] = (lane 0 closed at 0, else -inf), then
 //   a step t (ops/classic.py:_alpha_step):
 //     closed'[l] = lse(closed[l], open[l]) + blank[t]
 //     open'[l]   = lse(open[l] + pm[t, l],
@@ -25,6 +25,13 @@
 //   with lane l+1 of the last lane lane 0.
 // Every operation is the plain version's, in its order, in float64 (lse:
 // pure64.cuh), so a kernel writes its plain version's bits.
+//
+// The alpha kernel is a template on the scalar type: in float32
+// (ctc_classic_alpha32, the op ctc_port::classic_alpha32) it is the forward
+// that the alignment sampler walks back over (ops/sample.py), the pure
+// path's float32 loop (the JAX package's float32 lax.scan,
+// tf_seq2seq_losses_tpu/ops/classic.py:136, called at ops/sample.py:71),
+// bit for bit, with expf and log1pf as torch's float32 exp and log1p.
 //
 // What bounds them on the H100: the chain of T dependent steps, each one
 // barrier and three float64 logsumexps (an exp and a log1p each) a lane.
@@ -44,44 +51,45 @@
 
 namespace ctc {
 
-template <bool kStaged>
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kPure64Threads)
-classic_alpha64_kernel(const double* __restrict__ blank, const double* __restrict__ pm,
-                       const double* __restrict__ dc, const double* __restrict__ dov,
-                       int num_t, int lp1, double* out) {
-  extern __shared__ double carry[];  // kStaged: [2][lp1][2]
+classic_alpha_kernel(const T* __restrict__ blank, const T* __restrict__ pm,
+                     const T* __restrict__ dc, const T* __restrict__ dov, int num_t,
+                     int lp1, T* out) {
+  extern __shared__ __align__(8) unsigned char carry_bytes[];
+  T* carry = reinterpret_cast<T*>(carry_bytes);  // kStaged: [2][lp1][2]
   const int b = blockIdx.x;
   const size_t steps = (size_t)num_t * lp1;
   blank += (size_t)b * num_t;
   pm += b * steps;
   dc += b * steps;
   dov += b * steps;
-  double* o = out + (size_t)b * (num_t + 1) * lp1 * 2;
+  T* o = out + (size_t)b * (num_t + 1) * lp1 * 2;
   for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
-    const double c = l == 0 ? 0.0 : -CUDART_INF;
+    const T c = l == 0 ? T(0) : T(-CUDART_INF);
     o[2 * l] = c;
-    o[2 * l + 1] = -CUDART_INF;
+    o[2 * l + 1] = T(-CUDART_INF);
     if (kStaged) {
       carry[2 * l] = c;
-      carry[2 * l + 1] = -CUDART_INF;
+      carry[2 * l + 1] = T(-CUDART_INF);
     }
   }
   __syncthreads();
   for (int t = 0; t < num_t; ++t) {
-    const double* prev = kStaged ? carry + (t & 1) * 2 * lp1 : o + (size_t)t * 2 * lp1;
-    double* next = carry + ((t + 1) & 1) * 2 * lp1;
-    double* row = o + (size_t)(t + 1) * 2 * lp1;
-    const double bl = blank[t];
-    const double* pm_t = pm + (size_t)t * lp1;
-    const double* dc_t = dc + (size_t)t * lp1;
-    const double* do_t = dov + (size_t)t * lp1;
+    const T* prev = kStaged ? carry + (t & 1) * 2 * lp1 : o + (size_t)t * 2 * lp1;
+    T* next = carry + ((t + 1) & 1) * 2 * lp1;
+    T* row = o + (size_t)(t + 1) * 2 * lp1;
+    const T bl = blank[t];
+    const T* pm_t = pm + (size_t)t * lp1;
+    const T* dc_t = dc + (size_t)t * lp1;
+    const T* do_t = dov + (size_t)t * lp1;
     for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
       const int lm = l == 0 ? lp1 - 1 : l - 1;
-      const double a_closed = prev[2 * l];
-      const double a_open = prev[2 * l + 1];
-      const double diag = lse64(prev[2 * lm] + dc_t[lm], prev[2 * lm + 1] + do_t[lm]);
-      const double closed = lse64(a_closed, a_open) + bl;
-      const double open = lse64(a_open + pm_t[l], diag);
+      const T a_closed = prev[2 * l];
+      const T a_open = prev[2 * l + 1];
+      const T diag = pure_lse(prev[2 * lm] + dc_t[lm], prev[2 * lm + 1] + do_t[lm]);
+      const T closed = pure_lse(a_closed, a_open) + bl;
+      const T open = pure_lse(a_open + pm_t[l], diag);
       row[2 * l] = closed;
       row[2 * l + 1] = open;
       if (kStaged) {
@@ -148,7 +156,21 @@ classic_beta64_kernel(const double* __restrict__ blank, const double* __restrict
 }
 
 // shared memory of the staged kernels: two carries of two states a lane
-inline size_t classic_pure64_smem(int lp1) { return (size_t)2 * 2 * lp1 * sizeof(double); }
+template <typename T>
+inline size_t classic_pure_smem(int lp1) { return (size_t)2 * 2 * lp1 * sizeof(T); }
+inline size_t classic_pure64_smem(int lp1) { return classic_pure_smem<double>(lp1); }
+
+template <typename T>
+int classic_alpha_launch(const T* blank, const T* pm, const T* dc, const T* dov, int batch,
+                         int num_t, int lp1, int staged, T* out, cudaStream_t st) {
+  if (batch == 0) return 0;
+  if (staged)
+    return launch_pure64(classic_alpha_kernel<T, true>, batch, lp1,
+                         classic_pure_smem<T>(lp1), st, blank, pm, dc, dov, num_t, lp1,
+                         out);
+  return launch_pure64(classic_alpha_kernel<T, false>, batch, lp1, 0, st, blank, pm, dc,
+                       dov, num_t, lp1, out);
+}
 
 }  // namespace ctc
 
@@ -161,14 +183,21 @@ size_t ctc_classic_pure64_smem_bytes(int lp1) { return ctc::classic_pure64_smem(
 int ctc_classic_alpha64(const double* blank, const double* pm, const double* dc,
                         const double* dov, int batch, int num_t, int lp1, int staged,
                         double* out, void* stream) {
-  if (batch == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (staged)
-    return ctc::launch_pure64(ctc::classic_alpha64_kernel<true>, batch, lp1,
-                              ctc::classic_pure64_smem(lp1), st, blank, pm, dc, dov,
-                              num_t, lp1, out);
-  return ctc::launch_pure64(ctc::classic_alpha64_kernel<false>, batch, lp1, 0, st, blank,
-                            pm, dc, dov, num_t, lp1, out);
+  return ctc::classic_alpha_launch(blank, pm, dc, dov, batch, num_t, lp1, staged, out,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+size_t ctc_classic_alpha32_smem_bytes(int lp1) {
+  return ctc::classic_pure_smem<float>(lp1);
+}
+
+// the sampler's float32 forward (ops/pure_scan.py classic_alpha32): the
+// same kernel on float32, the pure path's float32 steps
+int ctc_classic_alpha32(const float* blank, const float* pm, const float* dc,
+                        const float* dov, int batch, int num_t, int lp1, int staged,
+                        float* out, void* stream) {
+  return ctc::classic_alpha_launch(blank, pm, dc, dov, batch, num_t, lp1, staged, out,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 int ctc_classic_beta64(const double* blank, const double* pm, const double* dc,

@@ -1,6 +1,8 @@
-// Shared by the float64 pure-path scans (classic_pure64.cu,
-// simplified_pure64.cu): the pairwise logsumexp of the pure path and the
-// block shape of one CTA per row.
+// Shared by the pure-path scans (classic_pure64.cu, simplified_pure64.cu:
+// the float64 scans of the guard's repair and the float32 forward of the
+// sampler), the max-plus scans (viterbi.cu) and the sampling walks
+// (walk.cu): the pairwise logsumexp of the pure path, torch's maximum and
+// argmax rules, the block shape of one CTA per row and the launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,18 +34,62 @@ __device__ __forceinline__ double lse64(double x, double y) {
   return mx + log1p(exp(mn - mx));
 }
 
-// Launch one CTA of pure64_threads(lp1) threads a row with smem bytes of
-// shared memory; returns the CUDA error.  Setting the shared-memory limit
-// first also loads the kernel before its first launch, which may be
-// captured into a graph.
+// The same in float32, as utils/numerics.py:logsumexp runs on float32
+// tensors: torch's CUDA float32 exp and log1p are expf and log1pf.
+__device__ __forceinline__ float lse32(float x, float y) {
+  if (x == -CUDART_INF_F && y == -CUDART_INF_F) return -CUDART_INF_F;
+  if (x == CUDART_INF_F && y == CUDART_INF_F) return CUDART_INF_F;
+  const bool x_nan = x != x;
+  const float mx = (x > y || x_nan) ? x : y;
+  const float mn = (x < y || x_nan) ? x : y;
+  return mx + log1pf(expf(mn - mx));
+}
+
+// The pure path's logsumexp in the scan's scalar type.
+__device__ __forceinline__ double pure_lse(double x, double y) { return lse64(x, y); }
+__device__ __forceinline__ float pure_lse(float x, float y) { return lse32(x, y); }
+
+// torch.maximum of two floats: a NaN of either operand propagates, else
+// the larger (fmaxf would drop the NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
+}
+
+// torch.amax of two floats: the larger, a NaN propagating
+__device__ __forceinline__ float amax2(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+// torch.argmax of two floats: the first maximum, a NaN the maximum
+__device__ __forceinline__ int argmax2(float a, float b) {
+  if (a != a) return 0;
+  if (b != b) return 1;
+  return b > a ? 1 : 0;
+}
+
+// Launch kernel on grid x threads with smem bytes of shared memory;
+// returns the CUDA error.  Setting the shared-memory limit first also
+// loads the kernel before its first launch, which may be captured into a
+// graph.
 template <typename Kernel, typename... Args>
-int launch_pure64(Kernel kernel, int batch, int lp1, size_t smem, cudaStream_t st,
-                  Args... args) {
+int launch(Kernel kernel, int grid, int threads, size_t smem, cudaStream_t st,
+           Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<batch, pure64_threads(lp1), smem, st>>>(args...);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Launch one CTA of pure64_threads(lp1) threads a row.
+template <typename Kernel, typename... Args>
+int launch_pure64(Kernel kernel, int batch, int lp1, size_t smem, cudaStream_t st,
+                  Args... args) {
+  return launch(kernel, batch, pure64_threads(lp1), smem, st, args...);
 }
 
 }  // namespace ctc

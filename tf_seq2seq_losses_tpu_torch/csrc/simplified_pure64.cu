@@ -8,7 +8,7 @@
 // (ops/simplified.py, alpha_scan and beta_scan).  These kernels compute
 // that loop's steps exactly:
 //
-// simplified_alpha64_kernel: out[b, 0] = (0 at lane 0, else -inf), then a
+// simplified_alpha_kernel: out[b, 0] = (0 at lane 0, else -inf), then a
 //   step t (ops/simplified.py:_alpha_step):
 //     a'[l] = lse(a[l] + blank[t], a[l-1] + dg[t, l-1])
 //   with lane l-1 of lane 0 the last lane (torch.roll; its dg is -inf).
@@ -17,7 +17,10 @@
 //     b'[l] = lse(b[l] + blank[t], dg[t, l] + b[l+1])
 //   with lane l+1 of the last lane lane 0.
 // Every operation is the plain version's, in its order, in float64 (lse:
-// pure64.cuh), so a kernel writes its plain version's bits.
+// pure64.cuh), so a kernel writes its plain version's bits.  The alpha
+// kernel is a template on the scalar type: in float32 (ctc_port::
+// simplified_alpha32) it is the sampler's forward (ops/sample.py), the
+// pure path's float32 loop bit for bit.
 //
 // What bounds them on the H100: the chain of T dependent steps, each one
 // barrier and one float64 logsumexp a lane; a repair round of 1 to 32 rows
@@ -31,30 +34,31 @@
 
 namespace ctc {
 
-template <bool kStaged>
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kPure64Threads)
-simplified_alpha64_kernel(const double* __restrict__ blank, const double* __restrict__ dg,
-                          int num_t, int lp1, double* out) {
-  extern __shared__ double carry[];  // kStaged: [2][lp1]
+simplified_alpha_kernel(const T* __restrict__ blank, const T* __restrict__ dg, int num_t,
+                        int lp1, T* out) {
+  extern __shared__ __align__(8) unsigned char carry_bytes[];
+  T* carry = reinterpret_cast<T*>(carry_bytes);  // kStaged: [2][lp1]
   const int b = blockIdx.x;
   blank += (size_t)b * num_t;
   dg += (size_t)b * num_t * lp1;
-  double* o = out + (size_t)b * (num_t + 1) * lp1;
+  T* o = out + (size_t)b * (num_t + 1) * lp1;
   for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
-    const double c = l == 0 ? 0.0 : -CUDART_INF;
+    const T c = l == 0 ? T(0) : T(-CUDART_INF);
     o[l] = c;
     if (kStaged) carry[l] = c;
   }
   __syncthreads();
   for (int t = 0; t < num_t; ++t) {
-    const double* prev = kStaged ? carry + (t & 1) * lp1 : o + (size_t)t * lp1;
-    double* next = carry + ((t + 1) & 1) * lp1;
-    double* row = o + (size_t)(t + 1) * lp1;
-    const double bl = blank[t];
-    const double* dg_t = dg + (size_t)t * lp1;
+    const T* prev = kStaged ? carry + (t & 1) * lp1 : o + (size_t)t * lp1;
+    T* next = carry + ((t + 1) & 1) * lp1;
+    T* row = o + (size_t)(t + 1) * lp1;
+    const T bl = blank[t];
+    const T* dg_t = dg + (size_t)t * lp1;
     for (int l = threadIdx.x; l < lp1; l += blockDim.x) {
       const int lm = l == 0 ? lp1 - 1 : l - 1;
-      const double a = lse64(prev[l] + bl, prev[lm] + dg_t[lm]);
+      const T a = pure_lse(prev[l] + bl, prev[lm] + dg_t[lm]);
       row[l] = a;
       if (kStaged) next[l] = a;
     }
@@ -97,7 +101,20 @@ simplified_beta64_kernel(const double* __restrict__ blank, const double* __restr
 }
 
 // shared memory of the staged kernels: two carries a lane
-inline size_t simplified_pure64_smem(int lp1) { return (size_t)2 * lp1 * sizeof(double); }
+template <typename T>
+inline size_t simplified_pure_smem(int lp1) { return (size_t)2 * lp1 * sizeof(T); }
+inline size_t simplified_pure64_smem(int lp1) { return simplified_pure_smem<double>(lp1); }
+
+template <typename T>
+int simplified_alpha_launch(const T* blank, const T* dg, int batch, int num_t, int lp1,
+                            int staged, T* out, cudaStream_t st) {
+  if (batch == 0) return 0;
+  if (staged)
+    return launch_pure64(simplified_alpha_kernel<T, true>, batch, lp1,
+                         simplified_pure_smem<T>(lp1), st, blank, dg, num_t, lp1, out);
+  return launch_pure64(simplified_alpha_kernel<T, false>, batch, lp1, 0, st, blank, dg,
+                       num_t, lp1, out);
+}
 
 }  // namespace ctc
 
@@ -111,14 +128,19 @@ size_t ctc_simplified_pure64_smem_bytes(int lp1) {
 // gives ctc_simplified_pure64_smem_bytes(lp1)), else in the output
 int ctc_simplified_alpha64(const double* blank, const double* dg, int batch, int num_t,
                            int lp1, int staged, double* out, void* stream) {
-  if (batch == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (staged)
-    return ctc::launch_pure64(ctc::simplified_alpha64_kernel<true>, batch, lp1,
-                              ctc::simplified_pure64_smem(lp1), st, blank, dg, num_t, lp1,
-                              out);
-  return ctc::launch_pure64(ctc::simplified_alpha64_kernel<false>, batch, lp1, 0, st,
-                            blank, dg, num_t, lp1, out);
+  return ctc::simplified_alpha_launch(blank, dg, batch, num_t, lp1, staged, out,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+size_t ctc_simplified_alpha32_smem_bytes(int lp1) {
+  return ctc::simplified_pure_smem<float>(lp1);
+}
+
+// the sampler's float32 forward (ops/pure_scan.py simplified_alpha32)
+int ctc_simplified_alpha32(const float* blank, const float* dg, int batch, int num_t,
+                           int lp1, int staged, float* out, void* stream) {
+  return ctc::simplified_alpha_launch(blank, dg, batch, num_t, lp1, staged, out,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 int ctc_simplified_beta64(const double* blank, const double* dg,

@@ -30,7 +30,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _SOURCES = (
     "classic_fwd", "classic_bwd", "classic_bwd_half", "classic_bwd_rf", "classic_log",
     "simplified_fwd", "simplified_bwd", "simplified_bwd_rf", "simplified_log",
-    "fused_epilogue", "graph_cond", "classic_pure64", "simplified_pure64",
+    "fused_epilogue", "graph_cond", "classic_pure64", "simplified_pure64", "viterbi",
+    "walk",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -93,11 +94,25 @@ _SIGNATURES = {
         "ctc_classic_alpha64": [_P] * 4 + [_I] * 4 + [_P] * 2,
         "ctc_classic_beta64": [_P] * 5 + [_I] * 4 + [_P] * 2,
         "ctc_classic_pure64_smem_bytes": [_I],
+        "ctc_classic_alpha32": [_P] * 4 + [_I] * 4 + [_P] * 2,
+        "ctc_classic_alpha32_smem_bytes": [_I],
     },
     "simplified_pure64": {
         "ctc_simplified_alpha64": [_P] * 2 + [_I] * 4 + [_P] * 2,
         "ctc_simplified_beta64": [_P] * 3 + [_I] * 4 + [_P] * 2,
         "ctc_simplified_pure64_smem_bytes": [_I],
+        "ctc_simplified_alpha32": [_P] * 2 + [_I] * 4 + [_P] * 2,
+        "ctc_simplified_alpha32_smem_bytes": [_I],
+    },
+    "viterbi": {
+        "ctc_classic_viterbi": [_P] * 7 + [_I] * 4 + [_P] * 5,
+        "ctc_simplified_viterbi": [_P] * 5 + [_I] * 4 + [_P] * 5,
+        "ctc_classic_viterbi_smem_bytes": [_I],
+        "ctc_simplified_viterbi_smem_bytes": [_I],
+    },
+    "walk": {
+        "ctc_classic_walk": [_P] * 9 + [_I] * 4 + [_P] * 3,
+        "ctc_simplified_walk": [_P] * 7 + [_I] * 4 + [_P] * 3,
     },
 }
 
@@ -165,7 +180,7 @@ def _fwd_bytes(min_ring: int):
 
 # Python mirrors of the libraries' ``ctc_<name>_smem_bytes(lpad, x)``: x is
 # the window for the block-float kernels, the vocabulary size for the fused
-# epilogue, and unused by the log-space kernels and the float64 pure scans.
+# epilogue, and unused by the log-space kernels, the pure scans and Viterbi.
 SMEM_BYTES = {
     "classic_fwd": _fwd_bytes(10),
     "classic_bwd": _classic_bwd_bytes(False),
@@ -187,6 +202,12 @@ SMEM_BYTES = {
     # for each state (the staged kernels; wider labels read the output)
     "classic_pure64": lambda lp, _: 2 * 2 * 8 * lp,
     "simplified_pure64": lambda lp, _: 2 * 8 * lp,
+    # the same scans' forward in float32 (the sampler's alpha), and the
+    # max-plus scans of forced alignment: two floats a lane for each state
+    "classic_alpha32": lambda lp, _: 2 * 2 * _F * lp,
+    "simplified_alpha32": lambda lp, _: 2 * _F * lp,
+    "classic_viterbi": lambda lp, _: 2 * 2 * _F * lp,
+    "simplified_viterbi": lambda lp, _: 2 * _F * lp,
 }
 
 # Shared memory one CTA may opt into on an H100 (227 KB): the limit that
@@ -277,6 +298,17 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
+
+
+def launch(library: str, fn: str, what: str, dev, *args) -> None:
+    """Call ``library``'s entry point ``fn`` on ``dev`` with ``args`` (a
+    tensor passes its data pointer, an int itself) and the device's current
+    stream last; raise, naming ``what``, if it returns a CUDA error."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib(library), fn)(*ptrs, stream)
+    check(err, what)
 
 
 _optin: dict = {}  # CUDA device index -> the shared memory one CTA may opt into

@@ -337,6 +337,14 @@ def op_carry(*parts):
     return None if parts[0] is None else parts
 
 
+def check_dtype(tensors, dtype, what: str) -> None:
+    """Raise unless every tensor of ``tensors`` (pairs of name and tensor)
+    is of ``dtype``."""
+    for name, t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+
+
 def check_device(t: torch.Tensor, what: str) -> None:
     """Raise unless ``t`` lies on the CPU (the plain version runs) or on a
     CUDA device (the kernel launches)."""
@@ -353,6 +361,93 @@ def kernel_op(name: str, plain):
     the device of its tensors picks the implementation."""
     return torch.library.custom_op(f"ctc_port::{name}", plain, mutates_args=(),
                                    device_types="cpu")
+
+
+def plain_grad(name: str, plain, wrt, outs):
+    """The custom op ``ctc_port::<name>`` with the gradient of ``plain``,
+    its plain version: a callable that calls the op where no gradient is
+    asked of it, and else an ``autograd.Function`` whose forward is the op
+    and whose backward runs ``plain`` again on the saved inputs and pulls
+    the output gradients back through it (``torch.func.vjp``).
+
+    A kernel has no backward of its own, so this gives its op the gradient
+    that its loop has under autograd, bit for bit, on CPU and CUDA tensors
+    alike: ``.backward()``, ``torch.autograd.grad``, ``torch.func.grad``
+    and ``torch.compile`` (where AOTAutograd traces the backward's loop).
+    ``wrt`` holds the positions of the arguments that take a gradient
+    (float tensors), ``outs`` those of the outputs that give one."""
+    op = getattr(torch.ops.ctc_port, name).default
+
+    class Grad(torch.autograd.Function):
+        generate_vmap_rule = True
+
+        @staticmethod
+        def forward(*args):
+            return op(*args)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*(x for x in inputs if isinstance(x, torch.Tensor)))
+            ctx.consts = [None if isinstance(x, torch.Tensor) else x for x in inputs]
+
+        @staticmethod
+        def backward(ctx, *grads):
+            saved = iter(ctx.saved_tensors)
+            args = [next(saved) if c is None else c for c in ctx.consts]
+
+            def pulled(*diff):
+                for i, d in zip(wrt, diff):
+                    args[i] = d
+                got = plain(*args)
+                return tuple(got[j] for j in outs)
+
+            _, vjp = torch.func.vjp(pulled, *(args[i] for i in wrt))
+            cot = vjp(tuple(grads[j] for j in outs))
+            res = [None] * len(args)
+            for i, g in zip(wrt, cot):
+                res[i] = g
+            return tuple(res)
+
+    def call(*args):
+        if torch.is_grad_enabled() and any(args[i].requires_grad for i in wrt):
+            return Grad.apply(*args)
+        return op(*args)
+
+    return call
+
+
+def register_fold(op, batch_axes, out_axes) -> None:
+    """Register the ``vmap`` rule of the custom op ``op``: the mapped groups
+    fold into the batch, the op runs once, the outputs unfold.
+
+    ``batch_axes`` gives, for each argument, the axis of its batch dimension
+    (None for an argument without one: an int, or the blank index, which
+    ``vmap`` must leave unmapped); ``out_axes`` the same for each output.  A
+    mapped argument moves its groups beside its batch axis, an unmapped one
+    is expanded over the groups, and both fold ``[..., G, B, ...]`` into
+    ``[..., G * B, ...]``; each output unfolds at its batch axis, which is
+    then its mapped dimension."""
+    def rule(info, in_dims, *args):
+        groups = info.batch_size
+        folded = []
+        for x, dim, axis in zip(args, in_dims, batch_axes):
+            if axis is None:
+                if dim is not None:
+                    raise ValueError(
+                        "vmap maps an argument without a batch axis (the blank index): "
+                        "the folded batch takes one; pass the same value to every group "
+                        "(unmapped)")
+                folded.append(x)
+                continue
+            x = x.movedim(dim, 0) if dim is not None else x.expand(groups, *x.shape)
+            folded.append(x.movedim(0, axis).flatten(axis, axis + 1).contiguous())
+        outs = op(*folded)
+        if not isinstance(outs, tuple):
+            return outs.unflatten(out_axes[0], (groups, -1)), out_axes[0]
+        return (tuple(o.unflatten(a, (groups, -1)) for o, a in zip(outs, out_axes)),
+                tuple(out_axes))
+
+    op.register_vmap(rule)
 
 
 def empty_outputs(like: torch.Tensor, specs) -> List[torch.Tensor]:

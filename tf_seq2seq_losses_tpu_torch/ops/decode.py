@@ -33,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import plain_grad, register_fold
 from tf_seq2seq_losses_tpu_torch.utils.numerics import (
     logsumexp as _lse,
     unsorted_segment_logsumexp,
@@ -97,15 +98,30 @@ def greedy_decode(
         # for t >= 1 the previous frame is valid whenever frame t is
         keep &= am != prev
 
-    pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1  # [B, T]
+    pos = _positions_op(keep)  # [B, T]
     lengths = torch.clamp(pos[:, -1] + 1, max=max_length)
     # kept tokens go to their compacted slot; dropped and overflowing frames
     # all land in a sacrificial slot `max_length` that is sliced off (kept
     # in-range slots are written at most once, so order is irrelevant)
     idx = torch.where(keep & (pos < max_length), pos, torch.full_like(pos, max_length))
     tokens = torch.zeros((num_b, max_length + 1), dtype=torch.int64, device=device)
-    tokens = tokens.scatter_(1, idx, am)[:, :max_length]
+    tokens = tokens.scatter(1, idx, am)[:, :max_length]
     return tokens.to(torch.int32), lengths.to(torch.int32), scores
+
+
+def _positions(keep: torch.Tensor) -> torch.Tensor:
+    """The compacted slot of each frame of ``keep`` [B, T] bool: the kept
+    frames before it and itself, less one."""
+    return torch.cumsum(keep.to(torch.int64), dim=1) - 1
+
+
+# an op, so that torch.compile calls PyTorch's cumsum here: inductor's own
+# code for this scan (a Triton split scan) failed to generate (PyTorch 2.11,
+# H100)
+_positions_op = torch.library.custom_op("ctc_port::greedy_positions", _positions,
+                                        mutates_args=())
+_positions_op.register_fake(lambda keep: keep.new_empty(keep.shape, dtype=torch.int64))
+register_fold(_positions_op, (0,), (0,))
 
 
 def _initial_beams(num_b: int, k: int, l_cap: int, device):
@@ -117,12 +133,12 @@ def _initial_beams(num_b: int, k: int, l_cap: int, device):
     length = torch.zeros((num_b, k), dtype=torch.int64, device=device)
     last = torch.full((num_b, k), -1, dtype=torch.int64, device=device)
     iota = torch.arange(k, dtype=torch.int64, device=device)
-    h1 = iota | _BIT31
-    h2 = ((iota * H2_MULT) & _MASK32) | _BIT31
-    h1[0] = 0
-    h2[0] = 0
-    pb = torch.full((num_b, k), NEG_INF, device=device)
-    pb[:, 0] = 0.0
+    # beam 0 by torch.where, not by writing Python numbers into device
+    # tensors (a host-to-device copy, which a CUDA graph cannot capture)
+    first = iota == 0
+    h1 = torch.where(first, 0, iota | _BIT31)
+    h2 = torch.where(first, 0, ((iota * H2_MULT) & _MASK32) | _BIT31)
+    pb = torch.where(first, 0.0, NEG_INF).expand(num_b, k).clone()
     pnb = torch.full((num_b, k), NEG_INF, device=device)
     return (tokens, length, last, h1.expand(num_b, k).clone(),
             h2.expand(num_b, k).clone(), pb, pnb)
@@ -242,15 +258,33 @@ def beam_search(
     With ``beam_width`` at least the number of reachable prefixes nothing
     is pruned and every score is the sequence's exact total CTC
     probability.
-    """
+
+    The op ``ctc_port::beam_search`` over the canonical inputs: its CPU and
+    CUDA implementations are both :func:`beam_search_plain`, the batched
+    loop over T, which reads nothing back to the host (a CUDA graph
+    captures it).  The op keeps the loop out of ``torch.compile``'s trace
+    and folds ``vmap``'s groups into the batch: rows are independent.  The
+    scores are differentiable: the op's backward runs the loop again
+    (``cuda_lattice.plain_grad``)."""
+    device = logprobas.device
+    return _beam_search(
+        logprobas.to(torch.float32).contiguous(),
+        logit_length.to(device=device, dtype=torch.int64).contiguous(),
+        blank_index.to(device=device, dtype=torch.int64).reshape(()),
+        beam_width, max_length, merge_repeats)
+
+
+def beam_search_plain(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                      blank: torch.Tensor, beam_width: int, max_length: int,
+                      merge_repeats: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                                    torch.Tensor]:
+    """The batched loop over T of :func:`beam_search` (float32 ``logprobas``
+    [B, T, V], int64 ``logit_length`` [B] and ``blank`` [])."""
     num_b, num_t, _ = logprobas.shape
     device = logprobas.device
-    lp = logprobas.to(torch.float32)
-    logit_length = logit_length.to(device)
-    blank = blank_index.to(device=device, dtype=torch.int64).reshape(())
     state = _initial_beams(num_b, beam_width, max_length, device)
     for t in range(num_t):
-        state = _frame(state, lp[:, t], t < logit_length, blank, max_length,
+        state = _frame(state, logprobas[:, t], t < logit_length, blank, max_length,
                        merge_repeats)
     tokens, length, _, _, _, pb, pnb = state
     score = _lse(pb, pnb)
@@ -260,3 +294,18 @@ def beam_search(
     tokens = torch.gather(tokens, 1, order[..., None].expand_as(tokens))
     return (tokens, torch.gather(length, 1, order).to(torch.int32),
             torch.gather(score, 1, order))
+
+
+_beam_search_op = torch.library.custom_op("ctc_port::beam_search", beam_search_plain,
+                                          mutates_args=())
+register_fold(_beam_search_op, (0, 0, None, None, None, None), (0, 0, 0))
+_beam_search = plain_grad("beam_search", beam_search_plain, (0,), (2,))
+
+
+@_beam_search_op.register_fake
+def _beam_search_fake(logprobas, logit_length, blank, beam_width, max_length,
+                      merge_repeats):
+    num_b = logprobas.shape[0]
+    return (logprobas.new_empty((num_b, beam_width, max_length), dtype=torch.int32),
+            logprobas.new_empty((num_b, beam_width), dtype=torch.int32),
+            logprobas.new_empty((num_b, beam_width)))

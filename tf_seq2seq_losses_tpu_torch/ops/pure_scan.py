@@ -25,6 +25,12 @@ compute the same operations in the same order, and the kernels write its
 bits.  A kernel keeps the previous step's carry in shared memory where the
 label's lanes fit (``_build.SMEM_BYTES``), else reads it from the output
 row it wrote: every label width is served.
+
+The alpha kernels are templates on the scalar type.  In float32 they are
+the ops ``ctc_port::classic_alpha32`` and ``ctc_port::simplified_alpha32``:
+the forward that the alignment sampler walks back over (``ops/sample.py``),
+the JAX package's float32 ``lax.scan`` (``ops/classic.py``,
+``ops/simplified.py`` there), bit for bit the pure path's float32 loop.
 """
 
 from __future__ import annotations
@@ -38,43 +44,36 @@ from tf_seq2seq_losses_tpu_torch.ops import simplified as simplified_mod
 from tf_seq2seq_losses_tpu_torch.ops.core import CtcContext, expected_token_lp
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     check_device,
+    check_dtype,
     check_tensor,
     kernel_op,
+    register_fold,
 )
 
 
-def _float64(tensors, what: str) -> None:
-    for name, t in tensors:
-        if t.dtype != torch.float64:
-            raise TypeError(f"{what}: {name} must be float64, got {t.dtype}")
-
-
-def _staged(library: str, lp1: int, device) -> int:
-    """1 where the card gives a CTA the shared memory of ``library``'s
-    staged kernels at ``lp1`` lanes, else 0 (the carry read from the
-    output)."""
-    return int(_build.fits((library,), lp1, 0, device))
+def _staged(kernels: str, lp1: int, device) -> int:
+    """1 where the card gives a CTA the shared memory of the staged kernels
+    ``kernels`` (a key of ``_build.SMEM_BYTES``) at ``lp1`` lanes, else 0
+    (the carry read from the output)."""
+    return int(_build.fits((kernels,), lp1, 0, device))
 
 
 def _launch(library: str, fn: str, name: str, out: Tensor, inputs,
-            lengths=None) -> Tensor:
-    """Launch ``library``'s entry point ``fn`` over ``inputs`` (float64
-    ``blank_lp`` [B, T], then the [B, T, Lp1] terms), writing ``out``."""
+            lengths=None, smem: str = None) -> Tensor:
+    """Launch ``library``'s entry point ``fn`` over ``inputs`` (``blank_lp``
+    [B, T], then the [B, T, Lp1] terms, of ``out``'s type), writing
+    ``out``; ``smem`` names its shared-memory formula where it is not the
+    library's."""
     batch, num_t, lp1 = inputs[-1].shape
-    dev = out.device
-    check_tensor(inputs[0], (batch, num_t), torch.float64, "blank_lp", dev)
+    dev, dtype = out.device, out.dtype
+    check_tensor(inputs[0], (batch, num_t), dtype, "blank_lp", dev)
     for i, t in enumerate(inputs[1:]):
-        check_tensor(t, (batch, num_t, lp1), torch.float64, f"term {i}", dev)
-    ptrs = [t.data_ptr() for t in inputs]
+        check_tensor(t, (batch, num_t, lp1), dtype, f"term {i}", dev)
     if lengths is not None:
         check_tensor(lengths, (batch,), torch.int64, "label_length", dev)
-        ptrs.append(lengths.data_ptr())
-    lib = _build.lib(library)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn)(*ptrs, batch, num_t, lp1, _staged(library, lp1, dev),
-                               out.data_ptr(), stream)
-    _build.check(err, name)
+        inputs = tuple(inputs) + (lengths,)
+    _build.launch(library, fn, name, dev, *inputs, batch, num_t, lp1,
+                  _staged(smem or library, lp1, dev), out)
     return out
 
 
@@ -101,21 +100,21 @@ def classic_alpha64(blank_lp, prev_tok_masked, diag_closed, diag_open) -> Tensor
     csrc/classic_pure64.cu; CPU tensors run ``classic.alpha_scan``."""
     args = (blank_lp, prev_tok_masked, diag_closed, diag_open)
     check_device(diag_closed, "classic_alpha64")
-    _float64(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
-             "classic_alpha64")
+    check_dtype(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
+                torch.float64, "classic_alpha64")
     return _classic_alpha64_op(*(t.contiguous() for t in args))
 
 
-def _classic_alpha64_plain(blank_lp: Tensor, prev_tok_masked: Tensor,
+def _classic_alpha_plain(blank_lp: Tensor, prev_tok_masked: Tensor,
                            diag_closed: Tensor, diag_open: Tensor) -> Tensor:
     return classic_mod.alpha_scan(blank_lp, prev_tok_masked, diag_closed, diag_open)
 
 
-_classic_alpha64_op = kernel_op("classic_alpha64", _classic_alpha64_plain)
+_classic_alpha64_op = kernel_op("classic_alpha64", _classic_alpha_plain)
 
 
 @_classic_alpha64_op.register_fake
-def _classic_alpha64_fake(blank_lp, prev_tok_masked, diag_closed, diag_open):
+def _classic_alpha_fake(blank_lp, prev_tok_masked, diag_closed, diag_open):
     return diag_closed.new_empty(_classic_shape(diag_closed))
 
 
@@ -140,8 +139,8 @@ def classic_beta64(blank_lp, prev_tok_masked, diag_closed, diag_open,
     csrc/classic_pure64.cu; CPU tensors run ``classic.beta_scan``."""
     args = (blank_lp, prev_tok_masked, diag_closed, diag_open)
     check_device(diag_closed, "classic_beta64")
-    _float64(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
-             "classic_beta64")
+    check_dtype(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
+                torch.float64, "classic_beta64")
     return _classic_beta64_op(*(t.contiguous() for t in args),
                               label_length.contiguous())
 
@@ -188,19 +187,20 @@ def simplified_alpha64(blank_lp, diag_lp) -> Tensor:
     The op ``ctc_port::simplified_alpha64``: CUDA tensors launch
     csrc/simplified_pure64.cu; CPU tensors run ``simplified.alpha_scan``."""
     check_device(diag_lp, "simplified_alpha64")
-    _float64((("blank_lp", blank_lp), ("diag_lp", diag_lp)), "simplified_alpha64")
+    check_dtype((("blank_lp", blank_lp), ("diag_lp", diag_lp)), torch.float64,
+                "simplified_alpha64")
     return _simplified_alpha64_op(blank_lp.contiguous(), diag_lp.contiguous())
 
 
-def _simplified_alpha64_plain(blank_lp: Tensor, diag_lp: Tensor) -> Tensor:
+def _simplified_alpha_plain(blank_lp: Tensor, diag_lp: Tensor) -> Tensor:
     return simplified_mod.alpha_scan(blank_lp, diag_lp)
 
 
-_simplified_alpha64_op = kernel_op("simplified_alpha64", _simplified_alpha64_plain)
+_simplified_alpha64_op = kernel_op("simplified_alpha64", _simplified_alpha_plain)
 
 
 @_simplified_alpha64_op.register_fake
-def _simplified_alpha64_fake(blank_lp, diag_lp):
+def _simplified_alpha_fake(blank_lp, diag_lp):
     return diag_lp.new_empty(_simplified_shape(diag_lp))
 
 
@@ -224,7 +224,8 @@ def simplified_beta64(blank_lp, diag_lp, label_length) -> Tensor:
     The op ``ctc_port::simplified_beta64``: CUDA tensors launch
     csrc/simplified_pure64.cu; CPU tensors run ``simplified.beta_scan``."""
     check_device(diag_lp, "simplified_beta64")
-    _float64((("blank_lp", blank_lp), ("diag_lp", diag_lp)), "simplified_beta64")
+    check_dtype((("blank_lp", blank_lp), ("diag_lp", diag_lp)), torch.float64,
+                "simplified_beta64")
     return _simplified_beta64_op(blank_lp.contiguous(), diag_lp.contiguous(),
                                  label_length.contiguous())
 
@@ -252,6 +253,75 @@ def _simplified_beta64_launch(blank_lp, diag_lp, label_length):
 
 
 simplified_beta64.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the forwards in float32: the alignment sampler's alpha
+# ---------------------------------------------------------------------------
+
+
+def classic_alpha32(blank_lp, prev_tok_masked, diag_closed, diag_open) -> Tensor:
+    """Forward lattice log-probabilities [B, T+1, Lp1, 2] of the classic
+    pure path in float32, from its terms (``classic.terms``): the lattice
+    that the alignment sampler walks back over (``ops/sample.py``).
+
+    The op ``ctc_port::classic_alpha32``: CUDA tensors launch the float32
+    instantiation of ``classic_alpha64``'s kernel (csrc/classic_pure64.cu);
+    CPU tensors run ``classic.alpha_scan``.  ``vmap`` folds the groups into
+    the batch."""
+    args = (blank_lp, prev_tok_masked, diag_closed, diag_open)
+    check_device(diag_closed, "classic_alpha32")
+    check_dtype(zip(("blank_lp", "prev_tok_masked", "diag_closed", "diag_open"), args),
+                torch.float32, "classic_alpha32")
+    return _classic_alpha32_op(*(t.contiguous() for t in args))
+
+
+_classic_alpha32_op = kernel_op("classic_alpha32", _classic_alpha_plain)
+_classic_alpha32_op.register_fake(_classic_alpha_fake)
+register_fold(_classic_alpha32_op, (0, 0, 0, 0), (0,))
+
+
+@_classic_alpha32_op.register_kernel("cuda")
+def _classic_alpha32_launch(blank_lp, prev_tok_masked, diag_closed, diag_open):
+    out = diag_closed.new_empty(_classic_shape(diag_closed))
+    _launch("classic_pure64", "ctc_classic_alpha32", "classic_alpha32", out,
+            (blank_lp, prev_tok_masked, diag_closed, diag_open), smem="classic_alpha32")
+    classic_alpha32.launches += 1
+    return out
+
+
+classic_alpha32.launches = 0
+
+
+def simplified_alpha32(blank_lp, diag_lp) -> Tensor:
+    """Forward lattice log-probabilities [B, T+1, Lp1] of the simplified
+    pure path in float32, from ``blank_lp`` [B, T] and ``diag_lp`` [B, T,
+    Lp1]: the sampler's lattice.
+
+    The op ``ctc_port::simplified_alpha32``: CUDA tensors launch the float32
+    instantiation of ``simplified_alpha64``'s kernel
+    (csrc/simplified_pure64.cu); CPU tensors run ``simplified.alpha_scan``."""
+    check_device(diag_lp, "simplified_alpha32")
+    check_dtype((("blank_lp", blank_lp), ("diag_lp", diag_lp)), torch.float32,
+                "simplified_alpha32")
+    return _simplified_alpha32_op(blank_lp.contiguous(), diag_lp.contiguous())
+
+
+_simplified_alpha32_op = kernel_op("simplified_alpha32", _simplified_alpha_plain)
+_simplified_alpha32_op.register_fake(_simplified_alpha_fake)
+register_fold(_simplified_alpha32_op, (0, 0), (0,))
+
+
+@_simplified_alpha32_op.register_kernel("cuda")
+def _simplified_alpha32_launch(blank_lp, diag_lp):
+    out = diag_lp.new_empty(_simplified_shape(diag_lp))
+    _launch("simplified_pure64", "ctc_simplified_alpha32", "simplified_alpha32", out,
+            (blank_lp, diag_lp), smem="simplified_alpha32")
+    simplified_alpha32.launches += 1
+    return out
+
+
+simplified_alpha32.launches = 0
 
 
 # ---------------------------------------------------------------------------
