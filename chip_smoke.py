@@ -139,7 +139,8 @@ then simplified):
    (least two-sided tail probability above 1e-3 over twice the entries,
    the posteriors taken within 1e-5) and their squared deviation within
    10% of its expectation; ``ctc_loss_hessian_vector_product`` on rows
-   0-7: peak memory under 2 GB, atol 1e-4 from the central difference of
+   0-7 (each of its topology's tangent scans launched once): peak memory
+   under 2 GB, atol 1e-4 from the central difference of
    the float64 gradient, zero on infeasible rows; then each function's
    time (CUDA events around single calls, median of 5), and a profile of
    the classic forced alignment;
@@ -321,18 +322,41 @@ then simplified):
    the eager call, of the plain loops on the card (alignment and sampler),
    of the replay and of the compiled call; a replay's device ms (CUDA
    events) and the eager call's idle share by it; device ms and idle share
-   of one profile of the eager call (beam search's not profiled).
+   of one profile of the eager call (beam search's not profiled);
+15. the Hessian-vector product through its tangent scans (``drive_hvp``),
+   for each topology at phase 8's headline batch along a N(0, 1) vector:
+   (a) the tangent scans (``classic_alpha_jvp64``, ``classic_beta_jvp64``,
+   ``simplified_alpha_jvp64``, ``simplified_beta_jvp64``: the float64
+   scans' steps with a tangent beside each value, ``ops/pure_scan.py``)
+   bit for bit their plain versions, the loops over (value, tangent)
+   pairs (else within 1e-12 relative, the largest difference printed),
+   on rows 0-7, the whole batch, the long-T row (T=4000, 2001 lanes) and
+   labels wider than shared memory holds (``HVP_WIDE``, 3701 / 7401
+   lanes), and ``ctc_loss_hessian_vector_product`` launching each of its
+   two scans once; (b) the whole batch's HVP within atol 1e-4 of the
+   float64 central difference, zero on the infeasible rows, its peak
+   memory; (c) rows 0-7 and the whole batch captured as CUDA graphs, each
+   replay bit for bit the eager call, the graphs' nodes; (d) the whole
+   batch's HVP under ``torch.compile(fullgraph=True, dynamic=False)`` with
+   inductor: one graph, cold compile seconds, rtol 1e-6 / atol 1e-7 from
+   the eager call; (e) ``torch.func.vmap`` over 4 groups of 64 rows bit
+   for bit the unmapped call on the folded batch.  Times: host ms (median
+   of 5) of the eager call, the replay and the compiled call, the
+   forward-mode loop the HVP was before (one call, rows 0-7), the
+   replay's device ms by CUDA events.
 
 The launch counts are set to 0 before each path (a topology's phases 3
 and 4, its residual-free step, each path of ``drive_slice_paths``, its
 phase 7, each posteriors call of phase 8, each step and call of phase 9,
 each step, call and pair of them of phase 10, each call of phase 11, each
 capture of phase 12, each call of phase 13, each public, captured,
-compiled and mapped call of phase 14) and read after it: a kernel that
-its path never launched fails the run, and the ``kernels`` line gives
-each kernel's launches summed over the paths (the float64 scans' over
-phase 3's labels [8, 2000], phase 7 and phase 12's captures; phase 14's
-kernels over its paths).  A graph's replays
+compiled and mapped call of phase 14, phase 8's HVP and each public,
+captured, compiled and mapped call of phase 15) and read after it: a
+kernel that its path never launched fails the run, and the ``kernels``
+line gives each kernel's launches summed over the paths (the float64
+scans' over phase 3's labels [8, 2000], phase 7 and phase 12's captures;
+phase 14's kernels over its paths; the tangent scans over phases 8 and
+15).  A graph's replays
 launch nothing on the host: its kernels count once, at the capture.  A
 compiled function's kernels count at every call: their custom ops count
 where they launch, at run time.  The last lines are the ``kernels`` JSON,
@@ -1370,8 +1394,9 @@ def kernel_counters() -> dict:
     """``{path: {kernel name: (wrapper, mode or None)}}``: the launch counts
     that each topology's paths may move (B12 serves both), and under
     ``"pure64"`` the float64 scans of the guard's pure repair, which the
-    paths that repair through it read apart, and under ``"extras"`` phase
-    14's kernels of forced alignment and sampling."""
+    paths that repair through it read apart, under ``"extras"`` phase
+    14's kernels of forced alignment and sampling, and under ``"hvp"`` the
+    HVP's tangent scans (phases 8 and 15)."""
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
@@ -1412,6 +1437,7 @@ def kernel_counters() -> dict:
             "classic_alpha32": (ps.classic_alpha32, None),
             "simplified_alpha32": (ps.simplified_alpha32, None),
         },
+        "hvp": {name: (getattr(ps, name), None) for name in HVP_KERNELS},
     }
 
 
@@ -2200,8 +2226,13 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
             base = torch.cuda.memory_allocated(dev)
+        reset_launches()
         hvp = ctc.ctc_loss_hessian_vector_product(*h_args, 0, vec, topology)
         sync()
+        got_hvp = {k: n for k, n in read_launches("hvp").items() if n}
+        launches.update(got_hvp)
+        want_hvp = {f"{topology}_alpha_jvp64": 1, f"{topology}_beta_jvp64": 1}
+        check(got_hvp == want_hvp, f"{topology} HVP launched {got_hvp}, expected {want_hvp}")
         peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else 0
         check(peak < HVP_PEAK_BYTES, f"{topology} HVP peak memory {peak / 1e9:.3f} GB")
         h_feasible = feasible[:HVP_ROWS]
@@ -2241,8 +2272,8 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
                 *h_args, 0, vec, topology),
         }
         for name, fn in calls.items():
-            # beam search and the HVP take over a second a call: median of 3
-            runs = LONG_RUNS if name.startswith(("beam", "hvp")) else 5
+            # beam search takes over a second a call: median of 3
+            runs = LONG_RUNS if name.startswith("beam") else 5
             times[f"{topology}_{name}"] = time_ms(torch, fn, runs=runs, burst=1,
                                                   warmup=False)
         if topology == "classic":
@@ -2252,7 +2283,7 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
                 torch, dev, times["classic_forced_alignment"], calls["forced_alignment"],
                 steps=1)))
     log(f"phase 8 timing (ms, CUDA events around single calls, median of 5, of "
-        f"{LONG_RUNS} for beam search and the HVP; B={BATCH}, "
+        f"{LONG_RUNS} for beam search; B={BATCH}, "
         f"T={MAX_T}, V={VOCAB}; " + card + "): " + json.dumps(times))
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, times=times)
@@ -4870,6 +4901,339 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     return dict(launches=launches, kernels=kernels, report=report)
 
 
+# phase 15: the HVP through its tangent scans
+HVP_KERNELS = {  # kernel: (topology, source, the JAX package's scan that jax.jvp carries
+    # its tangent through, in ctc_loss_hessian_vector_product: api.py:374)
+    "classic_alpha_jvp64": ("classic", "csrc/classic_pure64.cu",
+                            "tf_seq2seq_losses_tpu/ops/classic.py:136"),
+    "classic_beta_jvp64": ("classic", "csrc/classic_pure64.cu",
+                           "tf_seq2seq_losses_tpu/ops/classic.py:184"),
+    "simplified_alpha_jvp64": ("simplified", "csrc/simplified_pure64.cu",
+                               "tf_seq2seq_losses_tpu/ops/simplified.py:63"),
+    "simplified_beta_jvp64": ("simplified", "csrc/simplified_pure64.cu",
+                              "tf_seq2seq_losses_tpu/ops/simplified.py:92"),
+}
+# float64 operations a lattice cell: a logsumexp with its tangent is 14 (the
+# value's subtract, exp, log1p and add; the tangent's two differences, two
+# products and two sums of the max and the min, their difference, the
+# product by exp, the sum and division of log1p's, the last sum), and each
+# add of a term is two: classic three and eight, simplified one and four
+JVP64_CELL_OPS = {"classic": 50, "simplified": 18}
+# labels past the staged tangent scans' shared memory (64 / 32 bytes a lane:
+# 3632 / 7264 lanes on an H100): the carry read back from the output
+HVP_WIDE = {"classic": 3700, "simplified": 7400}
+HVP_GROUPS = 4  # vmap's groups of the headline batch: 4 of 64 rows
+HVP_COMPILE_RTOL, HVP_COMPILE_ATOL = 1e-6, 1e-7  # compiled against eager
+HVP_PLAIN_RUNS = 1  # calls of the forward-mode loop timed: 1-3 s a call
+
+
+def jvp64_args(ctx, vector, topologies=("classic", "simplified")) -> dict:
+    """``{kernel: (kernel call, plain call, arguments)}`` of the tangent
+    scans of ``topologies`` on the float64 form of ``ctx``, with the terms'
+    tangents that the HVP gives them along ``vector`` (``hvp.scan_inputs``)."""
+    from tf_seq2seq_losses_tpu_torch.ops import classic, hvp, simplified
+
+    out = {}
+    for topology in topologies:
+        pure = classic if topology == "classic" else simplified
+        c64, _, terms, t_terms = hvp.scan_inputs(topology, ctx, vector)
+        args = tuple(a.contiguous() for a in terms + t_terms)
+        alpha, beta = hvp.SCANS[topology]
+        out[f"{topology}_alpha_jvp64"] = (alpha, pure.alpha_scan_jvp, args)
+        out[f"{topology}_beta_jvp64"] = (beta, pure.beta_scan_jvp,
+                                         args + (c64.label_length,))
+    return out
+
+
+def jvp64_bound(name, args) -> tuple:
+    """``(bytes, float64 operations, the float64 rate)`` of a tangent scan
+    on ``args``: every step of every lane, as the float64 scans
+    (``pure64_bound``); the values and tangents in (``blank_lp`` and the
+    terms, and their tangents) read once, ``label_length`` too, the lattice
+    and its tangent written once."""
+    topology = HVP_KERNELS[name][0]
+    terms = [a for a in args if a.dim() == 3]
+    batch, num_t, lp1 = terms[0].shape
+    states = 2 if topology == "classic" else 1
+    lengths = batch if "beta" in name else 0
+    nbytes = 8 * (2 * batch * num_t + len(terms) * batch * num_t * lp1
+                  + 2 * states * batch * (num_t + 1) * lp1 + lengths)
+    return nbytes, JVP64_CELL_OPS[topology] * batch * num_t * lp1, F64_OPS_PER_S
+
+
+def hvp_forward_ad(torch, topology, labels, lp, label_length, logit_length, vector):
+    """The HVP as the port computed it before the tangent scans:
+    ``torch.autograd.forward_ad`` through the pure path's Python loops in
+    float64 (``core.float64_context``), the plain loop that phase 15 times."""
+    from torch.autograd import forward_ad
+
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+
+    with forward_ad.dual_level():
+        ctx = core.float64_context(core.make_context(
+            labels, forward_ad.make_dual(lp, vector), label_length, logit_length, 0))
+        grad = core.gradient(TOPOLOGIES[topology], ctx)
+        return forward_ad.unpack_dual(grad).tangent.to(torch.float32)
+
+
+def hvp_contexts(torch, dev, seed, lp_args, vec) -> dict:
+    """``{case: (float32 context, vector, topologies)}`` on which phase 15
+    holds the tangent scans to their plain versions: rows 0-7 of the
+    headline and the whole batch (rows 0 and 1 infeasible), the long-T row
+    (rows 0 and 2 of the long-T batch at T=4000, gathered as
+    ``pure64_contexts`` gathers them), and for each topology labels wider
+    than its staged kernels hold (``HVP_WIDE``, T=64: the carry read back
+    from the output)."""
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops import topology as topo_mod
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    both = ("classic", "simplified")
+    ctx = core.make_context(*lp_args, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+
+    def ctx_of(inputs):
+        return core.make_context(inputs[0], logit_to_logproba(inputs[1], 2), *inputs[2:],
+                                 0)
+
+    long_ctx = topo_mod._take_rows(ctx_of(make_inputs(torch, seed, dev, max_t=LONG_T)),
+                                   torch.tensor([0, 2], device=dev))
+    out = {
+        f"rows 0-{HVP_ROWS - 1}": (topo_mod._take_rows(ctx, torch.arange(HVP_ROWS,
+                                                                         device=dev)),
+                                   vec[:HVP_ROWS], both),
+        f"whole batch of {len(vec)}": (ctx, vec, both),
+        f"long-T row (T={LONG_T})": (long_ctx, torch.randn(
+            long_ctx.logproba.shape, generator=gen, device=dev), both),
+    }
+    for topology, width in HVP_WIDE.items():
+        w_ctx = ctx_of(make_inputs(torch, seed + 5, dev, batch=3, label_width=width,
+                                   max_t=64))
+        out[f"{topology} labels [3, {width}] (unstaged)"] = (w_ctx, torch.randn(
+            w_ctx.logproba.shape, generator=gen, device=dev), (topology,))
+    return out
+
+
+def drive_hvp(torch, dev, seed, sync, card) -> dict:
+    """Phase 15, ``ctc_loss_hessian_vector_product`` through its tangent
+    scans, for each topology at phase 8's headline batch (rows 0 and 1
+    infeasible) along a N(0, 1) vector: (a) each tangent scan bit for bit
+    its plain version on the same inputs (else every entry within 1e-12
+    relative, the largest difference printed) on rows 0-7, the whole batch,
+    the long-T row and labels wider than its shared memory holds, and the
+    public call launching each of its two scans once; (b) the HVP of the
+    whole batch within atol 1e-4 of the float64 central difference, zero on
+    the infeasible rows, its peak memory; (c) the HVP of rows 0-7 and of the
+    whole batch captured as CUDA graphs, each replay bit for bit the eager
+    call, the graph's nodes; (d) the whole batch's HVP under
+    ``torch.compile(fullgraph=True, dynamic=False)`` with inductor: one
+    graph, cold compile seconds, the eager call's values within rtol
+    ``HVP_COMPILE_RTOL`` and atol ``HVP_COMPILE_ATOL``, each scan once a
+    call; (e) ``torch.func.vmap`` over ``HVP_GROUPS`` groups of 64 rows,
+    bit for bit the unmapped call on the folded batch, each scan once.
+    Times: host ms (median of 5) of the eager call, the replay and the
+    compiled call; of the forward-mode loop the HVP was before
+    (:func:`hvp_forward_ad`) on rows 0-7 (``HVP_PLAIN_RUNS`` calls); the
+    replay's device ms (CUDA events, median of 3).  The launch counts are
+    set to 0 before each path (each public call of (a), each capture, the
+    compiled call, the mapped call) and read after it.
+    Returns the launches and the four kernels' entries of the ``kernels``
+    line (``launches`` left to the caller; ``ms`` and ``plain_ms`` on the
+    whole batch)."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    import tf_seq2seq_losses_tpu_torch as ctc
+    from tf_seq2seq_losses_tpu_torch.ops import core
+    from tf_seq2seq_losses_tpu_torch.ops.topology import TOPOLOGIES
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    t_phase = time.perf_counter()
+    cache = tempfile.TemporaryDirectory()
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache.name  # compile seconds are cold
+    labels, logits, label_length, logit_length = make_inputs(torch, seed, dev)
+    lp = logit_to_logproba(logits, 2)
+    args = (labels, lp, label_length, logit_length)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vec = torch.randn(lp.shape, generator=gen, device=dev)
+    batch = len(labels)
+    parts = {f"rows_0_{HVP_ROWS - 1}": slice(0, HVP_ROWS), "whole_batch": slice(None)}
+    launches, kernels, report = Counter(), [], {}
+
+    def launched(fn):
+        reset_launches()
+        out = fn()
+        sync()
+        got = {k: n for k, n in read_launches("hvp").items() if n}
+        launches.update(got)
+        return out, got
+
+    def host(fn, runs=RUNS // 4):
+        """Median host ms of ``runs`` calls ending in a synchronize, after one."""
+        return host_ms(torch, fn, runs=runs)
+
+    # ---- (a) the tangent scans against their plain versions -------------------
+    errs, rel, case_ms, kernel_args = {}, {}, {}, {}
+    for case, (c, v, topologies) in hvp_contexts(torch, dev, seed, args, vec).items():
+        for name, (kern, plain, k_args) in jvp64_args(c, v, topologies).items():
+            got, want = kern(*k_args), plain(*k_args)
+            for part, g, w in zip(("lattice", "tangent"), got, want):
+                check(g.dtype == w.dtype == torch.float64 and g.shape == w.shape,
+                      f"phase 15 {name} on {case}: {part} {g.dtype} {tuple(g.shape)} "
+                      f"against {w.dtype} {tuple(w.shape)}")
+                same = torch.equal(g, w)
+                r = 0.0 if same else rel_err(g, w)
+                check(same or close(g, w, 1e-12, 0.0),
+                      f"phase 15 {name} on {case}: the {part} is not its plain version's "
+                      f"bits, largest relative difference {r:.3g} (limit 1e-12)")
+                errs[name] = max(errs.get(name, 0.0), max_err(g, w))
+                rel[f"{name} {part} on {case}"] = "bit for bit" if same else r
+            if case.startswith(("long-T", "rows")):
+                case_ms[f"{name} {case}"] = time_ms(torch, lambda: kern(*k_args), runs=3,
+                                                    burst=1)
+            if case.startswith("whole"):
+                kernel_args[name] = (kern, plain, k_args)
+    del got, want
+    for name, (kern, plain, k_args) in kernel_args.items():
+        b_ms, b_by = bound(*jvp64_bound(name, k_args))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tf_seq2seq_losses_tpu_torch/" + HVP_KERNELS[name][1],
+            "replaces": HVP_KERNELS[name][2], "launches": None,
+            "max_abs_err": errs[name],
+            "ms": time_ms(torch, lambda: kern(*k_args), burst=5),
+            "plain_ms": time_ms(torch, lambda: plain(*k_args), runs=PLAIN_RUNS, burst=1,
+                                warmup=False),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    del kernel_args
+    log(f"phase 15 (a) the tangent scans vs their plain versions on the card, largest "
+        f"relative difference (limit 1e-12) by case: " + json.dumps(rel)
+        + f"; kernel ms ({card}; CUDA events around single launches, median of 3): "
+        + json.dumps(case_ms))
+
+    for topology in ("classic", "simplified"):
+        topo = TOPOLOGIES[topology]
+        want = {f"{topology}_alpha_jvp64": 1, f"{topology}_beta_jvp64": 1}
+        feasible = topo.feasible(core.make_context(*args, 0))
+        cases = {part: {} for part in parts}
+
+        def call(part, topology=topology):
+            sl = parts[part]
+            return ctc.ctc_loss_hessian_vector_product(*(a[sl] for a in args), 0, vec[sl],
+                                                       topology)
+
+        # ---- (a) launches, (b) the whole batch against float64 ----------------
+        eager = {}
+        for part in parts:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+            eager[part], got = launched(lambda: call(part))
+            check(got == want, f"phase 15 {topology} HVP of {part} launched {got}, "
+                  f"expected {want}")
+            if dev.type == "cuda":
+                cases[part]["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        whole = eager["whole_batch"]
+        check(bool((whole[~feasible] == 0).all()),
+              f"phase 15 {topology} HVP zero on infeasible rows")
+        check(torch.equal(whole[:HVP_ROWS], eager[f"rows_0_{HVP_ROWS - 1}"]),
+              f"phase 15 {topology} HVP of rows 0-{HVP_ROWS - 1} is the whole batch's")
+        eps, lp64, vec64 = 1e-4, lp.double(), vec.double()
+        grads = [pure_float64_grad(labels, lp64 + sign * eps * vec64, label_length,
+                                   logit_length, topology)[2] for sign in (1, -1)]
+        hvp64 = (grads[0] - grads[1]) / (2 * eps)
+        del grads
+        hvp_err = max_err(whole, hvp64)
+        agree(whole, hvp64, 0.0, 1e-4,
+              f"phase 15 {topology} whole-batch HVP vs the float64 central difference")
+        del hvp64
+
+        # ---- (c) capture ------------------------------------------------------
+        nodes = {}
+        for part in parts:
+            reset_launches()
+            graph, out = capture(torch, lambda: call(part), keep=True)
+            sync()
+            got = {k: n for k, n in read_launches("hvp").items() if n}
+            launches.update(got)
+            # the warm-up and the capture: each launches the two scans once
+            check(got == {k: 2 for k in want},
+                  f"phase 15 {topology} capture of {part} launched {got}")
+            nodes[part] = graph_nodes(graph)
+            out.zero_()
+            graph.replay()
+            sync()
+            check(torch.equal(out, eager[part]),
+                  f"phase 15 {topology} replay of {part}: not the eager call's bits "
+                  f"(max abs err {max_err(out, eager[part]):.3g})")
+            cases[part]["graph_nodes"] = nodes[part]
+            cases[part]["replay_ms"] = host(graph.replay)
+            cases[part]["replay_device_ms"] = time_ms(torch, graph.replay, runs=3, burst=1)
+            del graph, out
+
+        # ---- (d) compile -----------------------------------------------------
+        part = "whole_batch"
+        cf = compile_fn(torch, lambda *a: ctc.ctc_loss_hessian_vector_product(
+            *a, topology))
+        c_args = args + (0, vec)
+        g0, t0 = unique_graphs(), time.perf_counter()
+        out, got = launched(lambda: cf(*c_args))
+        cases[part]["compile_s"] = time.perf_counter() - t0
+        cases[part]["graphs"] = unique_graphs() - g0
+        check(cases[part]["graphs"] == 1,
+              f"phase 15 {topology} HVP compiled into {cases[part]['graphs']} graphs")
+        check(got == want, f"phase 15 {topology} compiled HVP launched {got}")
+        cases[part]["compiled_max_abs_err"] = max_err(out, whole)
+        agree(out, whole, HVP_COMPILE_RTOL, HVP_COMPILE_ATOL,
+              f"phase 15 {topology} compiled HVP vs the eager call")
+        cases[part]["compiled_ms"] = host(lambda: cf(*c_args))
+        del out, cf
+
+        # ---- (e) vmap over groups of the batch ------------------------------------
+        grouped = [a.unflatten(0, (HVP_GROUPS, -1)) for a in args + (vec,)]
+        out, got = launched(lambda: torch.func.vmap(
+            lambda lab, x, ll_, gl_, v: ctc.ctc_loss_hessian_vector_product(
+                lab, x, ll_, gl_, 0, v, topology))(*grouped))
+        check(got == want, f"phase 15 {topology} vmap HVP launched {got}")
+        check(torch.equal(out.flatten(0, 1), whole),
+              f"phase 15 {topology} vmap HVP: not the unmapped call's bits on the folded "
+              f"batch (max abs err {max_err(out.flatten(0, 1), whole):.3g})")
+        del out, grouped
+
+        # ---- times ---------------------------------------------------------------
+        for part in parts:
+            cases[part]["eager_ms"] = host(lambda: call(part))
+        # the forward-mode loop, a second or more a call: no warm-up call
+        sl, loop_ms = parts[f"rows_0_{HVP_ROWS - 1}"], []
+        for _ in range(HVP_PLAIN_RUNS):
+            t0 = time.perf_counter()
+            hvp_forward_ad(torch, topology, *(a[sl] for a in args), vec[sl])
+            sync()
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+        cases[f"rows_0_{HVP_ROWS - 1}"]["forward_ad_loop_ms"] = statistics.median(loop_ms)
+        report[topology] = cases
+        log(f"phase 15 {topology}: ok; each tangent scan launched once a call (eager, "
+            f"compiled, mapped); the whole batch's HVP max abs err vs the float64 central "
+            f"difference {hvp_err:.3g}, zero on infeasible rows; replays, the compiled "
+            f"call (rtol {HVP_COMPILE_RTOL}, atol {HVP_COMPILE_ATOL}) and vmap over "
+            f"{HVP_GROUPS} groups of {batch // HVP_GROUPS} match the eager call; graph "
+            f"nodes {json.dumps(nodes)}")
+    log(f"phase 15 timing (ms: host clock, median of {RUNS // 4} after one call, of "
+        f"{HVP_PLAIN_RUNS} call(s) for the forward-mode loop; the replay's device ms by CUDA "
+        f"events (median of 3); compile seconds cold; peak GB above the inputs; "
+        f"B={batch}, T={MAX_T}, V={VOCAB}; " + card + "): " + json.dumps(report))
+    if dev.type == "cuda":
+        import torch._inductor.async_compile as async_compile
+
+        async_compile.shutdown_compile_workers()  # its worker processes end with the phase
+    cache.cleanup()
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, kernels=kernels, report=report)
+
+
 def run(seed: int, dev) -> dict:
     from collections import Counter
 
@@ -5394,6 +5758,11 @@ def run(seed: int, dev) -> dict:
     transforms = drive_transforms(torch, dev, seed, sync, card)
     launches.update(transforms["launches"])
     kernels.extend(transforms["kernels"])
+
+    # ---- 15. the HVP through its tangent scans ----------------------------------------
+    hvp = drive_hvp(torch, dev, seed, sync, card)
+    launches.update(hvp["launches"])
+    kernels.extend(hvp["kernels"])
 
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

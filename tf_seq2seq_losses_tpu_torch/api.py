@@ -22,11 +22,11 @@ from functools import cached_property
 from typing import Optional, Union
 
 import torch
-from torch.autograd import forward_ad
 
 from tf_seq2seq_losses_tpu_torch.ops import align as _align
 from tf_seq2seq_losses_tpu_torch.ops import core as _core
 from tf_seq2seq_losses_tpu_torch.ops import decode as _decode
+from tf_seq2seq_losses_tpu_torch.ops import hvp as _hvp
 from tf_seq2seq_losses_tpu_torch.ops import sample as _sample
 from tf_seq2seq_losses_tpu_torch.ops.autodiff import (
     PackHolder,
@@ -221,12 +221,16 @@ def ctc_loss_hessian_vector_product(
 ) -> torch.Tensor:
     """``Hessian @ vector`` [B, T, V] float32 in O(B·T·(L+V)) memory.
 
-    Forward-mode differentiation (``torch.autograd.forward_ad``) of the
-    pure analytic gradient (``core.gradient``), as the JAX package applies
-    ``jax.jvp``: the tangent runs through the alpha and beta recursions
-    beside their values, and the [B, T, V, T, V] Hessian is never built.
-    Equals ``einsum('btvxy,bxy->btv', ctc_loss_hessian(...), vector)``;
-    infeasible samples and steps past ``logit_length`` give exact zeros.
+    The tangent of the pure analytic gradient along ``vector``, as the JAX
+    package applies ``jax.jvp``: the alpha and beta recursions carry their
+    tangents beside their values in the tangent scan kernels (one launch
+    each on CUDA tensors, their loops on CPU tensors), the glue around them
+    takes its tangent from ``torch.func.jvp`` (``ops/hvp.py``), and the
+    [B, T, V, T, V] Hessian is never built.  Equals ``einsum('btvxy,bxy->btv',
+    ctc_loss_hessian(...), vector)``; infeasible samples and steps past
+    ``logit_length`` give exact zeros.  No host synchronisation: the call
+    runs under a CUDA graph's capture, ``torch.compile(fullgraph=True)`` and
+    ``torch.func.vmap``.
 
     Primal and tangent are cast to float32, as the JAX package casts them;
     the recursions then run in float64 (``core.float64_context``, as the
@@ -241,13 +245,8 @@ def ctc_loss_hessian_vector_product(
             "ctc_loss_hessian_vector_product: vector must match logprobas "
             f"shape {tuple(logprobas.shape)}, got {tuple(vector.shape)}"
         )
-
-    with forward_ad.dual_level():
-        ctx = _core.float64_context(_core.make_context(
-            labels, forward_ad.make_dual(logprobas, vector), label_length,
-            logit_length, blank_index))
-        grad = _core.gradient(topo, ctx)
-        return forward_ad.unpack_dual(grad).tangent.to(torch.float32)
+    ctx = _core.make_context(labels, logprobas, label_length, logit_length, blank_index)
+    return _hvp.hvp(topo, ctx, vector).to(torch.float32)
 
 
 class BaseCtcLossData:

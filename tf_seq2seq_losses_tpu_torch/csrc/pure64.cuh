@@ -1,8 +1,9 @@
 // Shared by the pure-path scans (classic_pure64.cu, simplified_pure64.cu:
-// the float64 scans of the guard's repair and the float32 forward of the
-// sampler), the max-plus scans (viterbi.cu) and the sampling walks
-// (walk.cu): the pairwise logsumexp of the pure path, torch's maximum and
-// argmax rules, the block shape of one CTA per row and the launch.
+// the float64 scans of the guard's repair, the float32 forward of the
+// sampler and the tangent scans of the HVP), the max-plus scans
+// (viterbi.cu) and the sampling walks (walk.cu): the pairwise logsumexp of
+// the pure path and its tangent, torch's maximum and argmax rules, the
+// block shape of one CTA per row and the launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +44,31 @@ __device__ __forceinline__ float lse32(float x, float y) {
   const float mx = (x > y || x_nan) ? x : y;
   const float mn = (x < y || x_nan) ? x : y;
   return mx + log1pf(expf(mn - mx));
+}
+
+// A value and its tangent: an entry of the tangent scans' lattices.
+struct Dual64 {
+  double v, t;
+};
+
+// utils/numerics.py:logsumexp_jvp in float64: lse64's value, and the
+// tangent that forward-mode AD gives it, operation for operation.  The max
+// and the min take ty + w * (tx - ty), w 1/2 at a tie, else 1 or 0 (torch's
+// maximum and minimum); exp's tangent t * result, log1p's t / (x + 1); a
+// tie of infinities gives a zero tangent.  Built with -fmad=false, so each
+// product and sum rounds on its own, as torch's tensor operations do.
+__device__ __forceinline__ Dual64 lse64_jvp(double x, double y, double tx, double ty) {
+  if (x == -CUDART_INF && y == -CUDART_INF) return {-CUDART_INF, 0.0};
+  if (x == CUDART_INF && y == CUDART_INF) return {CUDART_INF, 0.0};
+  const bool x_nan = x != x;
+  const double mx = (x > y || x_nan) ? x : y;
+  const double mn = (x < y || x_nan) ? x : y;
+  const double d = tx - ty;
+  const double t_mx = ty + (x == y ? 0.5 : (x > y ? 1.0 : 0.0)) * d;
+  const double t_mn = ty + (x == y ? 0.5 : (x < y ? 1.0 : 0.0)) * d;
+  const double e = exp(mn - mx);
+  const double t_e = (t_mn - t_mx) * e;
+  return {mx + log1p(e), t_mx + t_e / (e + 1.0)};
 }
 
 // The pure path's logsumexp in the scan's scalar type.

@@ -96,6 +96,9 @@ _SIGNATURES = {
         "ctc_classic_pure64_smem_bytes": [_I],
         "ctc_classic_alpha32": [_P] * 4 + [_I] * 4 + [_P] * 2,
         "ctc_classic_alpha32_smem_bytes": [_I],
+        "ctc_classic_alpha_jvp64": [_P] * 8 + [_I] * 4 + [_P] * 3,
+        "ctc_classic_beta_jvp64": [_P] * 9 + [_I] * 4 + [_P] * 3,
+        "ctc_classic_jvp64_smem_bytes": [_I],
     },
     "simplified_pure64": {
         "ctc_simplified_alpha64": [_P] * 2 + [_I] * 4 + [_P] * 2,
@@ -103,6 +106,9 @@ _SIGNATURES = {
         "ctc_simplified_pure64_smem_bytes": [_I],
         "ctc_simplified_alpha32": [_P] * 2 + [_I] * 4 + [_P] * 2,
         "ctc_simplified_alpha32_smem_bytes": [_I],
+        "ctc_simplified_alpha_jvp64": [_P] * 4 + [_I] * 4 + [_P] * 3,
+        "ctc_simplified_beta_jvp64": [_P] * 5 + [_I] * 4 + [_P] * 3,
+        "ctc_simplified_jvp64_smem_bytes": [_I],
     },
     "viterbi": {
         "ctc_classic_viterbi": [_P] * 7 + [_I] * 4 + [_P] * 5,
@@ -202,6 +208,9 @@ SMEM_BYTES = {
     # for each state (the staged kernels; wider labels read the output)
     "classic_pure64": lambda lp, _: 2 * 2 * 8 * lp,
     "simplified_pure64": lambda lp, _: 2 * 8 * lp,
+    # the HVP's tangent scans: the same carries, each a value and a tangent
+    "classic_jvp64": lambda lp, _: 2 * 2 * 2 * 8 * lp,
+    "simplified_jvp64": lambda lp, _: 2 * 2 * 8 * lp,
     # the same scans' forward in float32 (the sampler's alpha), and the
     # max-plus scans of forced alignment: two floats a lane for each state
     "classic_alpha32": lambda lp, _: 2 * 2 * _F * lp,

@@ -26,6 +26,7 @@ from tf_seq2seq_losses_tpu_torch.ops.core import (
 from tf_seq2seq_losses_tpu_torch.utils.numerics import (
     apply_logarithmic_mask,
     logsumexp as _lse,
+    logsumexp_jvp as _lse_jvp,
     reduce_logsumexp as _reduce_lse,
 )
 
@@ -146,6 +147,78 @@ def beta_scan(blank_lp, prev_tok_masked, diag_closed, diag_open,
         )
         out.append(carry)
     return torch.stack(out[::-1], dim=1)
+
+
+def _alpha_step_jvp(blank, prev_masked, d_closed, d_open, carry, tangents):
+    """:func:`_alpha_step` and its tangent: ``tangents`` holds those of the
+    step's terms and of ``carry``, in that order."""
+    t_blank, t_prev, t_dc, t_do, t_carry = tangents
+    a_closed, a_open = carry[..., 0], carry[..., 1]
+    ta_closed, ta_open = t_carry[..., 0], t_carry[..., 1]
+    lse, t_lse = _lse_jvp(a_closed, a_open, ta_closed, ta_open)
+    diag, t_diag = _lse_jvp(a_closed + d_closed, a_open + d_open,
+                            ta_closed + t_dc, ta_open + t_do)
+    opened, t_opened = _lse_jvp(a_open + prev_masked, torch.roll(diag, shifts=1, dims=-1),
+                                ta_open + t_prev, torch.roll(t_diag, shifts=1, dims=-1))
+    return (torch.stack([lse + blank[..., None], opened], dim=-1),
+            torch.stack([t_lse + t_blank[..., None], t_opened], dim=-1))
+
+
+def alpha_scan_jvp(blank_lp, prev_tok_masked, diag_closed, diag_open, t_blank_lp,
+                   t_prev_tok_masked, t_diag_closed, t_diag_open):
+    """:func:`alpha_scan` and its tangent for the terms' tangents ``t_*``:
+    ``(alpha, tangent)``, each [B, T+1, Lp1, 2], the values and tangents
+    that ``torch.func.jvp`` of :func:`alpha_scan` gives (the initial carry
+    has a zero tangent; -inf entries keep the tangent their sums give).
+    The plain version of the kernel ``classic_alpha_jvp64``
+    (``ops/pure_scan.py``)."""
+    batch, num_t, lp1 = diag_closed.shape
+    carry = _alpha_init(batch, lp1, diag_closed.device).to(diag_closed.dtype)
+    t_carry = torch.zeros_like(carry)
+    out, t_out = [carry], [t_carry]
+    for k in range(num_t):
+        carry, t_carry = _alpha_step_jvp(
+            blank_lp[:, k], prev_tok_masked[:, k], diag_closed[:, k], diag_open[:, k],
+            carry, (t_blank_lp[:, k], t_prev_tok_masked[:, k], t_diag_closed[:, k],
+                    t_diag_open[:, k], t_carry))
+        out.append(carry)
+        t_out.append(t_carry)
+    return torch.stack(out, dim=1), torch.stack(t_out, dim=1)
+
+
+def _beta_step_jvp(blank, prev_masked, d_closed, d_open, carry, tangents):
+    """:func:`_beta_step` and its tangent (``tangents`` as in
+    :func:`_alpha_step_jvp`)."""
+    t_blank, t_prev, t_dc, t_do, t_carry = tangents
+    b_closed, b_open = carry[..., 0], carry[..., 1]
+    tb_closed, tb_open = t_carry[..., 0], t_carry[..., 1]
+    h_closed, t_h_closed = blank[:, None] + b_closed, t_blank[:, None] + tb_closed
+    h_open, t_h_open = _lse_jvp(h_closed, prev_masked + b_open, t_h_closed,
+                                t_prev + tb_open)
+    b_next = torch.roll(b_open, shifts=-1, dims=1)
+    t_next = torch.roll(tb_open, shifts=-1, dims=1)
+    closed, t_closed = _lse_jvp(h_closed, d_closed + b_next, t_h_closed, t_dc + t_next)
+    opened, t_opened = _lse_jvp(h_open, d_open + b_next, t_h_open, t_do + t_next)
+    return (torch.stack([closed, opened], dim=-1),
+            torch.stack([t_closed, t_opened], dim=-1))
+
+
+def beta_scan_jvp(blank_lp, prev_tok_masked, diag_closed, diag_open, t_blank_lp,
+                  t_prev_tok_masked, t_diag_closed, t_diag_open, label_length):
+    """:func:`beta_scan` and its tangent, as :func:`alpha_scan_jvp`: the
+    plain version of the kernel ``classic_beta_jvp64``."""
+    _, num_t, lp1 = diag_closed.shape
+    carry = _beta_last(label_length, lp1, diag_closed.device).to(diag_closed.dtype)
+    t_carry = torch.zeros_like(carry)
+    out, t_out = [carry], [t_carry]
+    for k in range(num_t - 1, -1, -1):
+        carry, t_carry = _beta_step_jvp(
+            blank_lp[:, k], prev_tok_masked[:, k], diag_closed[:, k], diag_open[:, k],
+            carry, (t_blank_lp[:, k], t_prev_tok_masked[:, k], t_diag_closed[:, k],
+                    t_diag_open[:, k], t_carry))
+        out.append(carry)
+        t_out.append(t_carry)
+    return torch.stack(out[::-1], dim=1), torch.stack(t_out[::-1], dim=1)
 
 
 def loss(ctx: CtcContext, alpha_tensor: torch.Tensor) -> torch.Tensor:

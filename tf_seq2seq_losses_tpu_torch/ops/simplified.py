@@ -23,6 +23,7 @@ from tf_seq2seq_losses_tpu_torch.ops.core import (
 from tf_seq2seq_losses_tpu_torch.utils.numerics import (
     apply_logarithmic_mask,
     logsumexp as _lse,
+    logsumexp_jvp as _lse_jvp,
     reduce_logsumexp as _reduce_lse,
 )
 
@@ -95,6 +96,45 @@ def beta_scan(blank_lp, diag_lp, label_length) -> torch.Tensor:
         carry = _beta_step(blank_lp[:, k], diag_lp[:, k], carry)
         out.append(carry)
     return torch.stack(out[::-1], dim=1)
+
+
+def alpha_scan_jvp(blank_lp, diag_lp, t_blank_lp, t_diag_lp):
+    """:func:`alpha_scan` and its tangent for the tangents ``t_blank_lp``
+    and ``t_diag_lp``: ``(alpha, tangent)``, each [B, T+1, Lp1], the values
+    and tangents that ``torch.func.jvp`` of :func:`alpha_scan` gives (the
+    initial carry has a zero tangent).  The plain version of the kernel
+    ``simplified_alpha_jvp64`` (``ops/pure_scan.py``)."""
+    batch, num_t, lp1 = diag_lp.shape
+    carry = _alpha_init(batch, lp1, diag_lp.device).to(diag_lp.dtype)
+    t_carry = torch.zeros_like(carry)
+    out, t_out = [carry], [t_carry]
+    for k in range(num_t):
+        carry, t_carry = _lse_jvp(
+            carry + blank_lp[:, k, None],
+            torch.roll(carry + diag_lp[:, k], shifts=1, dims=1),
+            t_carry + t_blank_lp[:, k, None],
+            torch.roll(t_carry + t_diag_lp[:, k], shifts=1, dims=1))
+        out.append(carry)
+        t_out.append(t_carry)
+    return torch.stack(out, dim=1), torch.stack(t_out, dim=1)
+
+
+def beta_scan_jvp(blank_lp, diag_lp, t_blank_lp, t_diag_lp, label_length):
+    """:func:`beta_scan` and its tangent, as :func:`alpha_scan_jvp`: the
+    plain version of the kernel ``simplified_beta_jvp64``."""
+    _, num_t, lp1 = diag_lp.shape
+    carry = _beta_last(label_length, lp1, diag_lp.device).to(diag_lp.dtype)
+    t_carry = torch.zeros_like(carry)
+    out, t_out = [carry], [t_carry]
+    for k in range(num_t - 1, -1, -1):
+        carry, t_carry = _lse_jvp(
+            carry + blank_lp[:, k, None],
+            diag_lp[:, k] + torch.roll(carry, shifts=-1, dims=1),
+            t_carry + t_blank_lp[:, k, None],
+            t_diag_lp[:, k] + torch.roll(t_carry, shifts=-1, dims=1))
+        out.append(carry)
+        t_out.append(t_carry)
+    return torch.stack(out[::-1], dim=1), torch.stack(t_out[::-1], dim=1)
 
 
 def loss(ctx: CtcContext, alpha_tensor: torch.Tensor) -> torch.Tensor:

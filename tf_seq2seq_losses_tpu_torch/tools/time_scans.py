@@ -17,7 +17,11 @@ on a repair round (:func:`repair_round`); and the float64 scans of the
 guard's pure repair (``classic_alpha64``, ``classic_beta64``,
 ``simplified_alpha64``, ``simplified_beta64``, ``ops/pure_scan.py``) on
 that round with the infeasible row 0 (:func:`pure_round`, bursts of 5) and
-on a long-T row at full T (:func:`long_row`, single launches).
+on a long-T row at full T (:func:`long_row`, single launches); and the
+HVP's tangent scans (``classic_alpha_jvp64``, ``classic_beta_jvp64``,
+``simplified_alpha_jvp64``, ``simplified_beta_jvp64``) on the HVP's rows
+of the headline batch (:func:`hvp_case`, bursts of 5) and on the long-T
+row (single launches).
 
     python3 tf_seq2seq_losses_tpu_torch/tools/time_scans.py --tree DIR \\
         [--tag NAME] [--variant TAG:LIBRARY=FILE.cu ...] [--steps]
@@ -47,7 +51,9 @@ training step of each topology (median of 3; the
 simplified one with the guard off, as its row 220 is otherwise repaired
 through the pure path), each on the host clock and its device time by
 ``torch.profiler``, with a digest of the step's loss and d_logits, by
-which two trees' steps are shown to give the same bits.
+which two trees' steps are shown to give the same bits; and the HVP of each
+topology on its rows and on the whole headline batch (:func:`hvp_steps`),
+with a digest of its output.
 
 Prints one JSON line: the tag, the card's name and power limit, the times
 in ms, each case's bound (the least time the card could take for its work
@@ -276,6 +282,70 @@ def pure64_bounds(smoke, ctx, shape: str) -> dict:
             for name, (_k, _p, args) in smoke.pure64_args(ctx).items()}
 
 
+def hvp_case(smoke, torch, dev, shape: str, seed=0):
+    """``(context, vector)`` of a tangent scans' case: ``"hvp_rows"``, rows
+    0 to ``chip_smoke.HVP_ROWS`` - 1 of the headline batch (rows 0 and 1
+    infeasible), the rows of phase 8's and phase 15's HVP; or
+    ``"hvp_long_t_row"``, the long-T row of :func:`long_row`; the vector
+    N(0, 1) from a generator seeded ``seed``."""
+    from tf_seq2seq_losses_tpu_torch.ops import core, topology
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    if shape == "hvp_rows":
+        labels, logits, label_length, logit_length = smoke.make_inputs(torch, seed, dev)
+        ctx = topology._take_rows(
+            core.make_context(labels, logit_to_logproba(logits, 2), label_length,
+                              logit_length, 0),
+            torch.arange(smoke.HVP_ROWS, device=dev))
+    else:
+        ctx = long_row(smoke, torch, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return ctx, torch.randn(ctx.logproba.shape, generator=gen, device=dev)
+
+
+def jvp64_cases(smoke, ctx, vector) -> dict:
+    """``{case: (launch, mode, lens, window)}`` of the HVP's four tangent
+    scans (``ops/pure_scan.py``) on the float64 form of ``ctx`` with the
+    terms' tangents along ``vector`` (``chip_smoke.jvp64_args``)."""
+    return {name: (lambda k=kern, a=args: k(*a), None, None, None)
+            for name, (kern, _plain, args) in smoke.jvp64_args(ctx, vector).items()}
+
+
+def jvp64_bounds(smoke, ctx, vector, shape: str) -> dict:
+    """``{"case shape": ms}``: each tangent scan's bound on ``ctx``
+    (``chip_smoke.jvp64_bound``)."""
+    return {f"{name} {shape}": smoke.bound(*smoke.jvp64_bound(name, args))[0]
+            for name, (_k, _p, args) in smoke.jvp64_args(ctx, vector).items()}
+
+
+def hvp_steps(smoke, torch, dev) -> dict:
+    """Host-clock and device time of ``ctc_loss_hessian_vector_product`` of
+    each topology on rows 0 to ``chip_smoke.HVP_ROWS`` - 1 and on the whole
+    headline batch (median of 20), with a digest of its output."""
+    import tf_seq2seq_losses_tpu_torch as ctc
+    from tf_seq2seq_losses_tpu_torch.utils.numerics import logit_to_logproba
+
+    labels, logits, label_length, logit_length = smoke.make_inputs(torch, 0, dev)
+    args = (labels, logit_to_logproba(logits, 2), label_length, logit_length)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vector = torch.randn(logits.shape, generator=gen, device=dev)
+    out = {}
+    for topology in ("classic", "simplified"):
+        for part, rows in ((f"rows_0_{smoke.HVP_ROWS - 1}", slice(0, smoke.HVP_ROWS)),
+                           ("whole_batch", slice(None))):
+            def call(rows=rows, topology=topology):
+                return ctc.ctc_loss_hessian_vector_product(
+                    *(a[rows] for a in args), 0, vector[rows], topology)
+
+            host = smoke.host_ms(torch, call)
+            prof = smoke.profile_step(torch, dev, host, call)
+            out[f"{topology}_hvp_{part}"] = {
+                "host_ms": host, "device_ms": prof.get("device_ms_per_step"),
+                "device_idle_share": prof.get("device_idle_share"),
+                "digest": step_digest((call(),))}
+    return out
+
+
 def fused_case(smoke, torch, dev, max_t: int):
     """The ``fused_dlogits`` arguments at V = ``chip_smoke.SLICE_VOCAB`` on
     the batch ``make_inputs`` gives at ``max_t``: the acts of the streamed
@@ -461,6 +531,13 @@ def main() -> int:
         cases[shape] = pure64_cases(smoke, ctx)
         bounds.update(pure64_bounds(smoke, ctx, shape))
         bursts[shape] = burst
+    # the HVP's tangent scans: its rows of the headline batch, and the
+    # long-T row
+    for shape, burst in (("hvp_rows", 5), ("hvp_long_t_row", 1)):
+        ctx, vector = hvp_case(smoke, torch, dev, shape)
+        cases[shape] = jvp64_cases(smoke, ctx, vector)
+        bounds.update(jvp64_bounds(smoke, ctx, vector, shape))
+        bursts[shape] = burst
     digests = {f"{name} {shape}": digest(torch, case)
                for shape in cases for name, case in cases[shape].items()}
     times = {}
@@ -477,6 +554,7 @@ def main() -> int:
     if args.steps:
         out["headline_steps"] = headline_steps(smoke, torch, dev)
         out["long_t_steps"] = long_steps(smoke, torch, dev)
+        out["hvp_steps"] = hvp_steps(smoke, torch, dev)
     print(json.dumps(out), flush=True)
     return 0
 

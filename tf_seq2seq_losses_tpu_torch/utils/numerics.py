@@ -49,6 +49,32 @@ def logsumexp(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     )
 
 
+def logsumexp_jvp(x, y, tx, ty):
+    """``(logsumexp(x, y), its tangent)`` for tangents ``tx``, ``ty``: the
+    value of :func:`logsumexp` and the tangent that forward-mode AD
+    (``torch.func.jvp``) gives it, operation for operation, so both round
+    alike.  ``torch.maximum`` and ``torch.minimum`` take ``ty + w * (tx -
+    ty)`` with ``w`` 1/2 at a tie, else 1 or 0 (``derivatives.yaml``);
+    ``exp`` takes ``t * result``, ``log1p`` ``t / (x + 1)``; a tie of
+    infinities gives a zero tangent."""
+    x, y, tx, ty = torch.broadcast_tensors(x, y, tx, ty)
+    neg_tie = torch.isneginf(x) & torch.isneginf(y)
+    special = neg_tie | (torch.isposinf(x) & torch.isposinf(y))
+    zero = torch.zeros_like(x)
+    tie = x == y
+    d = tx - ty
+    t_mx = ty + torch.where(tie, 0.5, (x > y).to(x.dtype)) * d
+    t_mn = ty + torch.where(tie, 0.5, (x < y).to(x.dtype)) * d
+    mx = torch.where(special, zero, torch.maximum(x, y))
+    diff = torch.where(special, zero, torch.minimum(x, y)) - mx
+    e = torch.exp(diff)
+    t_e = (torch.where(special, zero, t_mn) - torch.where(special, zero, t_mx)) * e
+    out = mx + torch.log1p(e)
+    t_out = torch.where(special, zero, t_mx) + t_e / (e + 1)
+    value = torch.where(neg_tie, -np.inf, torch.where(special, np.inf, out))
+    return value, torch.where(special, zero, t_out)
+
+
 def reduce_logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Axis logsumexp; all-(-inf) slices give exactly -inf, zero derivative."""
     m = torch.amax(x, dim=dim, keepdim=True).detach()
