@@ -317,12 +317,23 @@ then simplified):
    (``generator=None``, ``fallback_random``) the eager call's from the same
    seed, twice; (d) ``torch.func.vmap`` over 4 groups of 64 rows of
    alignment, greedy, beam search and the walk on fixed noise, bit for bit
-   the unmapped call on the folded batch, each kernel once a mapped call.
-   Times: host ms (median of 5; of 3 for a call over a quarter second) of
-   the eager call, of the plain loops on the card (alignment and sampler),
-   of the replay and of the compiled call; a replay's device ms (CUDA
-   events) and the eager call's idle share by it; device ms and idle share
-   of one profile of the eager call (beam search's not profiled);
+   the unmapped call on the folded batch, each kernel once a mapped call;
+   (e) the gradients of the alignment's and the walk's scores: the backward
+   kernels (``classic_viterbi_grad``, ``simplified_viterbi_grad``,
+   ``classic_walk_grad``, ``simplified_walk_grad``) bit for bit their plain
+   versions under a random cotangent in (a), also on the wide labels; the
+   eager gradient bit for bit autograd through the loops, launching the
+   forward kernels and the backward kernel once; ``torch.func.vmap`` of
+   ``torch.func.grad`` over 4 groups of 64 bit for bit the folded
+   gradient; the gradient captured as a CUDA graph, its replay bit for bit
+   the eager one; compiled with inductor, one graph, rtol 1e-6.  Times:
+   host ms (median of 5; of 3 for a call over a quarter second) of the
+   eager call, of the plain loops on the card (alignment and sampler), of
+   the replay and of the compiled call, and of the gradient eager, replayed
+   and compiled beside the plain loops' gradient (one call); a replay's
+   device ms (CUDA events) and the eager call's idle share by it; device ms
+   and idle share of one profile of the eager call (beam search's not
+   profiled);
 15. the Hessian-vector product through its tangent scans (``drive_hvp``),
    for each topology at phase 8's headline batch along a N(0, 1) vector:
    (a) the tangent scans (``classic_alpha_jvp64``, ``classic_beta_jvp64``,
@@ -1436,6 +1447,10 @@ def kernel_counters() -> dict:
             "simplified_walk": (sample.simplified_walk_scan, None),
             "classic_alpha32": (ps.classic_alpha32, None),
             "simplified_alpha32": (ps.simplified_alpha32, None),
+            "classic_viterbi_grad": (align.classic_viterbi_grad, None),
+            "simplified_viterbi_grad": (align.simplified_viterbi_grad, None),
+            "classic_walk_grad": (sample.classic_walk_grad, None),
+            "simplified_walk_grad": (sample.simplified_walk_grad, None),
         },
         "hvp": {name: (getattr(ps, name), None) for name in HVP_KERNELS},
     }
@@ -4464,6 +4479,15 @@ EXTRAS = {  # kernel: (topology, source, the JAX package's scan it stands for)
                         "tf_seq2seq_losses_tpu/ops/classic.py:136"),
     "simplified_alpha32": ("simplified", "csrc/simplified_pure64.cu",
                            "tf_seq2seq_losses_tpu/ops/simplified.py:63"),
+    # the scores' backwards: what jax.grad of those scans computes
+    "classic_viterbi_grad": ("classic", "csrc/viterbi.cu",
+                             "tf_seq2seq_losses_tpu/ops/align.py:52"),
+    "simplified_viterbi_grad": ("simplified", "csrc/viterbi.cu",
+                                "tf_seq2seq_losses_tpu/ops/align.py:127"),
+    "classic_walk_grad": ("classic", "csrc/walk.cu",
+                          "tf_seq2seq_losses_tpu/ops/sample.py:65"),
+    "simplified_walk_grad": ("simplified", "csrc/walk.cu",
+                             "tf_seq2seq_losses_tpu/ops/sample.py:150"),
 }
 # labels wider than a CTA's shared memory holds the carries of (16 bytes a
 # lane classic, 8 simplified: 14528 / 29056 lanes on an H100): Viterbi
@@ -4478,37 +4502,57 @@ TRANSFORM_RTOL = 1e-6  # compiled scores against eager (inductor rounds the glue
 # sample's step (the walk: candidate weights, noise, argmax, the sum)
 VITERBI_CELL_OPS = {"classic": 10, "simplified": 4}
 WALK_STEP_OPS = {"classic": 12, "simplified": 8}
+# the backwards: the forward again, then a cell's shares and adds (classic
+# six shares, three adds and the lane sum's add; simplified two, one, one)
+VITERBI_GRAD_CELL_OPS = {"classic": 10 + 10, "simplified": 4 + 4}
 
 
 def extras_args(torch, ctx, topology, gen, num_s=NUM_SAMPLES) -> dict:
     """``{kernel: (kernel call, plain call, arguments)}`` of the topology's
     forward in float32, Viterbi and walk on ``ctx``, the arguments that the
     glue of ``ops/align.py`` and ``ops/sample.py`` gives them (the walk
-    over the plain alpha and ``num_s`` samples of noise from ``gen``)."""
+    over the plain alpha and ``num_s`` samples of noise from ``gen``), and
+    of the backwards of Viterbi and the walk, under cotangents from
+    ``gen``."""
     from tf_seq2seq_losses_tpu_torch.ops import align, classic, core, pure_scan, sample
     from tf_seq2seq_losses_tpu_torch.ops import simplified
 
     label = (ctx.label, ctx.label_length, ctx.blank_index)
-    noise = sample.gumbel(sample.noise_shape(topology, num_s, ctx), gen,
-                          ctx.logproba.device)
+    dev = ctx.logproba.device
+    noise = sample.gumbel(sample.noise_shape(topology, num_s, ctx), gen, dev)
+    batch = ctx.logproba.shape[0]
+    # the backwards' cotangents: N(0, 1) on every row, so that ties split
+    # random values
+    g_path = torch.randn((batch,), generator=gen, device=dev)
+    g_acc = torch.randn((num_s, batch), generator=gen, device=dev)
     if topology == "classic":
         t = classic.terms(ctx)
         terms = tuple(a.contiguous() for a in (t.blank_lp, t.prev_tok_masked,
                                                t.diag_closed, t.diag_open))
+        walk = (classic.alpha_scan(*terms),) + terms + label + (noise,)
         return {
             "classic_alpha32": (pure_scan.classic_alpha32, classic.alpha_scan, terms),
             "classic_viterbi": (align.classic_viterbi_scan, align.classic_viterbi_plain,
                                 terms + label),
-            "classic_walk": (sample.classic_walk_scan, sample.classic_walk_plain,
-                             (classic.alpha_scan(*terms),) + terms + label + (noise,)),
+            "classic_walk": (sample.classic_walk_scan, sample.classic_walk_plain, walk),
+            "classic_viterbi_grad": (align.classic_viterbi_grad,
+                                     align.classic_viterbi_grad_plain,
+                                     terms + label + (g_path,)),
+            "classic_walk_grad": (sample.classic_walk_grad, sample.classic_walk_grad_plain,
+                                  walk + (g_acc,)),
         }
     terms = (ctx.blank_lp.contiguous(), core.expected_token_lp(ctx).contiguous())
+    walk = (simplified.alpha_scan(*terms),) + terms + label + (noise,)
     return {
         "simplified_alpha32": (pure_scan.simplified_alpha32, simplified.alpha_scan, terms),
         "simplified_viterbi": (align.simplified_viterbi_scan,
                                align.simplified_viterbi_plain, terms + label),
-        "simplified_walk": (sample.simplified_walk_scan, sample.simplified_walk_plain,
-                            (simplified.alpha_scan(*terms),) + terms + label + (noise,)),
+        "simplified_walk": (sample.simplified_walk_scan, sample.simplified_walk_plain, walk),
+        "simplified_viterbi_grad": (align.simplified_viterbi_grad,
+                                    align.simplified_viterbi_grad_plain,
+                                    terms + label + (g_path,)),
+        "simplified_walk_grad": (sample.simplified_walk_grad,
+                                 sample.simplified_walk_grad_plain, walk + (g_acc,)),
     }
 
 
@@ -4522,7 +4566,11 @@ def extras_bound(name, args, logit_length, label_length) -> tuple:
     lengths, the path log-prob and the alignment written.  A walk needs, at
     each of its sample's ``logit_length`` steps, the noise of the step and
     at least the predecessor's alpha and one transition term, and writes its
-    emissions and its sum."""
+    emissions and its sum.  A backward needs what its forward reads (not
+    the alignment or the emissions: Viterbi's path log-prob and a walk's
+    sum), its cotangent, and writes its gradients, ``blank_lp`` [B, T] and
+    the terms [B, T, Lp1], whole: every lane and frame of them is an
+    output."""
     topology = EXTRAS[name][0]
     states = 2 if topology == "classic" else 1
     if name.endswith("alpha32"):
@@ -4534,14 +4582,24 @@ def extras_bound(name, args, logit_length, label_length) -> tuple:
     lens, lanes_b = logit_length.double(), label_length.double() + 1
     steps, cells = float(lens.sum()), float((lens * lanes_b).sum())
     batch, lanes = len(lens), float(lanes_b.sum())
-    blank_lp = args[1] if name.endswith("walk") else args[0]
-    num_t = blank_lp.shape[1]
-    if name.endswith("viterbi"):
-        n_terms = 3 if topology == "classic" else 1
+    grad = name.endswith("_grad")
+    base = name[:-len("_grad")] if grad else name
+    first = 1 if base.endswith("walk") else 0  # blank_lp, then a [B, T, Lp1] term
+    num_t, lp1 = args[first].shape[1], args[first + 1].shape[2]
+    n_terms = 3 if topology == "classic" else 1
+    # a backward reads its cotangent and writes its gradients whole
+    grads_out = 4 * batch * num_t * (1 + n_terms * lp1)
+    if base.endswith("viterbi"):
+        if grad:
+            nbytes = 4 * (n_terms * cells + steps + 2 * batch) + 8 * batch + grads_out
+            return nbytes, VITERBI_GRAD_CELL_OPS[topology] * cells
         nbytes = 4 * (n_terms * cells + steps + batch + batch * num_t) + 8 * (lanes + batch)
         return nbytes, VITERBI_CELL_OPS[topology] * cells
-    num_s = args[-1].shape[0]
+    num_s = args[-1 - grad].shape[0]
     slots = 3 if topology == "classic" else 2
+    if grad:
+        nbytes = 4 * num_s * (steps * (slots + 2) + 2 * batch) + 8 * batch + grads_out
+        return nbytes, (WALK_STEP_OPS[topology] + 1) * num_s * steps
     nbytes = 4 * num_s * (steps * (slots + 2) + batch * num_t + batch) + 8 * (lanes + batch)
     return nbytes, WALK_STEP_OPS[topology] * num_s * steps
 
@@ -4616,9 +4674,14 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     alignment, greedy, beam search and the walk on fixed noise, bit for bit
     the unmapped call on the folded batch, each kernel once a mapped call;
     (e) the gradients of forced alignment's and the walk's scores through
-    the kernels (their ops' backward runs the loops again,
-    ``cuda_lattice.plain_grad``) bit for bit autograd through the loops,
-    each kernel once a gradient.
+    the backward kernels (``*_viterbi_grad``, ``*_walk_grad``, held bit for
+    bit to their plain versions under a random cotangent in (a)): eager, bit
+    for bit autograd through the loops, each forward kernel and the
+    backward kernel once; ``torch.func.vmap(torch.func.grad(...))`` over
+    the groups bit for bit the folded gradient, each kernel once; captured
+    (warm-up and capture each launch them once), the replay bit for bit the
+    eager gradient; compiled with inductor, one graph, each kernel once,
+    rtol ``TRANSFORM_RTOL``.
     Times: host ms (median of ``TRANSFORM_RUNS``, of ``LONG_RUNS`` for a call
     over a quarter second) of the eager call through the kernels, through
     the plain loops, the replay and the compiled call; the device ms of a
@@ -4628,8 +4691,9 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     profiler's cost grows with its ~25000 launches a call).  The
     launch counts are set to 0 before each path (the public calls of (a),
     each capture, each compiled call, each mapped call, each gradient) and
-    read after it.
-    Returns the launches and the six kernels' entries of the ``kernels``
+    read after it.  The gradients' times: host ms (median as above) eager,
+    replayed and compiled, and of the plain loops' gradient.
+    Returns the launches and the ten kernels' entries of the ``kernels``
     line (``launches`` left to the caller)."""
     import os
     import tempfile
@@ -4846,27 +4910,79 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
         # ---- (e) gradients through the scores ---------------------------------
         def grad_of(fn):
             x = lp.detach().clone().requires_grad_(True)
-            out = fn(x)
-            (g,) = torch.autograd.grad(torch.where(torch.isfinite(out), out, 0.0).sum(), x)
+            (g,) = torch.autograd.grad(finite_sum(fn(x)), x)
             return g
+
+        def finite_sum(out):
+            return torch.where(torch.isfinite(out), out, 0.0).sum()
+
+        def align_score(lab, x, ll_, gl_):
+            return ctc.ctc_forced_alignment(lab, x, ll_, gl_, 0, topology)[1]
+
+        def walk_score(lab, x, ll_, gl_, noise):
+            return walk_fn(lab, x, ll_, gl_, noise)[1]
 
         grads = {
             "forced_alignment": (
-                lambda x: ctc.ctc_forced_alignment(labels, x, label_length, logit_length, 0,
-                                                   topology)[1],
-                {f"{topology}_viterbi": 1}),
-            "walk": (lambda x: walk_fn(labels, x, label_length, logit_length, noise_t)[1],
-                     {f"{topology}_alpha32": 1, f"{topology}_walk": 1}),
+                lambda x: align_score(labels, x, label_length, logit_length),
+                lambda lab, x, ll_, gl_: finite_sum(align_score(lab, x, ll_, gl_)),
+                g_args, {f"{topology}_viterbi": 1, f"{topology}_viterbi_grad": 1}),
+            "walk": (
+                lambda x: walk_score(labels, x, label_length, logit_length, noise_t),
+                lambda lab, x, ll_, gl_, noise: finite_sum(walk_score(lab, x, ll_, gl_,
+                                                                      noise)),
+                g_args + (g_noise,), {f"{topology}_alpha32": 1, f"{topology}_walk": 1,
+                                      f"{topology}_walk_grad": 1}),
         }
-        for name, (fn, want) in grads.items():
+        grad_cases = {}
+        for name, (fn, total, m_args, want) in grads.items():
+            case = grad_cases[name] = {}
             g, got = launched(lambda: grad_of(fn))
             check(got == want, f"phase 14 {topology} gradient of {name} launched {got}, "
                   f"expected {want}")
-            with plain_extras():
+            with plain_extras():  # the gradient before the backward kernels: one call
+                t0 = time.perf_counter()
                 ref = grad_of(fn)
+                sync()
+                case["plain_loop_ms"] = (time.perf_counter() - t0) * 1e3
             check(same_nan_bits(torch, g, ref) and bool(g.abs().sum() > 0),
                   f"phase 14 {topology} gradient of {name}: not autograd through the loops "
                   f"(max abs err {max_err(g, ref)})")
+            case["eager_ms"], case["runs"] = host(lambda: grad_of(fn))
+            # vmap of grad over the groups: the folded gradient, each kernel once
+            mapped_g, got = launched(
+                lambda: torch.func.vmap(torch.func.grad(total, argnums=1))(*m_args))
+            check(got == want, f"phase 14 {topology} vmap(grad) of {name} launched {got}, "
+                  f"expected {want}")
+            alike([mapped_g.flatten(0, 1)], [g], f"{topology} vmap(grad) of {name}")
+            # captured: its warm-up and its capture each launch the kernels once
+            reset_launches()
+            graph, out = capture(torch, lambda: grad_of(fn), keep=True)
+            sync()
+            got = {k: n for k, n in read_launches("extras").items() if n}
+            launches.update(got)
+            check(got == {k: 2 * n for k, n in want.items()},
+                  f"phase 14 {topology} captured gradient of {name} launched {got} in its "
+                  f"warm-up and capture, expected twice {want}")
+            graph.replay()
+            sync()
+            alike([out], [g], f"{topology} replayed gradient of {name}")
+            case["nodes"] = graph_nodes(graph)
+            case["replay_ms"], _ = host(graph.replay)
+            del graph, out
+            # compiled with inductor: the forward's graph and AOTAutograd's
+            # backward, the gradient through the backward kernel
+            cf = compile_fn(torch, fn)
+            g0, t0 = unique_graphs(), time.perf_counter()
+            cg, got = launched(lambda: grad_of(cf))
+            case["compile_s"] = time.perf_counter() - t0
+            case["graphs"] = unique_graphs() - g0
+            check(got == want, f"phase 14 {topology} compiled gradient of {name} launched "
+                  f"{got}, expected {want}")
+            check(case["graphs"] == 1, f"phase 14 {topology} gradient of {name} compiled "
+                  f"into {case['graphs']} graphs")
+            alike([cg], [g], f"{topology} compiled gradient of {name}", TRANSFORM_RTOL)
+            case["compiled_ms"], _ = host(lambda: grad_of(cf))
 
         # ---- times ------------------------------------------------------------
         for name, fn in fns.items():
@@ -4882,13 +4998,16 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
             if name in ("forced_alignment", f"sample_s{NUM_SAMPLES}"):
                 with plain_extras():
                     cases[name]["plain_loop_ms"], _ = host(call)
+        cases["gradients"] = grad_cases
         report[topology] = cases
-        log(f"phase 14 {topology}: ok; the float32 forward, Viterbi and the walk bit for "
-            f"bit their plain versions (also at labels wider than shared memory holds), "
-            f"max abs err {json.dumps(errs)}; captured, compiled ({', '.join(fns)}) and "
-            f"mapped ({groups} groups of {len(labels) // groups}) calls bit for bit the "
-            f"eager call (compiled scores rtol {TRANSFORM_RTOL}); the gradients of the "
-            f"alignment's and the walk's scores bit for bit autograd through the loops; "
+        log(f"phase 14 {topology}: ok; the float32 forward, Viterbi, the walk and the "
+            f"backwards of Viterbi and the walk bit for bit their plain versions (also at "
+            f"labels wider than shared memory holds), max abs err {json.dumps(errs)}; "
+            f"captured, compiled ({', '.join(fns)}) and mapped ({groups} groups of "
+            f"{len(labels) // groups}) calls bit for bit the eager call (compiled scores "
+            f"rtol {TRANSFORM_RTOL}); the gradients of the alignment's and the walk's "
+            f"scores bit for bit autograd through the loops, through the backward "
+            f"kernels eager, mapped, captured and compiled (rtol {TRANSFORM_RTOL}); "
             f"graph nodes {json.dumps(nodes)}")
     log(f"phase 14 timing (ms: host clock, median of {TRANSFORM_RUNS}, of {LONG_RUNS} for a "
         f"call over a quarter second, its first call among them (runs: the eager call's); the replay's device ms by "

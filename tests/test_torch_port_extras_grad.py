@@ -1,12 +1,14 @@
 """Gradients through the scores of forced alignment, sampling and beam search.
 
-The scans behind them are custom ops whose kernels have no backward
-(``ctc_port::classic_viterbi``, ``simplified_viterbi``, ``classic_walk``,
-``simplified_walk``, ``beam_search``); ``cuda_lattice.plain_grad`` gives
-each the gradient of its plain version, the loop over T.  So
-``path_logproba``, the samples' path log-probabilities and the beam scores
-are differentiable as the loops were: the gradient is bit for bit autograd
-through the loops (the wrappers patched to them), ``torch.func.grad`` and
+The scans behind them are custom ops (``ctc_port::classic_viterbi``,
+``simplified_viterbi``, ``classic_walk``, ``simplified_walk``,
+``beam_search``).  Viterbi's and the walks' backwards are ops of their own
+(``ctc_port::classic_viterbi_grad`` and the others,
+``cuda_lattice.op_with_grad``); beam search's runs its loop again
+(``cuda_lattice.plain_grad``).  So ``path_logproba``, the samples' path
+log-probabilities and the beam scores are differentiable as the loops
+are: the gradient is bit for bit autograd through the loops (the wrappers
+patched to them), ``torch.func.grad`` and
 ``torch.compile(fullgraph=True, backend="aot_eager")`` give the same bits as
 ``.backward()``, and all equal ``jax.grad`` of the JAX package's function on
 the same numpy inputs (B=4, T=12, V=5 as the JAX tests, an infeasible row,

@@ -115,10 +115,16 @@ _SIGNATURES = {
         "ctc_simplified_viterbi": [_P] * 5 + [_I] * 4 + [_P] * 5,
         "ctc_classic_viterbi_smem_bytes": [_I],
         "ctc_simplified_viterbi_smem_bytes": [_I],
+        "ctc_classic_viterbi_grad": [_P] * 6 + [_I] * 4 + [_P] * 8,
+        "ctc_simplified_viterbi_grad": [_P] * 4 + [_I] * 4 + [_P] * 6,
+        "ctc_classic_viterbi_grad_smem_bytes": [_I],
+        "ctc_simplified_viterbi_grad_smem_bytes": [_I],
     },
     "walk": {
         "ctc_classic_walk": [_P] * 9 + [_I] * 4 + [_P] * 3,
         "ctc_simplified_walk": [_P] * 7 + [_I] * 4 + [_P] * 3,
+        "ctc_classic_walk_grad": [_P] * 8 + [_I] * 4 + [_P] * 6,
+        "ctc_simplified_walk_grad": [_P] * 6 + [_I] * 4 + [_P] * 4,
     },
 }
 
@@ -217,6 +223,10 @@ SMEM_BYTES = {
     "simplified_alpha32": lambda lp, _: 2 * _F * lp,
     "classic_viterbi": lambda lp, _: 2 * 2 * _F * lp,
     "simplified_viterbi": lambda lp, _: 2 * _F * lp,
+    # their gradients: the same buffers hold the forward's carry, then the
+    # adjoint
+    "classic_viterbi_grad": lambda lp, _: 2 * 2 * _F * lp,
+    "simplified_viterbi_grad": lambda lp, _: 2 * _F * lp,
 }
 
 # Shared memory one CTA may opt into on an H100 (227 KB): the limit that

@@ -363,19 +363,21 @@ def kernel_op(name: str, plain):
                                    device_types="cpu")
 
 
-def plain_grad(name: str, plain, wrt, outs):
-    """The custom op ``ctc_port::<name>`` with the gradient of ``plain``,
-    its plain version: a callable that calls the op where no gradient is
-    asked of it, and else an ``autograd.Function`` whose forward is the op
-    and whose backward runs ``plain`` again on the saved inputs and pulls
-    the output gradients back through it (``torch.func.vjp``).
+def op_with_grad(name: str, wrt, backward):
+    """The custom op ``ctc_port::<name>`` with a gradient: a callable that
+    calls the op where no gradient is asked of it, and else an
+    ``autograd.Function`` whose forward is the op and whose backward is
+    ``backward(args, grads)``, the gradients of the arguments at the
+    positions ``wrt`` (float tensors), in that order, from the saved
+    arguments and the outputs' gradients.
 
-    A kernel has no backward of its own, so this gives its op the gradient
-    that its loop has under autograd, bit for bit, on CPU and CUDA tensors
-    alike: ``.backward()``, ``torch.autograd.grad``, ``torch.func.grad``
-    and ``torch.compile`` (where AOTAutograd traces the backward's loop).
-    ``wrt`` holds the positions of the arguments that take a gradient
-    (float tensors), ``outs`` those of the outputs that give one."""
+    ``.backward()``, ``torch.autograd.grad``, ``torch.func.grad`` and
+    ``torch.compile`` (AOTAutograd traces the backward) take it; so does
+    ``vmap``, which maps the forward and the backward alike
+    (``generate_vmap_rule``), each op folding the groups into its batch
+    (:func:`register_fold`).  ``register_autograd`` on the op would refuse
+    ``torch.func.grad``, and an ``autograd.Function`` around the op breaks
+    Dynamo when nothing requires grad, hence the switch."""
     op = getattr(torch.ops.ctc_port, name).default
 
     class Grad(torch.autograd.Function):
@@ -394,17 +396,8 @@ def plain_grad(name: str, plain, wrt, outs):
         def backward(ctx, *grads):
             saved = iter(ctx.saved_tensors)
             args = [next(saved) if c is None else c for c in ctx.consts]
-
-            def pulled(*diff):
-                for i, d in zip(wrt, diff):
-                    args[i] = d
-                got = plain(*args)
-                return tuple(got[j] for j in outs)
-
-            _, vjp = torch.func.vjp(pulled, *(args[i] for i in wrt))
-            cot = vjp(tuple(grads[j] for j in outs))
             res = [None] * len(args)
-            for i, g in zip(wrt, cot):
+            for i, g in zip(wrt, backward(args, grads)):
                 res[i] = g
             return tuple(res)
 
@@ -414,6 +407,29 @@ def plain_grad(name: str, plain, wrt, outs):
         return op(*args)
 
     return call
+
+
+def plain_grad(name: str, plain, wrt, outs):
+    """:func:`op_with_grad` with the gradient of ``plain``, the op's plain
+    version: the backward runs ``plain`` again on the saved inputs and
+    pulls the gradients of the outputs at the positions ``outs`` back
+    through it (``torch.func.vjp``), bit for bit the loop's own gradient,
+    on CPU and CUDA tensors alike.  For an op whose kernel has no backward
+    kernel (beam search), and for a backward op itself, whose derivative
+    (a second derivative of the score) runs its out-of-place plain version
+    again; ``torch.func.grad`` tracks a backward's inputs, so the backward
+    op takes this route there too."""
+    def backward(args, grads):
+        def pulled(*diff):
+            for i, d in zip(wrt, diff):
+                args[i] = d
+            got = plain(*args)
+            return tuple(got[j] for j in outs)
+
+        _, vjp = torch.func.vjp(pulled, *(args[i] for i in wrt))
+        return vjp(tuple(grads[j] for j in outs))
+
+    return op_with_grad(name, wrt, backward)
 
 
 def register_fold(op, batch_axes, out_axes) -> None:
