@@ -160,7 +160,8 @@ then simplified):
    ``ENC_GRAD_SHARE`` of its largest entry); 2 simplified steps (B6 resid
    and B7 once each); a forward-only call of each topology (B1 final, B6
    final); ``tools/train_ctc_asr.py``'s demo for 150 steps at the JAX
-   demo's global batch of 64 (greedy token accuracy at least 90%) and the
+   demo's global batch of 64 (greedy token accuracy at least 90%; its
+   beam-4 rescoring at V=128 launching ``classic_beam_search`` once) and the
    scan gaps of its trained logits in both topologies; then the step's
    host-clock time, a profile of one step, the loss's forward and backward
    by CUDA events with its roofline (``utils/roofline.py``), and the
@@ -303,9 +304,13 @@ then simplified):
    instantiated in float32), Viterbi (``classic_viterbi``,
    ``simplified_viterbi``, csrc/viterbi.cu) and the sampling walk
    (``classic_walk``, ``simplified_walk``, csrc/walk.cu; 32 samples) bit
-   for bit their plain versions, the loops, on the same inputs, and the
-   public calls launching each once (forced alignment Viterbi, the sampler
-   the forward and the walk); (b) ``ctc_forced_alignment``,
+   for bit their plain versions, the loops, on the same inputs, and beam
+   search (``classic_beam_search``, ``simplified_beam_search``,
+   csrc/beam_search.cu; K=8, its pool in shared memory) bit for bit the
+   loop in tokens, lengths and scores, also at K=16, V=1024 (the pool in a
+   global scratch row), and the public calls launching each once (forced
+   alignment Viterbi, the sampler the forward and the walk, beam search
+   its kernel); (b) ``ctc_forced_alignment``,
    ``ctc_sample_alignments`` (its CUDA generator registered with the
    graph), ``ctc_greedy_decode`` and ``ctc_beam_search_decode`` (K=8)
    captured as CUDA graphs, replays bit for bit the eager calls (the
@@ -317,10 +322,11 @@ then simplified):
    (``generator=None``, ``fallback_random``) the eager call's from the same
    seed, twice; (d) ``torch.func.vmap`` over 4 groups of 64 rows of
    alignment, greedy, beam search and the walk on fixed noise, bit for bit
-   the unmapped call on the folded batch, each kernel once a mapped call;
-   (e) the gradients of the alignment's and the walk's scores: the backward
-   kernels (``classic_viterbi_grad``, ``simplified_viterbi_grad``,
-   ``classic_walk_grad``, ``simplified_walk_grad``) bit for bit their plain
+   the unmapped call on the folded batch, each kernel (beam search's too)
+   once a mapped call; (e) the gradients of the alignment's and the walk's
+   scores: the backward kernels (``classic_viterbi_grad``,
+   ``simplified_viterbi_grad``, ``classic_walk_grad``,
+   ``simplified_walk_grad``) bit for bit their plain
    versions under a random cotangent in (a), also on the wide labels; the
    eager gradient bit for bit autograd through the loops, launching the
    forward kernels and the backward kernel once; ``torch.func.vmap`` of
@@ -328,12 +334,12 @@ then simplified):
    gradient; the gradient captured as a CUDA graph, its replay bit for bit
    the eager one; compiled with inductor, one graph, rtol 1e-6.  Times:
    host ms (median of 5; of 3 for a call over a quarter second) of the
-   eager call, of the plain loops on the card (alignment and sampler), of
-   the replay and of the compiled call, and of the gradient eager, replayed
-   and compiled beside the plain loops' gradient (one call); a replay's
-   device ms (CUDA events) and the eager call's idle share by it; device ms
-   and idle share of one profile of the eager call (beam search's not
-   profiled);
+   eager call, of the plain loops on the card (alignment and sampler; beam
+   search's loop one call), of the replay and of the compiled call, and of
+   the gradient eager, replayed and compiled beside the plain loops'
+   gradient (one call); a replay's device ms (CUDA events) and the eager
+   call's idle share by it; device ms and idle share of one profile of the
+   eager call;
 15. the Hessian-vector product through its tangent scans (``drive_hvp``),
    for each topology at phase 8's headline batch along a N(0, 1) vector:
    (a) the tangent scans (``classic_alpha_jvp64``, ``classic_beta_jvp64``,
@@ -366,8 +372,8 @@ captured, compiled and mapped call of phase 15) and read after it: a
 kernel that its path never launched fails the run, and the ``kernels``
 line gives each kernel's launches summed over the paths (the float64
 scans' over phase 3's labels [8, 2000], phase 7 and phase 12's captures;
-phase 14's kernels over its paths; the tangent scans over phases 8 and
-15).  A graph's replays
+phase 14's kernels over its paths, ``classic_beam_search`` also over
+phase 9's demo; the tangent scans over phases 8 and 15).  A graph's replays
 launch nothing on the host: its kernels count once, at the capture.  A
 compiled function's kernels count at every call: their custom ops count
 where they launch, at run time.  The last lines are the ``kernels`` JSON,
@@ -1411,7 +1417,7 @@ def kernel_counters() -> dict:
     from tf_seq2seq_losses_tpu_torch.ops import cuda_lattice as cl
     from tf_seq2seq_losses_tpu_torch.ops import cuda_simplified as cs
     from tf_seq2seq_losses_tpu_torch.ops import log_lattice as ll
-    from tf_seq2seq_losses_tpu_torch.ops import align, sample
+    from tf_seq2seq_losses_tpu_torch.ops import align, decode, sample
     from tf_seq2seq_losses_tpu_torch.ops import pure_scan as ps
 
     return {
@@ -1451,6 +1457,8 @@ def kernel_counters() -> dict:
             "simplified_viterbi_grad": (align.simplified_viterbi_grad, None),
             "classic_walk_grad": (sample.classic_walk_grad, None),
             "simplified_walk_grad": (sample.simplified_walk_grad, None),
+            "classic_beam_search": (decode.classic_beam_search, None),
+            "simplified_beam_search": (decode.simplified_beam_search, None),
         },
         "hvp": {name: (getattr(ps, name), None) for name in HVP_KERNELS},
     }
@@ -2287,18 +2295,14 @@ def drive_extras(torch, dev, seed, sync, card) -> dict:
                 *h_args, 0, vec, topology),
         }
         for name, fn in calls.items():
-            # beam search takes over a second a call: median of 3
-            runs = LONG_RUNS if name.startswith("beam") else 5
-            times[f"{topology}_{name}"] = time_ms(torch, fn, runs=runs, burst=1,
-                                                  warmup=False)
+            times[f"{topology}_{name}"] = time_ms(torch, fn, runs=5, burst=1, warmup=False)
         if topology == "classic":
             # where the time of a PyTorch loop goes; the profiler's cost grows
             # with the launches it records, so only the smallest loop's
             log("phase 8 profile of classic forced_alignment: " + json.dumps(profile_step(
                 torch, dev, times["classic_forced_alignment"], calls["forced_alignment"],
                 steps=1)))
-    log(f"phase 8 timing (ms, CUDA events around single calls, median of 5, of "
-        f"{LONG_RUNS} for beam search; B={BATCH}, "
+    log(f"phase 8 timing (ms, CUDA events around single calls, median of 5; B={BATCH}, "
         f"T={MAX_T}, V={VOCAB}; " + card + "): " + json.dumps(times))
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, times=times)
@@ -2497,6 +2501,11 @@ def drive_encoder(torch, dev, seed, sync, card) -> dict:
         demo, got = launched(lambda: train_ctc_asr.train(
             DEMO_STEPS, DEMO_BATCH, "classic", device=dev,
             log=lambda msg: log("phase 9 demo " + msg)))
+        # its beam rescoring (one call at V=ENC_VOCAB) through the kernel
+        got["classic_beam_search"] = read_launches("extras")["classic_beam_search"]
+        check(got["classic_beam_search"] == 1, f"phase 9 demo beam search launched "
+              f"classic_beam_search {got['classic_beam_search']} times, expected 1")
+        launches["classic_beam_search"] += 1
         check(demo["greedy_accuracy"] >= train_ctc_asr.MIN_ACCURACY,
               f"phase 9 demo greedy accuracy {demo['greedy_accuracy']:.3f}")
         d_batch = demo["eval_batch"]
@@ -4488,6 +4497,11 @@ EXTRAS = {  # kernel: (topology, source, the JAX package's scan it stands for)
                           "tf_seq2seq_losses_tpu/ops/sample.py:65"),
     "simplified_walk_grad": ("simplified", "csrc/walk.cu",
                              "tf_seq2seq_losses_tpu/ops/sample.py:150"),
+    # prefix beam search, by merge_repeats: the JAX package's lax.scan
+    "classic_beam_search": ("classic", "csrc/beam_search.cu",
+                            "tf_seq2seq_losses_tpu/ops/decode.py:54"),
+    "simplified_beam_search": ("simplified", "csrc/beam_search.cu",
+                               "tf_seq2seq_losses_tpu/ops/decode.py:54"),
 }
 # labels wider than a CTA's shared memory holds the carries of (16 bytes a
 # lane classic, 8 simplified: 14528 / 29056 lanes on an H100): Viterbi
@@ -4505,6 +4519,63 @@ WALK_STEP_OPS = {"classic": 12, "simplified": 8}
 # the backwards: the forward again, then a cell's shares and adds (classic
 # six shares, three adds and the lane sum's add; simplified two, one, one)
 VITERBI_GRAD_CELL_OPS = {"classic": 10 + 10, "simplified": 4 + 4}
+# beam search: float32 operations a candidate and frame (the pool's adds,
+# the merge's max, subtract, exp and add of each of pb and pnb, the score's
+# logsumexp); the pool past shared memory that the unstaged route holds,
+# K=16 at V=1024 (16400 candidates: a common BPE vocabulary), on rows of
+# BEAM_WIDE_T frames
+BEAM_CANDIDATE_OPS = 14
+BEAM_WIDE = (16, 1024)
+BEAM_WIDE_T = 100
+
+
+def beam_args(torch, lp, logit_length, topology, beam_width, l_cap) -> tuple:
+    """``(kernel call, plain call, arguments)`` of the topology's beam search
+    kernel on ``lp`` [B, T, V]: the op's canonical arguments at blank 0."""
+    from tf_seq2seq_losses_tpu_torch.ops import decode
+
+    merge = topology == "classic"
+    kern = decode.classic_beam_search if merge else decode.simplified_beam_search
+    args = (lp.float().contiguous(), logit_length.long().contiguous(),
+            torch.zeros((), dtype=torch.int64, device=lp.device), beam_width, l_cap)
+    return kern, lambda *a: decode.beam_search_plain(*a, merge), args
+
+
+def beam_edge_cases(torch, dev, gen) -> dict:
+    """``{case: (lp [B, T, V], logit_length [B], beam width, Lcap)}``: small
+    inputs on which phase 14 holds beam search's kernel to the loop.  Rows
+    of T=10 frames, 7, 0 and 9; K=64 leaves dead slots (on every row of
+    ``few``: T=4, V=3); Lcap 0, and 3 below the decode length (slot 2
+    written again); uniform log-probabilities (finite scores tied), -inf
+    entries (a token rows 0 and 3 never emit, a frame of row 1 that only
+    the blank may take), a blank-only vocabulary."""
+    lengths = torch.tensor([10, 7, 0, 9], device=dev)
+    lp = torch.log_softmax(2 * torch.randn((4, 10, 5), generator=gen, device=dev), 2)
+    neg = lp.clone()
+    neg[[0, 3], :, 2] = -math.inf
+    neg[1, 2, 1:] = -math.inf
+    few = torch.log_softmax(2 * torch.randn((4, 4, 3), generator=gen, device=dev), 2)
+    return {
+        "K=64": (lp, lengths, 64, 10), "K=1, Lcap=3": (lp, lengths, 1, 3),
+        "Lcap=0": (lp, lengths, 4, 0), "K=64, Lcap=3": (lp, lengths, 64, 3),
+        "uniform": (torch.full_like(lp, -math.log(5)), lengths, 4, 10),
+        "-inf": (neg, lengths, 8, 10),
+        "V=1": (torch.zeros((4, 10, 1), device=dev), lengths, 4, 10),
+        "few": (few, torch.tensor([4, 3, 0, 2], device=dev), 64, 4),
+    }
+
+
+def beam_bound(args) -> tuple:
+    """``(bytes, float32 operations)`` of beam search on ``args``: the
+    log-probabilities read once, the lengths and the blank, the tokens,
+    lengths and scores written once; the operations of every candidate of
+    every frame (the kernel runs every frame, as the loop does: a frame past
+    a row's length moves pnb into pb).  The kernel's back-pointer scratch
+    is its own design, not the function's work, and is not counted."""
+    lp, _, _, k, l_cap = args
+    batch, num_t, vocab = lp.shape
+    nbytes = 4 * batch * num_t * vocab + 8 * batch + 8 + 4 * batch * k * (l_cap + 2)
+    return nbytes, BEAM_CANDIDATE_OPS * batch * num_t * k * (1 + vocab)
 
 
 def extras_args(torch, ctx, topology, gen, num_s=NUM_SAMPLES) -> dict:
@@ -4660,8 +4731,10 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     headline (phase 8's batch, rows 0 and 1 infeasible): (a) the float32
     forward, Viterbi and the walk (``NUM_SAMPLES`` samples) bit for bit
     their plain versions on the same inputs, also on labels wider than
-    shared memory holds (``EXTRAS_WIDE``: the unstaged route), and the
-    public calls launching each once; (b) forced alignment, the sampler (its CUDA
+    shared memory holds (``EXTRAS_WIDE``: the unstaged route), beam
+    search's kernel bit for bit the loop at ``BEAM_WIDTH`` and at
+    ``BEAM_WIDE`` (the unstaged route), and the public calls launching
+    each once; (b) forced alignment, the sampler (its CUDA
     generator registered with the graph), greedy and beam search
     (``BEAM_WIDTH``) captured as CUDA graphs, each replay bit for bit the
     eager call (the sampler's from a generator seeded alike, two seeds),
@@ -4684,16 +4757,16 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     rtol ``TRANSFORM_RTOL``.
     Times: host ms (median of ``TRANSFORM_RUNS``, of ``LONG_RUNS`` for a call
     over a quarter second) of the eager call through the kernels, through
-    the plain loops, the replay and the compiled call; the device ms of a
-    replay (CUDA events, median of 3: the call's kernels without the
-    host's gaps) and the eager call's idle share by it; device ms and idle
-    share from one profile of the eager call (not of beam search: the
-    profiler's cost grows with its ~25000 launches a call).  The
+    the plain loops (beam search's: the loop once, in (a)), the replay and
+    the compiled call; the device ms of a replay (CUDA events, median of
+    3: the call's kernels without the host's gaps) and the eager call's
+    idle share by it; device ms and idle share from one profile of the
+    eager call; beam search's kernel alone (CUDA events) at both pools.  The
     launch counts are set to 0 before each path (the public calls of (a),
     each capture, each compiled call, each mapped call, each gradient) and
     read after it.  The gradients' times: host ms (median as above) eager,
     replayed and compiled, and of the plain loops' gradient.
-    Returns the launches and the ten kernels' entries of the ``kernels``
+    Returns the launches and the twelve kernels' entries of the ``kernels``
     line (``launches`` left to the caller)."""
     import os
     import tempfile
@@ -4713,7 +4786,7 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     args = (labels, lp, label_length, logit_length)
     ctx = core.make_context(*args, 0)
     gen = torch.Generator(device=dev)
-    launches, kernels, report, eager = Counter(), [], {}, {}
+    launches, kernels, report, eager, beam = Counter(), [], {}, {}, {}
 
     def launched(fn):
         reset_launches()
@@ -4810,14 +4883,65 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
             alike(got, want, f"{name} against its plain version at {width + 1} lanes")
             errs[f"{name} [3, {width}]"] = max(max_err(a, b) for a, b in zip(got, want))
         del w_ctx, w_logits
+        # beam search's kernel against the loop: the headline's pool in
+        # shared memory, BEAM_WIDE's in the global scratch row
+        name = f"{topology}_beam_search"
+        kern, plain, b_args = beam_args(torch, lp, logit_length, topology, BEAM_WIDTH,
+                                        MAX_T)
+        check(_build.fits(("beam_search",), VOCAB, BEAM_WIDTH, dev),
+              f"phase 14 {name}: the headline's pool does not fit in shared memory")
+        got, want = kern(*b_args), []
+        # the loop's one call, the oracle, timed by CUDA events: over a second
+        beam_plain_ms = time_ms(torch, lambda: want.extend(plain(*b_args)), runs=1, burst=1,
+                                warmup=False)
+        alike(got, want, f"{name} against its plain version")
+        errs[name] = max(max_err(a, b) for a, b in zip(got, want))
+        beam[topology] = {}
+        b_ms, b_by = bound(*beam_bound(b_args))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tf_seq2seq_losses_tpu_torch/" + EXTRAS[name][1],
+            "replaces": EXTRAS[name][2], "launches": None, "max_abs_err": errs[name],
+            "ms": time_ms(torch, lambda: kern(*b_args)), "plain_ms": beam_plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        wide_k, wide_v = BEAM_WIDE
+        check(not _build.fits(("beam_search",), wide_v, wide_k, dev),
+              f"phase 14 {name}: a pool of K={wide_k} at V={wide_v} fits in shared memory")
+        w_lp = logit_to_logproba(torch.randn((4, BEAM_WIDE_T, wide_v), generator=gen,
+                                             device=dev), 2)
+        w_len = torch.tensor([BEAM_WIDE_T, BEAM_WIDE_T // 2, 0, BEAM_WIDE_T - 7],
+                             device=dev)
+        _, _, w_args = beam_args(torch, w_lp, w_len, topology, wide_k, BEAM_WIDE_T)
+        got, want = kern(*w_args), plain(*w_args)
+        alike(got, want, f"{name} against its plain version at K={wide_k}, V={wide_v}")
+        errs[f"{name} [K={wide_k}, V={wide_v}]"] = max(max_err(a, b)
+                                                       for a, b in zip(got, want))
+        wide = f"K={wide_k}, V={wide_v}, B=4, T={BEAM_WIDE_T}"
+        beam[topology][f"ms at {wide}"] = time_ms(torch, lambda: kern(*w_args), runs=3,
+                                                  burst=1)
+        beam[topology][f"bound ms at {wide}"] = bound(*beam_bound(w_args))
+        del w_lp, got, want
+        for case, (e_lp, e_len, e_k, e_cap) in beam_edge_cases(torch, dev, gen).items():
+            _, _, e_args = beam_args(torch, e_lp, e_len, topology, e_k, e_cap)
+            alike(kern(*e_args), plain(*e_args),
+                  f"{name} against its plain version ({case})")
+        # a blank outside [0, V): the loop raises, the kernel gives NaN scores
+        for bad in (-1, e_args[0].shape[2]):
+            bad_blank = torch.full((), bad, dtype=torch.int64, device=dev)
+            bad_scores = kern(e_args[0], e_args[1], bad_blank, *e_args[3:])[2]
+            check(bool(torch.isnan(bad_scores).all()),
+                  f"phase 14 {name}: blank {bad} outside [0, V) gives scores that are not NaN")
         fns = calls(topology, gen)
         want_launches = {"forced_alignment": {f"{topology}_viterbi": 1},
                          f"sample_s{NUM_SAMPLES}": {f"{topology}_alpha32": 1,
-                                                    f"{topology}_walk": 1}}
+                                                    f"{topology}_walk": 1},
+                         f"beam_search_k{BEAM_WIDTH}": {name: 1}}
         for name, want in want_launches.items():
             _, got = launched(seeded(fns[name]))
             check(got == want, f"phase 14 {topology} {name} launched {got}, expected {want}")
         cases = {name: dict() for name in fns}
+        cases[f"beam_search_k{BEAM_WIDTH}"]["plain_loop_ms"] = beam_plain_ms
 
         # ---- (b) capture -----------------------------------------------------
         nodes = {}
@@ -4894,7 +5018,7 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
                               (g_args[1], g_args[3]), (lp, logit_length), {}),
             f"beam_search_k{BEAM_WIDTH}": (
                 lambda x, n: ctc.ctc_beam_search_decode(x, n, 0, BEAM_WIDTH, topology),
-                (g_args[1], g_args[3]), (lp, logit_length), {}),
+                (g_args[1], g_args[3]), (lp, logit_length), {f"{topology}_beam_search": 1}),
             "walk": (walk_fn, g_args + (g_noise,), args + (noise_t,),
                      {f"{topology}_alpha32": 1, f"{topology}_walk": 1}),
         }
@@ -4990,19 +5114,20 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
             cases[name]["eager_ms"], cases[name]["runs"] = host(call)
             cases[name]["eager_idle_share_by_replay"] = max(
                 0.0, 1.0 - cases[name]["replay_device_ms"] / cases[name]["eager_ms"])
-            if not name.startswith("beam"):  # the profiler's cost grows with the
-                # launches it records: not beam search's ~25000 a call
-                prof = profile_step(torch, dev, cases[name]["eager_ms"], call, steps=1)
-                cases[name]["eager_device_ms"] = prof.get("device_ms_per_step")
-                cases[name]["eager_idle_share"] = prof.get("device_idle_share")
+            prof = profile_step(torch, dev, cases[name]["eager_ms"], call, steps=1)
+            cases[name]["eager_device_ms"] = prof.get("device_ms_per_step")
+            cases[name]["eager_idle_share"] = prof.get("device_idle_share")
             if name in ("forced_alignment", f"sample_s{NUM_SAMPLES}"):
                 with plain_extras():
                     cases[name]["plain_loop_ms"], _ = host(call)
         cases["gradients"] = grad_cases
+        cases["beam_search_kernel"] = beam[topology]
         report[topology] = cases
         log(f"phase 14 {topology}: ok; the float32 forward, Viterbi, the walk and the "
             f"backwards of Viterbi and the walk bit for bit their plain versions (also at "
-            f"labels wider than shared memory holds), max abs err {json.dumps(errs)}; "
+            f"labels wider than shared memory holds), beam search's kernel bit for bit "
+            f"the loop (K={BEAM_WIDTH}, V={VOCAB}; K={BEAM_WIDE[0]}, V={BEAM_WIDE[1]}), "
+            f"max abs err {json.dumps(errs)}; "
             f"captured, compiled ({', '.join(fns)}) and mapped ({groups} groups of "
             f"{len(labels) // groups}) calls bit for bit the eager call (compiled scores "
             f"rtol {TRANSFORM_RTOL}); the gradients of the alignment's and the walk's "
@@ -5012,7 +5137,7 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     log(f"phase 14 timing (ms: host clock, median of {TRANSFORM_RUNS}, of {LONG_RUNS} for a "
         f"call over a quarter second, its first call among them (runs: the eager call's); the replay's device ms by "
         f"CUDA events (median of 3), the eager call's idle share by it; device ms and "
-        f"idle share from one profile of the eager call but beam search's; compile "
+        f"idle share from one profile of the eager call; compile "
         f"seconds cold; B={BATCH}, "
         f"T={MAX_T}, V={VOCAB}, S={NUM_SAMPLES}, K={BEAM_WIDTH}; " + card + "): "
         + json.dumps(report))

@@ -31,7 +31,7 @@ _SOURCES = (
     "classic_fwd", "classic_bwd", "classic_bwd_half", "classic_bwd_rf", "classic_log",
     "simplified_fwd", "simplified_bwd", "simplified_bwd_rf", "simplified_log",
     "fused_epilogue", "graph_cond", "classic_pure64", "simplified_pure64", "viterbi",
-    "walk",
+    "walk", "beam_search",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -126,6 +126,10 @@ _SIGNATURES = {
         "ctc_classic_walk_grad": [_P] * 8 + [_I] * 4 + [_P] * 6,
         "ctc_simplified_walk_grad": [_P] * 6 + [_I] * 4 + [_P] * 4,
     },
+    "beam_search": {
+        "ctc_beam_search": [_P] * 3 + [_I] * 7 + [_P] * 6,
+        "ctc_beam_search_smem_bytes": [_I, _I],
+    },
 }
 
 _F = _N = 4  # bytes of a float and of an int
@@ -190,9 +194,25 @@ def _fwd_bytes(min_ring: int):
     return smem_bytes
 
 
+def _beam_search_bytes(vocab: int, k: int) -> int:
+    """Beam search's row workspace (``BeamLayout``): the pool padded to a
+    power of two P of at least 64, its sort keys and selection keys (8
+    bytes each), the maxima's exchange (2 x 32 x 8), the sort's pool
+    indices (4 bytes); each of the ``n = K (1 + V)`` candidates' pb and
+    pnb; two states of seven words a beam and the selected positions (a
+    word a beam); rounded up to 16 bytes."""
+    n = k * (1 + vocab)
+    pad = 64
+    while pad < n:
+        pad *= 2
+    raw = 8 * 2 * pad + 8 * 64 + 4 * pad + 4 * 2 * n + 4 * 2 * 7 * k + 4 * k
+    return (raw + 15) // 16 * 16
+
+
 # Python mirrors of the libraries' ``ctc_<name>_smem_bytes(lpad, x)``: x is
 # the window for the block-float kernels, the vocabulary size for the fused
-# epilogue, and unused by the log-space kernels, the pure scans and Viterbi.
+# epilogue, and unused by the log-space kernels, the pure scans and Viterbi;
+# beam search's are the vocabulary size and the beam width.
 SMEM_BYTES = {
     "classic_fwd": _fwd_bytes(10),
     "classic_bwd": _classic_bwd_bytes(False),
@@ -227,6 +247,9 @@ SMEM_BYTES = {
     # adjoint
     "classic_viterbi_grad": lambda lp, _: 2 * 2 * _F * lp,
     "simplified_viterbi_grad": lambda lp, _: 2 * _F * lp,
+    # beam search's pool, sort and beams (staged: in shared memory; else a
+    # global scratch row of as many bytes)
+    "beam_search": _beam_search_bytes,
 }
 
 # Shared memory one CTA may opt into on an H100 (227 KB): the limit that

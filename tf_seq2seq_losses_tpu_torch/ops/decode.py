@@ -25,6 +25,15 @@ The merges and their order of ties are the JAX package's:
 The pool's tokens are not materialised: each selected candidate's tokens
 are its parent beam's with at most one position written, the write the
 JAX package makes in the pool.
+
+That loop, :func:`beam_search_plain`, is the CPU implementation of the op
+``ctc_port::beam_search``; on CUDA tensors the op launches
+csrc/beam_search.cu once a call, which writes the loop's bits by another
+route (one CTA a row over all T frames: the pool sorted by ``(h1, h2,
+pool index)``, each run merged at its head, the top K by a composite key,
+back-pointers in place of token copies, a backtrack at the end).
+:func:`beam_search_schedule` models those steps in plain PyTorch for the
+tests.
 """
 
 from __future__ import annotations
@@ -33,7 +42,13 @@ from typing import Tuple
 
 import torch
 
-from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import plain_grad, register_fold
+from tf_seq2seq_losses_tpu_torch.ops import _build
+from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
+    check_tensor,
+    kernel_op,
+    plain_grad,
+    register_fold,
+)
 from tf_seq2seq_losses_tpu_torch.utils.numerics import (
     logsumexp as _lse,
     unsorted_segment_logsumexp,
@@ -152,9 +167,12 @@ def _lexsort(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
     return torch.gather(by_h2, 1, by_h1)
 
 
-def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
-    """One frame of the batched prefix beam search."""
-    tokens, length, last, h1, h2, pb, pnb = state
+def _pool(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
+    """A frame's pool of ``n = K (1 + V)`` candidates, in pool order:
+    candidate ``k (1 + V)`` is beam k's stay, ``k (1 + V) + 1 + v`` its
+    extension by token v.  Returns ``(length, last, h1, h2)`` [B, n] and
+    their ``(pb, pnb)`` [B, n, 2], before the merge."""
+    _, length, last, h1, h2, pb, pnb = state
     num_b, k = pb.shape
     vocab = lp_t.shape[1]
     n_cand = k * (1 + vocab)
@@ -194,12 +212,23 @@ def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
     def pool(stay, ext):  # [B, K], [B, K, V] -> [B, K * (1 + V)]
         return torch.cat([stay[..., None], ext], dim=2).reshape(num_b, n_cand)
 
-    c_length = pool(length, ext_length)
-    c_last = pool(last, ext_last)
-    c_h1, c_h2 = pool(h1, ext_h1), pool(h2, ext_h2)
-    # (pb, pnb) of each candidate, merged together below
+    # (pb, pnb) of each candidate, merged together after
     c_p = torch.stack([pool(stay_pb, torch.full_like(ext_pnb, NEG_INF)),
                        pool(stay_pnb, ext_pnb)], dim=2)  # [B, n_cand, 2]
+    return (pool(length, ext_length), pool(last, ext_last), pool(h1, ext_h1),
+            pool(h2, ext_h2), c_p)
+
+
+def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
+    """One frame of the batched prefix beam search."""
+    tokens, length = state[0], state[1]
+    num_b, k = length.shape
+    vocab = lp_t.shape[1]
+    n_cand = k * (1 + vocab)
+    device = lp_t.device
+    neg_inf = torch.full((), NEG_INF, device=device)
+    c_length, c_last, c_h1, c_h2, c_p = _pool(state, lp_t, live, blank, l_cap,
+                                              merge_repeats)
 
     # exact merge of duplicate prefixes: sort on the hash pair, combine
     # runs, keep one representative per run
@@ -259,13 +288,16 @@ def beam_search(
     is pruned and every score is the sequence's exact total CTC
     probability.
 
-    The op ``ctc_port::beam_search`` over the canonical inputs: its CPU and
-    CUDA implementations are both :func:`beam_search_plain`, the batched
-    loop over T, which reads nothing back to the host (a CUDA graph
-    captures it).  The op keeps the loop out of ``torch.compile``'s trace
-    and folds ``vmap``'s groups into the batch: rows are independent.  The
-    scores are differentiable: the op's backward runs the loop again
-    (``cuda_lattice.plain_grad``)."""
+    The op ``ctc_port::beam_search`` over the canonical inputs: CUDA
+    tensors launch csrc/beam_search.cu once (the kernels
+    ``classic_beam_search`` and ``simplified_beam_search`` by
+    ``merge_repeats``), which writes :func:`beam_search_plain`'s bits; CPU
+    tensors run that loop over T.  Neither reads anything back to the host
+    (a CUDA graph captures the launch).  A blank outside ``[0, V)`` raises
+    in the loop, and gives NaN scores from the kernel.  The op keeps the search out of
+    ``torch.compile``'s trace and folds ``vmap``'s groups into the batch:
+    rows are independent.  The scores are differentiable: the op's
+    backward runs the loop again (``cuda_lattice.plain_grad``)."""
     device = logprobas.device
     return _beam_search(
         logprobas.to(torch.float32).contiguous(),
@@ -274,12 +306,31 @@ def beam_search(
         beam_width, max_length, merge_repeats)
 
 
+def classic_beam_search(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                        blank: torch.Tensor, beam_width: int, max_length: int):
+    """The kernel ``classic_beam_search``: the op with ``merge_repeats``, over
+    float32 ``logprobas`` [B, T, V], int64 ``logit_length`` [B] and
+    ``blank`` [].  ``.launches`` counts its launches."""
+    return _beam_search(logprobas, logit_length, blank, beam_width, max_length, True)
+
+
+def simplified_beam_search(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                           blank: torch.Tensor, beam_width: int, max_length: int):
+    """The kernel ``simplified_beam_search``: the op without ``merge_repeats``."""
+    return _beam_search(logprobas, logit_length, blank, beam_width, max_length, False)
+
+
+classic_beam_search.launches = 0
+simplified_beam_search.launches = 0
+
+
 def beam_search_plain(logprobas: torch.Tensor, logit_length: torch.Tensor,
                       blank: torch.Tensor, beam_width: int, max_length: int,
                       merge_repeats: bool) -> Tuple[torch.Tensor, torch.Tensor,
                                                     torch.Tensor]:
     """The batched loop over T of :func:`beam_search` (float32 ``logprobas``
-    [B, T, V], int64 ``logit_length`` [B] and ``blank`` [])."""
+    [B, T, V], int64 ``logit_length`` [B] and ``blank`` []), the plain
+    version of csrc/beam_search.cu."""
     num_b, num_t, _ = logprobas.shape
     device = logprobas.device
     state = _initial_beams(num_b, beam_width, max_length, device)
@@ -296,8 +347,7 @@ def beam_search_plain(logprobas: torch.Tensor, logit_length: torch.Tensor,
             torch.gather(score, 1, order))
 
 
-_beam_search_op = torch.library.custom_op("ctc_port::beam_search", beam_search_plain,
-                                          mutates_args=())
+_beam_search_op = kernel_op("beam_search", beam_search_plain)
 register_fold(_beam_search_op, (0, 0, None, None, None, None), (0, 0, 0))
 _beam_search = plain_grad("beam_search", beam_search_plain, (0,), (2,))
 
@@ -309,3 +359,161 @@ def _beam_search_fake(logprobas, logit_length, blank, beam_width, max_length,
     return (logprobas.new_empty((num_b, beam_width, max_length), dtype=torch.int32),
             logprobas.new_empty((num_b, beam_width), dtype=torch.int32),
             logprobas.new_empty((num_b, beam_width)))
+
+
+@_beam_search_op.register_kernel("cuda")
+def _beam_search_launch(logprobas, logit_length, blank, beam_width, max_length,
+                        merge_repeats):
+    """Launch csrc/beam_search.cu: its workspace in shared memory where the
+    card gives a CTA ``_build.SMEM_BYTES["beam_search"]`` (the staged route),
+    else in a global scratch row of that many bytes a row; the back-pointers
+    [B, T, K] (pool index, slot) in a global scratch."""
+    num_b, num_t, vocab = logprobas.shape
+    dev = logprobas.device
+    check_tensor(logprobas, (num_b, num_t, vocab), torch.float32, "logprobas", dev)
+    check_tensor(logit_length, (num_b,), torch.int64, "logit_length", dev)
+    check_tensor(blank, (), torch.int64, "blank", dev)
+    staged = _build.fits(("beam_search",), vocab, beam_width, dev)
+    row = _build.SMEM_BYTES["beam_search"](vocab, beam_width)
+    gws = torch.empty(0 if staged else num_b * row, dtype=torch.uint8, device=dev)
+    pointers = torch.empty((num_b, num_t, beam_width, 2), dtype=torch.int32, device=dev)
+    tokens = torch.empty((num_b, beam_width, max_length), dtype=torch.int32, device=dev)
+    lengths = torch.empty((num_b, beam_width), dtype=torch.int32, device=dev)
+    scores = torch.empty((num_b, beam_width), device=dev)
+    kernel = classic_beam_search if merge_repeats else simplified_beam_search
+    _build.launch("beam_search", "ctc_beam_search", kernel.__name__, dev, logprobas,
+                  logit_length, blank, num_b, num_t, vocab, beam_width, max_length,
+                  int(merge_repeats), int(staged), gws, pointers, tokens, lengths, scores)
+    if num_b:
+        kernel.launches += 1
+    return tokens, lengths, scores
+
+
+# ---------------------------------------------------------------------------
+# a plain model of the kernel's steps, for the tests
+# ---------------------------------------------------------------------------
+
+
+def selection_key(score: torch.Tensor) -> torch.Tensor:
+    """csrc/beam_search.cu's selection key of the candidates ``score`` [B, n]
+    at sorted positions 0..n-1, as int64 in the same order (the kernel's
+    uint64 less 2^63): the score mapped to an unsigned order (a NaN above
+    +inf, -0 as +0), then the position reversed.  The largest key is the
+    highest score, the lowest position among equal scores:
+    ``torch.sort(score, descending=True, stable=True)``'s order."""
+    pos = torch.arange(score.shape[1], device=score.device)
+    bits = (score + 0.0).view(torch.int32).to(torch.int64) & _MASK32
+    u = torch.where(bits >= _BIT31, bits ^ _MASK32, bits | _BIT31)
+    u = torch.where(torch.isnan(score), _MASK32, u)
+    return (u - _BIT31) * (1 << 32) + (_MASK32 - pos)
+
+
+def _merge_runs(sorted_p: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The kernel's merge over the pool's ``(pb, pnb)`` in sorted order,
+    ``sorted_p`` [B, n, 2], and its runs' heads ``head`` [B, n]: at each head the run's segment logsumexp of each component as
+    ``unsorted_segment_logsumexp`` computes it, its members summed from the
+    head on, in pool-index order; -inf elsewhere.  ``exp`` and ``log`` run
+    on tensors laid out as the loop's (by sorted position, then by run), so
+    that each element takes the same CPU code path as there."""
+    num_b, n_cand, _ = sorted_p.shape
+    run = torch.cumsum(head.to(torch.int64), dim=1) - 1
+    by_run = run[..., None].expand(-1, -1, 2)
+    m = torch.full_like(sorted_p, NEG_INF).scatter_reduce(1, by_run, sorted_p, "amax")
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(sorted_p - torch.gather(m_safe, 1, by_run))
+    pos = torch.arange(n_cand, device=sorted_p.device)
+    sums = torch.zeros_like(sorted_p)
+    for j in range(n_cand):  # the j-th member of each run, from its head
+        q = torch.clamp(pos + j, max=n_cand - 1).expand(num_b, -1)
+        member = head & (pos + j < n_cand) & (torch.gather(run, 1, q) == run)
+        if not bool(member.any()):
+            break
+        sums = sums + torch.where(member[..., None],
+                                  torch.gather(e, 1, q[..., None].expand(-1, -1, 2)), 0.0)
+    # the heads' sums by run, as the loop's segments
+    slot = torch.where(head, run, n_cand)[..., None].expand(-1, -1, 2)
+    seg = torch.zeros((num_b, n_cand + 1, 2), dtype=sorted_p.dtype, device=sorted_p.device)
+    seg = seg.scatter_add(1, slot, torch.where(head[..., None], sums, 0.0))
+    seg = seg[:, :n_cand].contiguous()
+    empty = seg == 0.0
+    safe_log = torch.log(torch.where(empty, torch.ones_like(seg), seg))
+    merged = m_safe + torch.where(empty, torch.full_like(safe_log, NEG_INF), safe_log)
+    return torch.where(head[..., None], torch.gather(merged, 1, by_run), NEG_INF)
+
+
+def _ranks(score: torch.Tensor) -> torch.Tensor:
+    """Each beam's place in a stable argsort of ``-score`` [B, K], as the
+    kernel counts it: the beams before it (a number before a NaN), and the
+    tied ones of lower index."""
+    x = -score
+    y, z = x[:, :, None], x[:, None, :]  # [b, q, j]: beam q against beam j
+    before = (y < z) | (~torch.isnan(y) & torch.isnan(z))
+    after = (z < y) | (~torch.isnan(z) & torch.isnan(y))
+    iota = torch.arange(score.shape[1], device=score.device)
+    lower = iota[:, None] < iota[None, :]
+    return (before | (lower & ~after)).sum(dim=1)
+
+
+def _backtrack(pointers, num_b: int, k: int, l_cap: int, width: int,
+               device) -> torch.Tensor:
+    """The tokens [B, K, Lcap] of the last frame's beams from the
+    back-pointers ``(pool index, slot written or -1)`` [B, K] of each frame:
+    going back from the last frame, the first write met for a slot stands;
+    a slot never written is 0."""
+    out = torch.full((num_b, k, l_cap), -1, dtype=torch.int64, device=device)
+    beam = torch.arange(k, device=device).expand(num_b, k)
+    for sel, slot in (reversed(pointers) if l_cap else ()):
+        i = torch.gather(sel, 1, beam)
+        at = torch.gather(slot, 1, beam)
+        where = torch.clamp(at, min=0)[..., None]
+        held = torch.gather(out, 2, where)[..., 0]
+        write = (at >= 0) & (held < 0)
+        out.scatter_(2, where, torch.where(write, i % width - 1, held)[..., None])
+        beam = i // width
+    return torch.where(out < 0, 0, out)
+
+
+def beam_search_schedule(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                         blank: torch.Tensor, beam_width: int, max_length: int,
+                         merge_repeats: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                                       torch.Tensor]:
+    """A plain model of csrc/beam_search.cu's steps, for the tests, on the
+    arguments of :func:`beam_search_plain`, whose outputs it writes bit for
+    bit.  A frame pools the candidates as the loop does (:func:`_pool`),
+    sorts them by the unique key ``(h1, h2, pool index)``, lets each run's
+    head merge its members (:func:`_merge_runs`), takes the K largest
+    selection keys (:func:`selection_key`) and keeps each beam's state and
+    a back-pointer (pool index, slot written or -1), no tokens.  At the end
+    the beams are ranked (:func:`_ranks`) and their tokens backtracked
+    (:func:`_backtrack`)."""
+    num_b, num_t, vocab = logprobas.shape
+    k, l_cap, width = beam_width, max_length, 1 + vocab
+    device = logprobas.device
+    state = _initial_beams(num_b, k, 0, device)
+    pointers = []
+    for t in range(num_t):
+        c_length, c_last, c_h1, c_h2, c_p = _pool(state, logprobas[:, t], t < logit_length,
+                                                  blank, l_cap, merge_repeats)
+        # (h1, h2) as one int64 in their unsigned order; a stable sort puts
+        # the pool index on ties
+        s_key, order = torch.sort((c_h1 - _BIT31) * (1 << 32) + c_h2, dim=1, stable=True)
+        head = torch.ones_like(order, dtype=torch.bool)
+        head[:, 1:] = s_key[:, 1:] != s_key[:, :-1]
+        merged = _merge_runs(torch.gather(c_p, 1, order[..., None].expand(-1, -1, 2)),
+                             head)
+        m_pb, m_pnb = merged[..., 0], merged[..., 1]
+        top = torch.topk(selection_key(_lse(m_pb, m_pnb)), k, dim=1).indices
+        sel = torch.gather(order, 1, top)
+        slot = torch.clamp(torch.gather(state[1], 1, sel // width), max=l_cap - 1)
+        pointers.append((sel, torch.where((sel % width > 0) & (l_cap > 0), slot, -1)))
+        state = (None, torch.gather(c_length, 1, sel), torch.gather(c_last, 1, sel),
+                 torch.gather(c_h1, 1, sel), torch.gather(c_h2, 1, sel),
+                 torch.gather(m_pb, 1, top), torch.gather(m_pnb, 1, top))
+    _, length, _, _, _, pb, pnb = state
+    score = _lse(pb, pnb)
+    rank = _ranks(score)
+    tokens = _backtrack(pointers, num_b, k, l_cap, width, device)
+    at = rank[..., None].expand(-1, -1, l_cap)
+    return (torch.empty_like(tokens).scatter_(1, at, tokens).to(torch.int32),
+            torch.empty_like(length).scatter_(1, rank, length).to(torch.int32),
+            torch.empty_like(score).scatter_(1, rank, score))
