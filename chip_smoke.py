@@ -323,13 +323,17 @@ then simplified):
    seed, twice; (d) ``torch.func.vmap`` over 4 groups of 64 rows of
    alignment, greedy, beam search and the walk on fixed noise, bit for bit
    the unmapped call on the folded batch, each kernel (beam search's too)
-   once a mapped call; (e) the gradients of the alignment's and the walk's
-   scores: the backward kernels (``classic_viterbi_grad``,
+   once a mapped call; (e) the gradients of the alignment's, the walk's
+   and beam search's scores: the backward kernels (``classic_viterbi_grad``,
    ``simplified_viterbi_grad``, ``classic_walk_grad``,
-   ``simplified_walk_grad``) bit for bit their plain
-   versions under a random cotangent in (a), also on the wide labels; the
-   eager gradient bit for bit autograd through the loops, launching the
-   forward kernels and the backward kernel once; ``torch.func.vmap`` of
+   ``simplified_walk_grad``, ``classic_beam_search_grad``,
+   ``simplified_beam_search_grad``) bit for bit their plain
+   versions under a random cotangent in (a), also on the wide labels
+   (beam search's at the headline, at K=16, V=1024 and on the small edge
+   cases); the eager gradient bit for bit autograd through the loops
+   (beam search's within rtol 1e-6: the loop's own adds on the card are
+   atomics and CUDA reductions), launching the forward kernels and the
+   backward kernel once; ``torch.func.vmap`` of
    ``torch.func.grad`` over 4 groups of 64 bit for bit the folded
    gradient; the gradient captured as a CUDA graph, its replay bit for bit
    the eager one; compiled with inductor, one graph, rtol 1e-6.  Times:
@@ -1459,6 +1463,8 @@ def kernel_counters() -> dict:
             "simplified_walk_grad": (sample.simplified_walk_grad, None),
             "classic_beam_search": (decode.classic_beam_search, None),
             "simplified_beam_search": (decode.simplified_beam_search, None),
+            "classic_beam_search_grad": (decode.classic_beam_search_grad, None),
+            "simplified_beam_search_grad": (decode.simplified_beam_search_grad, None),
         },
         "hvp": {name: (getattr(ps, name), None) for name in HVP_KERNELS},
     }
@@ -4502,6 +4508,11 @@ EXTRAS = {  # kernel: (topology, source, the JAX package's scan it stands for)
                             "tf_seq2seq_losses_tpu/ops/decode.py:54"),
     "simplified_beam_search": ("simplified", "csrc/beam_search.cu",
                                "tf_seq2seq_losses_tpu/ops/decode.py:54"),
+    # its scores' backward: what jax.grad of that scan computes
+    "classic_beam_search_grad": ("classic", "csrc/beam_search.cu",
+                                 "tf_seq2seq_losses_tpu/ops/decode.py:54"),
+    "simplified_beam_search_grad": ("simplified", "csrc/beam_search.cu",
+                                    "tf_seq2seq_losses_tpu/ops/decode.py:54"),
 }
 # labels wider than a CTA's shared memory holds the carries of (16 bytes a
 # lane classic, 8 simplified: 14528 / 29056 lanes on an H100): Viterbi
@@ -4525,6 +4536,9 @@ VITERBI_GRAD_CELL_OPS = {"classic": 10 + 10, "simplified": 4 + 4}
 # K=16 at V=1024 (16400 candidates: a common BPE vocabulary), on rows of
 # BEAM_WIDE_T frames
 BEAM_CANDIDATE_OPS = 14
+# its backward's reverse frame: a candidate's adjoint masked, then added
+# into its token's sum over the beams and its beam's sum over the tokens
+BEAM_GRAD_CANDIDATE_OPS = 3
 BEAM_WIDE = (16, 1024)
 BEAM_WIDE_T = 100
 
@@ -4576,6 +4590,36 @@ def beam_bound(args) -> tuple:
     batch, num_t, vocab = lp.shape
     nbytes = 4 * batch * num_t * vocab + 8 * batch + 8 + 4 * batch * k * (l_cap + 2)
     return nbytes, BEAM_CANDIDATE_OPS * batch * num_t * k * (1 + vocab)
+
+
+def beam_grad_args(torch, b_args, topology, gen) -> tuple:
+    """``(kernel call, plain call, arguments)`` of the topology's beam-search
+    backward on beam search's arguments ``b_args`` (:func:`beam_args`) under
+    a N(0, 1) cotangent from ``gen`` on every beam."""
+    from tf_seq2seq_losses_tpu_torch.ops import decode
+
+    merge = topology == "classic"
+    kern = decode.classic_beam_search_grad if merge else decode.simplified_beam_search_grad
+    lp, k = b_args[0], b_args[3]
+    cot = torch.randn((lp.shape[0], k), generator=gen, device=lp.device)
+    return (kern, lambda *a: decode.beam_search_grad_plain(*a[:5], merge, a[5]),
+            b_args + (cot,))
+
+
+def beam_grad_bound(args) -> tuple:
+    """``(bytes, float32 operations)`` of beam search's backward on ``args``
+    (:func:`beam_grad_args`): the log-probabilities read once, the lengths,
+    the blank and the cotangent, ``d_logprobas`` written once; the
+    operations of every frame run twice, the forward's
+    (``BEAM_CANDIDATE_OPS`` a candidate: the gradient needs the forward's
+    selection) and the reverse frame's (``BEAM_GRAD_CANDIDATE_OPS``).  The
+    kernel's record of each frame is its own design, not the function's
+    work, and is not counted."""
+    lp, _, _, k, _, _ = args
+    batch, num_t, vocab = lp.shape
+    nbytes = 2 * 4 * batch * num_t * vocab + 8 * batch + 8 + 4 * batch * k
+    ops = (BEAM_CANDIDATE_OPS + BEAM_GRAD_CANDIDATE_OPS) * batch * num_t * k * (1 + vocab)
+    return nbytes, ops
 
 
 def extras_args(torch, ctx, topology, gen, num_s=NUM_SAMPLES) -> dict:
@@ -4688,8 +4732,9 @@ def same_nan_bits(torch, a, b) -> bool:
 @contextlib.contextmanager
 def plain_extras():
     """The extras' public calls through their plain versions on the card:
-    the wrappers of the six kernels patched to the loops."""
-    from tf_seq2seq_losses_tpu_torch.ops import align, classic, pure_scan, sample
+    the wrappers of the six kernels patched to the loops, and beam search's
+    op to its loop, which autograd differentiates directly."""
+    from tf_seq2seq_losses_tpu_torch.ops import align, classic, decode, pure_scan, sample
     from tf_seq2seq_losses_tpu_torch.ops import simplified
 
     patches = ((align, "classic_viterbi_scan", align.classic_viterbi_plain),
@@ -4697,7 +4742,8 @@ def plain_extras():
                (sample, "classic_walk_scan", sample.classic_walk_plain),
                (sample, "simplified_walk_scan", sample.simplified_walk_plain),
                (pure_scan, "classic_alpha32", classic.alpha_scan),
-               (pure_scan, "simplified_alpha32", simplified.alpha_scan))
+               (pure_scan, "simplified_alpha32", simplified.alpha_scan),
+               (decode, "_beam_search", decode.beam_search_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -4733,7 +4779,9 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     their plain versions on the same inputs, also on labels wider than
     shared memory holds (``EXTRAS_WIDE``: the unstaged route), beam
     search's kernel bit for bit the loop at ``BEAM_WIDTH`` and at
-    ``BEAM_WIDE`` (the unstaged route), and the public calls launching
+    ``BEAM_WIDE`` (the unstaged route), its backward kernel bit for bit its
+    plain version there and on ``beam_edge_cases`` under a N(0, 1)
+    cotangent, and the public calls launching
     each once; (b) forced alignment, the sampler (its CUDA
     generator registered with the graph), greedy and beam search
     (``BEAM_WIDTH``) captured as CUDA graphs, each replay bit for bit the
@@ -4746,10 +4794,12 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     ``torch.func.vmap`` over ``TRANSFORM_GROUPS`` groups of 64 rows of
     alignment, greedy, beam search and the walk on fixed noise, bit for bit
     the unmapped call on the folded batch, each kernel once a mapped call;
-    (e) the gradients of forced alignment's and the walk's scores through
-    the backward kernels (``*_viterbi_grad``, ``*_walk_grad``, held bit for
-    bit to their plain versions under a random cotangent in (a)): eager, bit
-    for bit autograd through the loops, each forward kernel and the
+    (e) the gradients of forced alignment's, the walk's and beam search's
+    scores through the backward kernels (``*_viterbi_grad``, ``*_walk_grad``,
+    ``*_beam_search_grad``, held bit for bit to their plain versions under a
+    random cotangent in (a)): eager, bit for bit autograd through the loops
+    (beam search's rtol ``TRANSFORM_RTOL``: the loop's adds on the card are
+    atomics and CUDA reductions), each forward kernel and the
     backward kernel once; ``torch.func.vmap(torch.func.grad(...))`` over
     the groups bit for bit the folded gradient, each kernel once; captured
     (warm-up and capture each launch them once), the replay bit for bit the
@@ -4761,12 +4811,13 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
     the compiled call; the device ms of a replay (CUDA events, median of
     3: the call's kernels without the host's gaps) and the eager call's
     idle share by it; device ms and idle share from one profile of the
-    eager call; beam search's kernel alone (CUDA events) at both pools.  The
+    eager call; beam search's kernel and its backward alone (CUDA events)
+    at both pools.  The
     launch counts are set to 0 before each path (the public calls of (a),
     each capture, each compiled call, each mapped call, each gradient) and
     read after it.  The gradients' times: host ms (median as above) eager,
     replayed and compiled, and of the plain loops' gradient.
-    Returns the launches and the twelve kernels' entries of the ``kernels``
+    Returns the launches and the fourteen kernels' entries of the ``kernels``
     line (``launches`` left to the caller)."""
     import os
     import tempfile
@@ -4905,6 +4956,25 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
             "ms": time_ms(torch, lambda: kern(*b_args)), "plain_ms": beam_plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+        # its backward against its plain version under a N(0, 1) cotangent
+        g_name = f"{topology}_beam_search_grad"
+        g_kern, g_plain, bg_args = beam_grad_args(torch, b_args, topology, gen)
+        got, want = g_kern(*bg_args), []
+        # the plain version's one call, timed by CUDA events: seconds
+        grad_plain_ms = time_ms(torch, lambda: want.append(g_plain(*bg_args)), runs=1,
+                                burst=1, warmup=False)
+        alike([got], want, f"{g_name} against its plain version")
+        errs[g_name] = max_err(got, want[0])
+        check(bool(got.abs().sum() > 0), f"phase 14 {g_name}: a zero gradient")
+        gb_ms, gb_by = bound(*beam_grad_bound(bg_args))
+        kernels.append({
+            "name": g_name, "route": "cuda",
+            "source": "tf_seq2seq_losses_tpu_torch/" + EXTRAS[g_name][1],
+            "replaces": EXTRAS[g_name][2], "launches": None, "max_abs_err": errs[g_name],
+            "ms": time_ms(torch, lambda: g_kern(*bg_args)), "plain_ms": grad_plain_ms,
+            "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": None,
+        })
+        del got, want
         wide_k, wide_v = BEAM_WIDE
         check(not _build.fits(("beam_search",), wide_v, wide_k, dev),
               f"phase 14 {name}: a pool of K={wide_k} at V={wide_v} fits in shared memory")
@@ -4921,17 +4991,31 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
         beam[topology][f"ms at {wide}"] = time_ms(torch, lambda: kern(*w_args), runs=3,
                                                   burst=1)
         beam[topology][f"bound ms at {wide}"] = bound(*beam_bound(w_args))
-        del w_lp, got, want
+        _, _, wg_args = beam_grad_args(torch, w_args, topology, gen)
+        got, want = g_kern(*wg_args), g_plain(*wg_args)
+        alike([got], [want], f"{g_name} against its plain version at K={wide_k}, V={wide_v}")
+        errs[f"{g_name} [K={wide_k}, V={wide_v}]"] = max_err(got, want)
+        beam[topology][f"grad ms at {wide}"] = time_ms(torch, lambda: g_kern(*wg_args),
+                                                       runs=3, burst=1)
+        beam[topology][f"grad bound ms at {wide}"] = bound(*beam_grad_bound(wg_args))
+        del w_lp, got, want, wg_args
         for case, (e_lp, e_len, e_k, e_cap) in beam_edge_cases(torch, dev, gen).items():
             _, _, e_args = beam_args(torch, e_lp, e_len, topology, e_k, e_cap)
             alike(kern(*e_args), plain(*e_args),
                   f"{name} against its plain version ({case})")
+            _, _, eg_args = beam_grad_args(torch, e_args, topology, gen)
+            alike([g_kern(*eg_args)], [g_plain(*eg_args)],
+                  f"{g_name} against its plain version ({case})")
         # a blank outside [0, V): the loop raises, the kernel gives NaN scores
         for bad in (-1, e_args[0].shape[2]):
             bad_blank = torch.full((), bad, dtype=torch.int64, device=dev)
             bad_scores = kern(e_args[0], e_args[1], bad_blank, *e_args[3:])[2]
             check(bool(torch.isnan(bad_scores).all()),
                   f"phase 14 {name}: blank {bad} outside [0, V) gives scores that are not NaN")
+            bad_grad = g_kern(eg_args[0], eg_args[1], bad_blank, *eg_args[3:])
+            check(bool(torch.isnan(bad_grad).all()),
+                  f"phase 14 {g_name}: blank {bad} outside [0, V) gives a gradient that is "
+                  "not NaN")
         fns = calls(topology, gen)
         want_launches = {"forced_alignment": {f"{topology}_viterbi": 1},
                          f"sample_s{NUM_SAMPLES}": {f"{topology}_alpha32": 1,
@@ -5046,6 +5130,9 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
         def walk_score(lab, x, ll_, gl_, noise):
             return walk_fn(lab, x, ll_, gl_, noise)[1]
 
+        def beam_score(x, gl_):
+            return ctc.ctc_beam_search_decode(x, gl_, 0, BEAM_WIDTH, topology)[2]
+
         grads = {
             "forced_alignment": (
                 lambda x: align_score(labels, x, label_length, logit_length),
@@ -5057,6 +5144,10 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
                                                                       noise)),
                 g_args + (g_noise,), {f"{topology}_alpha32": 1, f"{topology}_walk": 1,
                                       f"{topology}_walk_grad": 1}),
+            "beam": (
+                lambda x: beam_score(x, logit_length),
+                lambda lab, x, ll_, gl_: finite_sum(beam_score(x, gl_)),
+                g_args, {f"{topology}_beam_search": 1, f"{topology}_beam_search_grad": 1}),
         }
         grad_cases = {}
         for name, (fn, total, m_args, want) in grads.items():
@@ -5069,9 +5160,16 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
                 ref = grad_of(fn)
                 sync()
                 case["plain_loop_ms"] = (time.perf_counter() - t0) * 1e3
-            check(same_nan_bits(torch, g, ref) and bool(g.abs().sum() > 0),
+            # beam search's loop adds on the card by atomics (scatter_add,
+            # last_lp's adjoints) and CUDA's reductions (sum_to), in another
+            # order than the kernel's, which is the CPU's
+            loop_rtol = TRANSFORM_RTOL if name == "beam" else 0.0
+            check((same_nan_bits(torch, g, ref) or (bool(loop_rtol)
+                                                    and close(g, ref, loop_rtol, 0.0)))
+                  and bool(g.abs().sum() > 0),
                   f"phase 14 {topology} gradient of {name}: not autograd through the loops "
                   f"(max abs err {max_err(g, ref)})")
+            case["loop_max_abs_err"] = max_err(g, ref)
             case["eager_ms"], case["runs"] = host(lambda: grad_of(fn))
             # vmap of grad over the groups: the folded gradient, each kernel once
             mapped_g, got = launched(
@@ -5126,12 +5224,14 @@ def drive_transforms(torch, dev, seed, sync, card) -> dict:
         log(f"phase 14 {topology}: ok; the float32 forward, Viterbi, the walk and the "
             f"backwards of Viterbi and the walk bit for bit their plain versions (also at "
             f"labels wider than shared memory holds), beam search's kernel bit for bit "
-            f"the loop (K={BEAM_WIDTH}, V={VOCAB}; K={BEAM_WIDE[0]}, V={BEAM_WIDE[1]}), "
+            f"the loop and its backward kernel its plain version (K={BEAM_WIDTH}, "
+            f"V={VOCAB}; K={BEAM_WIDE[0]}, V={BEAM_WIDE[1]}; the edge cases), "
             f"max abs err {json.dumps(errs)}; "
             f"captured, compiled ({', '.join(fns)}) and mapped ({groups} groups of "
             f"{len(labels) // groups}) calls bit for bit the eager call (compiled scores "
             f"rtol {TRANSFORM_RTOL}); the gradients of the alignment's and the walk's "
-            f"scores bit for bit autograd through the loops, through the backward "
+            f"scores bit for bit autograd through the loops, beam search's within rtol "
+            f"{TRANSFORM_RTOL} of it, through the backward "
             f"kernels eager, mapped, captured and compiled (rtol {TRANSFORM_RTOL}); "
             f"graph nodes {json.dumps(nodes)}")
     log(f"phase 14 timing (ms: host clock, median of {TRANSFORM_RUNS}, of {LONG_RUNS} for a "

@@ -145,6 +145,7 @@ def test_op_is_a_kernel_op_with_a_cuda_kernel():
     assert torch._C._dispatch_has_kernel_for_dispatch_key("ctc_port::beam_search", "CUDA")
     assert "beam_search" in _build._SOURCES
     assert set(_build._SIGNATURES["beam_search"]) == {"ctc_beam_search",
+                                                      "ctc_beam_search_grad",
                                                       "ctc_beam_search_smem_bytes"}
 
 

@@ -2,10 +2,10 @@
 
 The scans behind them are custom ops (``ctc_port::classic_viterbi``,
 ``simplified_viterbi``, ``classic_walk``, ``simplified_walk``,
-``beam_search``).  Viterbi's and the walks' backwards are ops of their own
-(``ctc_port::classic_viterbi_grad`` and the others,
-``cuda_lattice.op_with_grad``); beam search's runs its loop again
-(``cuda_lattice.plain_grad``).  So ``path_logproba``, the samples' path
+``beam_search``).  Their backwards are ops of their own
+(``ctc_port::classic_viterbi_grad`` and the others, beam search's
+``ctc_port::beam_search_grad``; ``cuda_lattice.op_with_grad``).  So
+``path_logproba``, the samples' path
 log-probabilities and the beam scores are differentiable as the loops
 are: the gradient is bit for bit autograd through the loops (the wrappers
 patched to them), ``torch.func.grad`` and
@@ -28,7 +28,7 @@ import torch
 import tf_seq2seq_losses_tpu as jctc
 from tests.test_torch_port_align import extras_inputs, torch_args
 from tf_seq2seq_losses_tpu_torch import api
-from tf_seq2seq_losses_tpu_torch.ops import align, core, sample
+from tf_seq2seq_losses_tpu_torch.ops import align, core, decode, sample
 
 TOPOLOGIES = ["classic", "simplified"]
 ATOL = 1e-6
@@ -96,12 +96,13 @@ def grad_of(fn, lp):
 
 @contextlib.contextmanager
 def plain_scans():
-    """The wrappers of Viterbi and the walks patched to their loops, which
-    autograd differentiates directly."""
+    """The wrappers of Viterbi and the walks, and beam search's op, patched
+    to their loops, which autograd differentiates directly."""
     patches = ((align, "classic_viterbi_scan", align.classic_viterbi_plain),
                (align, "simplified_viterbi_scan", align.simplified_viterbi_plain),
                (sample, "classic_walk_scan", sample.classic_walk_plain),
-               (sample, "simplified_walk_scan", sample.simplified_walk_plain))
+               (sample, "simplified_walk_scan", sample.simplified_walk_plain),
+               (decode, "_beam_search", decode.beam_search_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -125,7 +126,7 @@ def test_score_gradient_matches_jax(kind, topology, blank):
 
 
 @pytest.mark.parametrize("topology", TOPOLOGIES)
-@pytest.mark.parametrize("kind", ["alignment", "samples"])
+@pytest.mark.parametrize("kind", ["alignment", "samples", "beam"])
 def test_score_gradient_is_the_loops(kind, topology):
     """Bit for bit autograd through the plain loops."""
     np_args, fn, _ = setup(kind, topology, 0)
@@ -145,7 +146,7 @@ def test_score_gradient_under_func_grad(kind, topology):
 
 
 @pytest.mark.parametrize("topology", TOPOLOGIES)
-@pytest.mark.parametrize("kind", ["alignment", "samples"])
+@pytest.mark.parametrize("kind", ["alignment", "samples", "beam"])
 def test_score_gradient_under_compile(kind, topology):
     np_args, fn, _ = setup(kind, topology, 0)
     lp = torch.tensor(np_args[1])

@@ -128,6 +128,7 @@ _SIGNATURES = {
     },
     "beam_search": {
         "ctc_beam_search": [_P] * 3 + [_I] * 7 + [_P] * 6,
+        "ctc_beam_search_grad": [_P] * 4 + [_I] * 7 + [_P] * 4,
         "ctc_beam_search_smem_bytes": [_I, _I],
     },
 }

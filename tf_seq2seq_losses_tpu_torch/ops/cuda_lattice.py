@@ -414,9 +414,8 @@ def plain_grad(name: str, plain, wrt, outs):
     version: the backward runs ``plain`` again on the saved inputs and
     pulls the gradients of the outputs at the positions ``outs`` back
     through it (``torch.func.vjp``), bit for bit the loop's own gradient,
-    on CPU and CUDA tensors alike.  For an op whose kernel has no backward
-    kernel (beam search), and for a backward op itself, whose derivative
-    (a second derivative of the score) runs its out-of-place plain version
+    on CPU and CUDA tensors alike.  For a backward op, whose derivative (a
+    second derivative of the score) runs its out-of-place plain version
     again; ``torch.func.grad`` tracks a backward's inputs, so the backward
     op takes this route there too."""
     def backward(args, grads):
@@ -424,6 +423,7 @@ def plain_grad(name: str, plain, wrt, outs):
             for i, d in zip(wrt, diff):
                 args[i] = d
             got = plain(*args)
+            got = (got,) if isinstance(got, torch.Tensor) else got
             return tuple(got[j] for j in outs)
 
         _, vjp = torch.func.vjp(pulled, *(args[i] for i in wrt))

@@ -34,11 +34,21 @@ pool index)``, each run merged at its head, the top K by a composite key,
 back-pointers in place of token copies, a backtrack at the end).
 :func:`beam_search_schedule` models those steps in plain PyTorch for the
 tests.
+
+The scores are differentiable in the log-probabilities.  Their backward is
+the op ``ctc_port::beam_search_grad`` (``cuda_lattice.op_with_grad``): on
+CUDA tensors csrc/beam_search.cu's backward kernel, once a call (the
+frames again, keeping a record of each, then the reverse chain); on CPU
+tensors :func:`beam_search_grad_plain`, the loop's frames again and then
+autograd's reverse chain through them written out, bit for bit autograd
+through :func:`beam_search_plain`, its sums in the orders of torch's CPU
+sum kernel (:func:`cascade_sum`, :func:`ilp_sum`, :func:`lane_sum`,
+:func:`beam_sum`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -46,6 +56,7 @@ from tf_seq2seq_losses_tpu_torch.ops import _build
 from tf_seq2seq_losses_tpu_torch.ops.cuda_lattice import (
     check_tensor,
     kernel_op,
+    op_with_grad,
     plain_grad,
     register_fold,
 )
@@ -219,17 +230,25 @@ def _pool(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
             pool(h2, ext_h2), c_p)
 
 
-def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
-    """One frame of the batched prefix beam search."""
-    tokens, length = state[0], state[1]
-    num_b, k = length.shape
-    vocab = lp_t.shape[1]
-    n_cand = k * (1 + vocab)
-    device = lp_t.device
-    neg_inf = torch.full((), NEG_INF, device=device)
-    c_length, c_last, c_h1, c_h2, c_p = _pool(state, lp_t, live, blank, l_cap,
-                                              merge_repeats)
+class _Merge(NamedTuple):
+    """A frame's merge and top K: the pool's sorted order [B, n], the runs'
+    heads [B, n], each sorted position's run in one segment space for the
+    batch [B * n], the pool's (pb, pnb) in sorted order [B * n, 2], the
+    selected sorted positions [B, K] and their merged (pb, pnb) [B, K]."""
+    order: torch.Tensor
+    new_run: torch.Tensor
+    flat_seg: torch.Tensor
+    sorted_p: torch.Tensor
+    top: torch.Tensor
+    pb: torch.Tensor
+    pnb: torch.Tensor
 
+
+def _merge(c_h1, c_h2, c_p, k: int) -> _Merge:
+    """The exact merge of a frame's pool (:func:`_pool`) and its top ``k``."""
+    num_b, n_cand = c_h1.shape
+    device = c_h1.device
+    neg_inf = torch.full((), NEG_INF, device=device)
     # exact merge of duplicate prefixes: sort on the hash pair, combine
     # runs, keep one representative per run
     order = _lexsort(c_h1, c_h2)
@@ -249,7 +268,20 @@ def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
     # prune to the top K by total probability, lower position first on ties
     score = _lse(rep_pb, rep_pnb)
     top = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :k]
-    sel = torch.gather(order, 1, top)
+    return _Merge(order, new_run, flat_seg, sorted_p, top, torch.gather(rep_pb, 1, top),
+                  torch.gather(rep_pnb, 1, top))
+
+
+def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
+    """One frame of the batched prefix beam search."""
+    tokens, length = state[0], state[1]
+    k = length.shape[1]
+    vocab = lp_t.shape[1]
+    device = lp_t.device
+    c_length, c_last, c_h1, c_h2, c_p = _pool(state, lp_t, live, blank, l_cap,
+                                              merge_repeats)
+    m = _merge(c_h1, c_h2, c_p, k)
+    sel = torch.gather(m.order, 1, m.top)
 
     # the selected candidates' tokens: the parent beam's, and for an
     # extension its token written at min(length, Lcap - 1)
@@ -267,8 +299,8 @@ def _frame(state, lp_t, live, blank, l_cap: int, merge_repeats: bool):
         torch.gather(c_last, 1, sel),
         torch.gather(c_h1, 1, sel),
         torch.gather(c_h2, 1, sel),
-        torch.gather(rep_pb, 1, top),
-        torch.gather(rep_pnb, 1, top),
+        m.pb,
+        m.pnb,
     )
 
 
@@ -296,8 +328,11 @@ def beam_search(
     (a CUDA graph captures the launch).  A blank outside ``[0, V)`` raises
     in the loop, and gives NaN scores from the kernel.  The op keeps the search out of
     ``torch.compile``'s trace and folds ``vmap``'s groups into the batch:
-    rows are independent.  The scores are differentiable: the op's
-    backward runs the loop again (``cuda_lattice.plain_grad``)."""
+    rows are independent.  The scores are differentiable: where a gradient
+    is asked, the op's backward is :func:`beam_search_grad` (the kernels
+    ``classic_beam_search_grad`` and ``simplified_beam_search_grad`` on
+    CUDA tensors, :func:`beam_search_grad_plain` on CPU tensors); else the
+    op runs alone."""
     device = logprobas.device
     return _beam_search(
         logprobas.to(torch.float32).contiguous(),
@@ -349,7 +384,6 @@ def beam_search_plain(logprobas: torch.Tensor, logit_length: torch.Tensor,
 
 _beam_search_op = kernel_op("beam_search", beam_search_plain)
 register_fold(_beam_search_op, (0, 0, None, None, None, None), (0, 0, 0))
-_beam_search = plain_grad("beam_search", beam_search_plain, (0,), (2,))
 
 
 @_beam_search_op.register_fake
@@ -387,6 +421,315 @@ def _beam_search_launch(logprobas, logit_length, blank, beam_width, max_length,
     if num_b:
         kernel.launches += 1
     return tokens, lengths, scores
+
+
+# ---------------------------------------------------------------------------
+# the scores' gradient
+# ---------------------------------------------------------------------------
+#
+# Autograd through the loop sums over the beams and over the vocabulary
+# where the loop broadcasts (``sum_to``).  torch's CPU sum kernel (ATen's
+# SumKernel.cpp) adds in an order fixed by the layout: ``cascade_sum`` (its
+# multi_row_sum) from zero in blocks of 16, ``ilp_sum`` (its row_sum) in four
+# partial sums, and over a contiguous axis at least a vector wide those
+# partials as vectors of SUM_LANES floats, then the lanes in order.  The
+# plain backward adds in those orders on every device, and the kernel too.
+
+# float32 lanes of the vectors of torch's CPU sum kernel: 8, on an AVX512
+# host too (tests/test_torch_port_beam_grad.py holds these orders to
+# torch.sum)
+SUM_LANES = 8
+
+
+def _ceil_log2(n: int) -> int:
+    return 1 if n <= 2 else (n - 1).bit_length()
+
+
+def cascade_sum(parts):
+    """``parts`` (a non-empty list of tensors of one shape) summed as ATen's
+    ``multi_row_sum`` sums rows: from zero into the first of four levels,
+    each full block of ``2^p`` (p at least 4) added into the next level up,
+    the levels added into the first at the end."""
+    power = max(4, _ceil_log2(len(parts)) // 4)
+    step, mask = 1 << power, (1 << power) - 1
+    zero = torch.zeros_like(parts[0])
+    acc = [zero] * 4
+    i = 0
+    while i + step <= len(parts):
+        for part in parts[i:i + step]:
+            acc[0] = acc[0] + part
+        i += step
+        for j in range(1, 4):
+            acc[j], acc[j - 1] = acc[j] + acc[j - 1], zero
+            if i & (mask << (j * power)):
+                break
+    for part in parts[i:]:
+        acc[0] = acc[0] + part
+    for j in range(1, 4):
+        acc[0] = acc[0] + acc[j]
+    return acc[0]
+
+
+def ilp_sum(parts):
+    """``parts`` summed as ATen's ``row_sum`` sums a row: part ``4i + p`` of
+    the whole groups of four into partial p (:func:`cascade_sum`), the rest
+    into partial 0, then ``((p0 + p1) + p2) + p3``."""
+    whole = len(parts) // 4
+    zero = torch.zeros_like(parts[0])
+    sums = [cascade_sum(parts[p:4 * whole:4]) if whole else zero for p in range(4)]
+    for part in parts[4 * whole:]:
+        sums[0] = sums[0] + part
+    return ((sums[0] + sums[1]) + sums[2]) + sums[3]
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over its last axis, contiguous, as torch's CPU sum does:
+    below SUM_LANES elements :func:`ilp_sum`; else the whole vectors of
+    SUM_LANES by :func:`ilp_sum`, and from zero the tail's elements, then
+    the vector's lanes, in order."""
+    n, lanes = x.shape[-1], SUM_LANES
+    if n < lanes:
+        return ilp_sum(list(x.unbind(-1)))
+    vecs = n // lanes
+    acc = ilp_sum(list(x[..., :vecs * lanes].unflatten(-1, (vecs, lanes)).unbind(-2)))
+    out = torch.zeros_like(x[..., 0])
+    for q in range(vecs * lanes, n):
+        out = out + x[..., q]
+    for lane in acc.unbind(-1):
+        out = out + lane
+    return out
+
+
+def beam_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K, V] (contiguous) summed over its K axis, as torch's CPU
+    sum does: columns in whole groups of four vectors of SUM_LANES (of four
+    columns below SUM_LANES columns) by :func:`cascade_sum`, the other
+    columns by :func:`ilp_sum`; a single column is a contiguous axis
+    (:func:`lane_sum`)."""
+    vocab = x.shape[-1]
+    if vocab == 1:
+        return lane_sum(x[..., 0])[..., None]
+    rows = list(x.unbind(-2))
+    group = 4 * SUM_LANES if vocab >= SUM_LANES else 4
+    cut = vocab // group * group
+    parts = []
+    if cut:
+        parts.append(cascade_sum([r[..., :cut] for r in rows]))
+    if cut < vocab:
+        parts.append(ilp_sum([r[..., cut:] for r in rows]))
+    return torch.cat(parts, dim=-1)
+
+
+def logsumexp_grad(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, x_first=0.0,
+                   y_first=0.0):
+    """The gradients of ``utils/numerics.py:logsumexp(x, y)`` under ``g``,
+    as autograd takes them, operation for operation: none through a tie of
+    infinities; log1p's ``g / (e + 1)``, exp's product by ``e``; the max's
+    share ``g - d``, the min's ``d``; ``torch.maximum`` and ``minimum`` halve
+    a share at a tie.  Each argument's adjoint adds in the order autograd's
+    engine runs the nodes: an adjoint from a later use of the argument
+    (``x_first``, ``y_first``) first, then the min's share, then the max's
+    (``numerics.logsumexp`` passes ``x`` and ``y`` themselves to both when
+    their shapes agree)."""
+    special = (torch.isneginf(x) & torch.isneginf(y)) | (torch.isposinf(x)
+                                                        & torch.isposinf(y))
+    g_out = torch.where(special, 0.0, g)
+    mx, mn = torch.maximum(x, y), torch.minimum(x, y)
+    e = torch.exp(torch.where(special, 0.0, mn) - torch.where(special, 0.0, mx))
+    g_diff = g_out / (e + 1) * e
+    g_mx = torch.where(special, 0.0, g_out) + torch.where(special, 0.0, -g_diff)
+    g_mn = torch.where(special, 0.0, g_diff)
+    tie = x == y
+    half_mx, half_mn = torch.where(tie, g_mx / 2, g_mx), torch.where(tie, g_mn / 2, g_mn)
+    return ((x_first + half_mn.masked_fill(x > y, 0.0)) + half_mx.masked_fill(x < y, 0.0),
+            (y_first + half_mn.masked_fill(x < y, 0.0)) + half_mx.masked_fill(x > y, 0.0))
+
+
+def beam_search_grad(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                     blank: torch.Tensor, beam_width: int, max_length: int,
+                     merge_repeats: bool, grad: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`beam_search`'s scores in ``logprobas`` under
+    the cotangent ``grad`` [B, K]: ``d_logprobas`` [B, T, V] float32, the
+    gradient autograd takes through :func:`beam_search_plain`.
+
+    The op ``ctc_port::beam_search_grad`` over the forward op's arguments
+    and ``grad``: CUDA tensors launch csrc/beam_search.cu once (the kernels
+    ``classic_beam_search_grad`` and ``simplified_beam_search_grad``); CPU
+    tensors run :func:`beam_search_grad_plain`.  Its own derivative (a
+    second derivative of the score) runs the plain version again."""
+    return _beam_search_grad(logprobas, logit_length, blank, beam_width, max_length,
+                             merge_repeats, grad.to(torch.float32).contiguous())
+
+
+def _merge_grad(m: _Merge, g_pb: torch.Tensor, g_pnb: torch.Tensor) -> torch.Tensor:
+    """The adjoints of a frame's pool ``(pb, pnb)`` [B, n, 2] in pool order
+    from those of its selected beams [B, K]: each head's share of its run's
+    segment logsumexp (utils/numerics.py:unsorted_segment_logsumexp), ``g /
+    sum * exp(x - max)`` for every member, none from a run left empty, the
+    max held constant; non-heads pass nothing on."""
+    num_b, n_cand = m.order.shape
+    ids = m.flat_seg
+    g_rep = torch.stack([torch.zeros_like(m.order, dtype=g_pb.dtype).scatter_add(1, m.top, g)
+                         for g in (g_pb, g_pnb)], dim=2)
+    g_rep = torch.where(m.new_run[..., None], g_rep, 0.0).reshape(-1, 2)
+    idx = ids[:, None].expand_as(m.sorted_p)
+    data_max = torch.full_like(m.sorted_p, NEG_INF).scatter_reduce(
+        0, idx, m.sorted_p.detach(), "amax")
+    data_max_safe = torch.where(torch.isfinite(data_max), data_max, 0.0)
+    ex = torch.exp(m.sorted_p - data_max_safe.index_select(0, ids))
+    sums = torch.zeros_like(ex).index_add(0, ids, ex)
+    empty = sums == 0.0
+    g_merged = torch.zeros_like(g_rep).index_add(0, ids, g_rep)
+    g_sums = torch.where(empty, 0.0, torch.where(empty, 0.0, g_merged)
+                         / torch.where(empty, 1.0, sums))
+    g_sorted = (g_sums.index_select(0, ids) * ex).reshape(num_b, n_cand, 2)
+    return torch.zeros_like(g_sorted).scatter_add(
+        1, m.order[..., None].expand(-1, -1, 2), g_sorted)
+
+
+def _frame_grad(state, m: _Merge, lp_t, live, blank, l_cap: int, merge_repeats: bool,
+                g_pb, g_pnb):
+    """One frame of :func:`beam_search_grad_plain`'s reverse chain: from the
+    adjoints of the frame's selected beams ``(g_pb, g_pnb)`` [B, K], those
+    of its parent beams and the frame's ``d_logprobas`` [B, V], in
+    autograd's order through :func:`_pool` (the sums over beams and tokens
+    in torch's CPU order: :func:`ilp_sum` over the stays' strided adjoints,
+    :func:`beam_sum`, :func:`lane_sum`; the scatter of ``last_lp``'s
+    adjoints in beam order)."""
+    _, length, last, _, _, pb, pnb = state
+    num_b, k = pb.shape
+    vocab = lp_t.shape[1]
+    tok_ids = torch.arange(vocab, device=lp_t.device)
+    g_pool = _merge_grad(m, g_pb, g_pnb).reshape(num_b, k, 1 + vocab, 2)
+    g_stay_pb, g_stay_pnb = g_pool[:, :, 0, 0], g_pool[:, :, 0, 1]
+    dead = ((tok_ids == blank)[None, None, :] | (length >= l_cap)[..., None]
+            | ~live[:, None, None])
+    g_ext = torch.where(dead, 0.0, g_pool[:, :, 1:, 1])  # [B, K, V]
+    g_tok = beam_sum(g_ext)
+    if merge_repeats:
+        is_last = tok_ids == last[..., None]
+        g_tot = g_stay_pb + lane_sum(torch.where(is_last, 0.0, g_ext))
+        g_pb, g_pnb = logsumexp_grad(pb, pnb, g_tot,
+                                     lane_sum(torch.where(is_last, g_ext, 0.0)),
+                                     g_stay_pnb)
+        # gather's adjoint: scatter_add, beam by beam as on the CPU (on the
+        # card scatter_add adds in no fixed order)
+        g_last = torch.where(last >= 0, g_stay_pnb, 0.0)
+        at = torch.clamp(last, min=0)
+        scattered = torch.zeros_like(g_tok)
+        for q in range(k):
+            scattered = scattered + torch.where(tok_ids == at[:, q, None], g_last[:, q, None],
+                                                0.0)
+        g_tok = g_tok + scattered
+    else:
+        g_tot = g_stay_pb + lane_sum(g_ext)
+        g_pb, g_pnb = logsumexp_grad(pb, pnb, g_tot)
+    g_blank = torch.where(live, ilp_sum(list(g_stay_pb.unbind(1))), 0.0)
+    g_lp = (torch.where(live[:, None], g_tok, 0.0)
+            + torch.zeros_like(g_tok).index_add(1, blank.reshape(1), g_blank[:, None]))
+    return g_pb, g_pnb, g_lp
+
+
+def beam_search_grad_plain(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                           blank: torch.Tensor, beam_width: int, max_length: int,
+                           merge_repeats: bool, grad: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernels ``classic_beam_search_grad`` and
+    ``simplified_beam_search_grad``, out of place: the loop's frames again
+    (:func:`_pool`, :func:`_merge`), keeping each frame's parent beams and
+    merge, then the reverse chain from the last frame down.  The final
+    scores' adjoints are ``grad`` through the stable re-sort, then
+    :func:`logsumexp_grad`; each frame passes them through its merge and
+    pool (:func:`_frame_grad`).  A frame past a row's ``logit_length``
+    gives its log-probabilities nothing.  Bit for bit autograd through
+    :func:`beam_search_plain` on CPU tensors; differentiable itself."""
+    num_b, num_t, vocab = logprobas.shape
+    state = _initial_beams(num_b, beam_width, 0, logprobas.device)
+    frames = []
+    for t in range(num_t):
+        live = t < logit_length
+        c_length, c_last, c_h1, c_h2, c_p = _pool(state, logprobas[:, t], live, blank,
+                                                  max_length, merge_repeats)
+        m = _merge(c_h1, c_h2, c_p, beam_width)
+        frames.append((state, m, live))
+        sel = torch.gather(m.order, 1, m.top)
+        state = (None, torch.gather(c_length, 1, sel), torch.gather(c_last, 1, sel),
+                 torch.gather(c_h1, 1, sel), torch.gather(c_h2, 1, sel), m.pb, m.pnb)
+    pb, pnb = state[5], state[6]
+    score = _lse(pb, pnb)
+    order = torch.argsort(-score, dim=1, stable=True)
+    g_pb, g_pnb = logsumexp_grad(pb, pnb, torch.zeros_like(score).scatter_add(1, order, grad))
+    d_lp = []
+    for t in range(num_t - 1, -1, -1):
+        state, m, live = frames[t]
+        g_pb, g_pnb, g_lp = _frame_grad(state, m, logprobas[:, t], live, blank, max_length,
+                                        merge_repeats, g_pb, g_pnb)
+        d_lp.append(g_lp)
+    if not num_t:
+        return torch.zeros_like(logprobas)
+    return torch.stack(d_lp[::-1], dim=1)
+
+
+_beam_search_grad_op = kernel_op("beam_search_grad", beam_search_grad_plain)
+register_fold(_beam_search_grad_op, (0, 0, None, None, None, None, 0), (0,))
+_beam_search_grad = plain_grad("beam_search_grad", beam_search_grad_plain, (0, 6), (0,))
+_beam_search = op_with_grad(
+    "beam_search", (0,), lambda args, grads: (beam_search_grad(*args, grads[2]),))
+
+
+@_beam_search_grad_op.register_fake
+def _beam_search_grad_fake(logprobas, logit_length, blank, beam_width, max_length,
+                           merge_repeats, grad):
+    return torch.empty_like(logprobas)
+
+
+def classic_beam_search_grad(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                             blank: torch.Tensor, beam_width: int, max_length: int,
+                             grad: torch.Tensor) -> torch.Tensor:
+    """The kernel ``classic_beam_search_grad``: the backward op with
+    ``merge_repeats``.  ``.launches`` counts its launches."""
+    return beam_search_grad(logprobas, logit_length, blank, beam_width, max_length, True,
+                            grad)
+
+
+def simplified_beam_search_grad(logprobas: torch.Tensor, logit_length: torch.Tensor,
+                                blank: torch.Tensor, beam_width: int, max_length: int,
+                                grad: torch.Tensor) -> torch.Tensor:
+    """The kernel ``simplified_beam_search_grad``: the backward op without
+    ``merge_repeats``."""
+    return beam_search_grad(logprobas, logit_length, blank, beam_width, max_length, False,
+                            grad)
+
+
+classic_beam_search_grad.launches = 0
+simplified_beam_search_grad.launches = 0
+
+
+@_beam_search_grad_op.register_kernel("cuda")
+def _beam_search_grad_launch(logprobas, logit_length, blank, beam_width, max_length,
+                             merge_repeats, grad):
+    """Launch csrc/beam_search.cu's backward: the forward's frames again in
+    the forward's workspace (shared memory or a global row, as
+    :func:`_beam_search_launch`), each frame's record of its parent beams
+    and selected runs [B, T, K, 7] in a global scratch, then the reverse
+    chain in the same workspace."""
+    num_b, num_t, vocab = logprobas.shape
+    dev = logprobas.device
+    check_tensor(logprobas, (num_b, num_t, vocab), torch.float32, "logprobas", dev)
+    check_tensor(logit_length, (num_b,), torch.int64, "logit_length", dev)
+    check_tensor(blank, (), torch.int64, "blank", dev)
+    check_tensor(grad, (num_b, beam_width), torch.float32, "grad", dev)
+    staged = _build.fits(("beam_search",), vocab, beam_width, dev)
+    row = _build.SMEM_BYTES["beam_search"](vocab, beam_width)
+    gws = torch.empty(0 if staged else num_b * row, dtype=torch.uint8, device=dev)
+    record = torch.empty((num_b, num_t, beam_width, 7), dtype=torch.int32, device=dev)
+    d_lp = torch.empty_like(logprobas)
+    kernel = classic_beam_search_grad if merge_repeats else simplified_beam_search_grad
+    _build.launch("beam_search", "ctc_beam_search_grad", kernel.__name__, dev, logprobas,
+                  logit_length, blank, grad, num_b, num_t, vocab, beam_width, max_length,
+                  int(merge_repeats), int(staged), gws, record, d_lp)
+    if num_b:
+        kernel.launches += 1
+    return d_lp
 
 
 # ---------------------------------------------------------------------------
